@@ -1,0 +1,136 @@
+"""MoE FFN layer: router + UCCL-EP dispatch/combine + grouped expert SwiGLU,
+plus the always-on shared expert that bypasses dispatch (qwen2-moe style):
+the port of ``repro.core.moe``.
+
+With an EP world (``dist.ep_axes``) the layer splits its ``B*S`` tokens
+row-major into P equal rank slices and runs the backend over the
+rank-stacked world; without one (``dist=None`` or ``mode="ref"``) it runs
+the dense oracle :func:`~repro_torch.core.ep.moe_ref`, as the JAX package
+does without a mesh.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, _round_up
+from repro_torch.core import plan as planlib
+from repro_torch.core.backend import get_backend
+from repro_torch.core.ep import EPSpec, moe_ref
+from repro_torch.core.routing import RouterParams, route, router_init
+from repro_torch.distributed.sharding import DistCtx
+from repro_torch.kernels import ops as kops
+from repro_torch.models.layers import mlp_init, swiglu
+
+Tensor = torch.Tensor
+
+
+def padded_experts_static(cfg: ModelConfig) -> int:
+    """Mesh-independent padded expert count (divisible by 16, and by 32
+    when the model has >= 32 experts)."""
+    e = cfg.moe.n_experts
+    return _round_up(e, 32) if e >= 32 else _round_up(e, 16)
+
+
+def moe_init(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
+    m = cfg.moe
+    e_pad = padded_experts_static(cfg)
+    d, f = cfg.d_model, m.d_expert
+    s, so = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
+    r = router_init(d, e_pad, gen, m.router_aux_free_bias, device)
+    out = {
+        "router_w": r.w,
+        "w_gate": torch.randn((e_pad, d, f), generator=gen, device=device) * s,
+        "w_up": torch.randn((e_pad, d, f), generator=gen, device=device) * s,
+        "w_down": torch.randn((e_pad, f, d), generator=gen, device=device) * so,
+    }
+    if r.bias is not None:
+        out["router_b"] = r.bias
+    if m.d_shared:
+        out["shared"] = mlp_init(d, m.d_shared, gen, device)
+    return out
+
+
+def _expert_fn(wg: Tensor, wu: Tensor, wd: Tensor):
+    """Occupancy-carrying expert_fn over the whole rank-stacked world:
+    ``fn(tokens, counts)`` applies the grouped SwiGLU to (E, C, D) buffers,
+    skipping rows beyond each bucket's count, and ``fn.fused`` is the fused
+    gather -> SwiGLU -> scatter the HT compute uses."""
+    def fn(tokens, counts=None):
+        return kops.grouped_swiglu(tokens, wg, wu, wd, counts)
+
+    def fused(x_ext, src_of_slot, w_slot, counts=None):
+        return kops.gather_swiglu_scatter(x_ext, src_of_slot, w_slot,
+                                          wg, wu, wd, counts)
+    fn.fused = fused
+    return fn
+
+
+def make_ep_spec(cfg: ModelConfig, dist: DistCtx, *, mode: str,
+                 chunks: int = 1, dtype=torch.bfloat16) -> EPSpec:
+    cf = (cfg.moe.ll_capacity_factor if mode == "ll"
+          else cfg.moe.capacity_factor)
+    return EPSpec(axes=tuple(dist.ep_axes), sizes=tuple(dist.ep_sizes),
+                  n_experts=padded_experts_static(cfg), top_k=cfg.moe.top_k,
+                  capacity_factor=cf, chunks=chunks, dtype=dtype,
+                  mode=("ll" if mode == "ll" else "ht"),
+                  wire_dtype=cfg.moe.wire_dtype)
+
+
+def moe_apply(cfg: ModelConfig, dist: Optional[DistCtx], p: dict, x: Tensor,
+              *, mode: str = "ht", chunks: int = 1,
+              backend=None) -> tuple[Tensor, dict]:
+    """x: (B, S, D) -> (y, aux).  mode: "ht" | "ll" | "ref".  ``backend``
+    (default ``cfg.moe.ep_backend``) is a registered name or an instance."""
+    B, S, D = x.shape
+    mcfg = cfg.moe
+    e_pad = p["w_gate"].shape[0]
+    rparams = RouterParams(w=p["router_w"], bias=p.get("router_b"))
+    be = backend if backend is not None else mcfg.ep_backend
+    ep_be = get_backend(be) if isinstance(be, str) else be
+
+    if dist is None or not dist.ep_axes or mode == "ref":
+        t = x.reshape(-1, D)
+        rout = route(mcfg, rparams, t, mcfg.n_experts)
+        y = moe_ref(t, rout.top_idx, rout.top_w, p["w_gate"], p["w_up"],
+                    p["w_down"]).reshape(B, S, D)
+        load = planlib.expert_load(rout.top_idx, e_pad)
+        # imbalance over the real experts: pads never receive tokens
+        aux = {"aux_loss": rout.aux_loss,
+               "dropped": torch.zeros((), device=x.device),
+               "load": load,
+               "imbalance": planlib.load_imbalance(load[:mcfg.n_experts])}
+    else:
+        y, aux = _moe_dist(cfg, dist, rparams, p, x, mode, chunks, ep_be)
+
+    if mcfg.d_shared and "shared" in p:
+        y = y + swiglu(p["shared"], x)
+    return y, aux
+
+
+def _moe_dist(cfg: ModelConfig, dist: DistCtx, rparams: RouterParams,
+              p: dict, x: Tensor, mode: str, chunks: int,
+              ep_backend) -> tuple[Tensor, dict]:
+    B, S, D = x.shape
+    mcfg = cfg.moe
+    spec = make_ep_spec(cfg, dist, mode=mode, chunks=chunks, dtype=x.dtype)
+    R = spec.degree
+    if (B * S) % R:
+        raise ValueError(f"{B * S} tokens do not split over {R} EP ranks")
+    # the B*S tokens split row-major into R equal rank slices.  The JAX
+    # decode mesh instead replicates the batch on every model-axis rank;
+    # per token the result is the same, because LL capacity is floored at
+    # min(T*K, 32) (ep.py _cap), so neither layout drops a decode token.
+    t = x.reshape(R, (B * S) // R, D)
+    rout = route(mcfg, rparams, t, mcfg.n_experts)
+    fn = _expert_fn(p["w_gate"], p["w_up"], p["w_down"])
+    res = ep_backend.dispatch_combine(spec, t, rout.top_idx, rout.top_w, fn)
+    load = planlib.expert_load(rout.top_idx, spec.n_experts)
+    aux = {"aux_loss": rout.aux_loss.mean(),
+           "dropped": res.aux["dropped"].mean(),
+           "occupancy": res.aux["occupancy"].to(torch.float32).mean(),
+           "load": load,
+           "imbalance": planlib.load_imbalance(load[:mcfg.n_experts])}
+    return res.out.reshape(B, S, D), aux

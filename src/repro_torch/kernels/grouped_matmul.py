@@ -1,0 +1,182 @@
+"""Grouped expert SwiGLU kernels: the port of ``repro.kernels.grouped_matmul``
+(``grouped_swiglu_pallas`` and ``gather_swiglu_scatter_pallas``).
+
+Each kernel has a plain PyTorch version here (``*_plain``: what the CPU
+path runs and what the CUDA kernel is held against on the card) and a
+wrapper (``*_cuda``) that checks its inputs, allocates outputs and
+scratch, and launches the hand-written CUDA kernel in
+``csrc/grouped_swiglu.cu`` / ``csrc/gather_swiglu_scatter.cu`` on the
+current stream.  The wrappers take bf16 activations and weights and raise
+on anything else; each counts its launches in ``.launches``.
+
+The plain versions follow the kernels' rounding points: gate/up/down
+products accumulate in fp32 from the working-dtype inputs, and the SwiGLU
+activation ``h`` rounds to ``x.dtype`` before the down projection (the TPU
+kernel's cast at grouped_matmul.py:144).  In fp32 they equal the reference
+oracles of ``repro.kernels.ref``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.plan import occupancy_mask
+from repro_torch.kernels import build
+
+Tensor = torch.Tensor
+
+
+def _flat_counts(counts, G: int, C: int, device):
+    """(counts (G*B,) int32 clipped to the sub-bucket size, B) from (G,)
+    or (G, B) counts."""
+    if counts is None:
+        return torch.full((G,), C, dtype=torch.int32, device=device), 1
+    if counts.dim() not in (1, 2) or counts.shape[0] != G:
+        raise ValueError(f"counts of shape {tuple(counts.shape)} for {G} groups")
+    B = 1 if counts.dim() == 1 else counts.shape[1]
+    if B == 0 or C % B:
+        raise ValueError(f"{B} sub-buckets do not divide capacity {C}")
+    return torch.clamp(counts.to(torch.int32).reshape(-1), max=C // B), B
+
+
+def _swiglu_rows(x: Tensor, wg: Tensor, wu: Tensor, wd: Tensor) -> Tensor:
+    """x (..., C, D) @ per-expert weights -> fp32 (..., C, D)."""
+    f32 = torch.float32
+    g = torch.matmul(x.to(f32), wg.to(f32))
+    u = torch.matmul(x.to(f32), wu.to(f32))
+    h = (g * torch.sigmoid(g) * u).to(x.dtype)
+    return torch.matmul(h.to(f32), wd.to(f32))
+
+
+# ========================================================= grouped swiglu ==
+def grouped_swiglu_plain(x: Tensor, w_gate: Tensor, w_up: Tensor,
+                         w_down: Tensor, counts: Tensor | None = None) -> Tensor:
+    """x (E, C, D); w_* (E, D, F) / (E, F, D); counts (E,) or (E, B).
+    Rows beyond occupancy are exact zeros.  Returns x.dtype."""
+    E, C, _ = x.shape
+    if counts is not None:
+        x = torch.where(occupancy_mask(counts, E, C)[..., None], x,
+                        torch.zeros((), dtype=x.dtype, device=x.device))
+    return _swiglu_rows(x, w_gate, w_up, w_down).to(x.dtype)
+
+
+def _check_cuda(name: str, **tensors) -> None:
+    for k, t in tensors.items():
+        if not t.is_cuda:
+            raise ValueError(f"{name}: {k} is not a CUDA tensor ({t.device})")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {k} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {k} must be 16-byte aligned")
+
+
+def _check_weights(name, x, w_gate, w_up, w_down, E, D):
+    F = w_gate.shape[2]
+    for k, w, shape in (("w_gate", w_gate, (E, D, F)), ("w_up", w_up, (E, D, F)),
+                        ("w_down", w_down, (E, F, D))):
+        if tuple(w.shape) != shape:
+            raise ValueError(f"{name}: {k} shape {tuple(w.shape)} != {shape}")
+        if w.dtype != torch.bfloat16:
+            raise ValueError(f"{name}: {k} must be bfloat16, got {w.dtype}")
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"{name}: activations must be bfloat16, got {x.dtype}")
+    if D % 8 or F % 8:
+        raise ValueError(f"{name}: D={D} and F={F} must be multiples of 8")
+    return F
+
+
+def grouped_swiglu_cuda(x: Tensor, w_gate: Tensor, w_up: Tensor,
+                        w_down: Tensor, counts: Tensor | None = None) -> Tensor:
+    """CUDA kernel for :func:`grouped_swiglu_plain` (bf16 in and out)."""
+    name = "grouped_swiglu"
+    E, C, D = x.shape
+    F = _check_weights(name, x, w_gate, w_up, w_down, w_gate.shape[0], D)
+    if E != w_gate.shape[0]:
+        raise ValueError(f"{name}: {E} groups for {w_gate.shape[0]} experts")
+    cnt, B = _flat_counts(counts, E, C, x.device)
+    cnt = cnt.contiguous()
+    _check_cuda(name, x=x, w_gate=w_gate, w_up=w_up, w_down=w_down, cnt=cnt)
+    G, Cg = E * B, C // B
+    y = torch.empty_like(x)
+    if x.numel() == 0:
+        return y
+    h = torch.empty((G * Cg, F), dtype=x.dtype, device=x.device)
+    lib = build.library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.grouped_swiglu_launch(
+            x.data_ptr(), cnt.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
+            w_down.data_ptr(), h.data_ptr(), y.data_ptr(), G, Cg, B, D, F,
+            stream)
+    build.check(err, name)
+    grouped_swiglu_cuda.launches += 1
+    return y
+
+
+grouped_swiglu_cuda.launches = 0
+
+
+# ================================== fused gather -> swiglu -> scatter =====
+def gather_swiglu_scatter_plain(x_ext: Tensor, src_of_slot: Tensor,
+                                w_slot: Tensor, w_gate: Tensor, w_up: Tensor,
+                                w_down: Tensor,
+                                counts: Tensor | None = None) -> Tensor:
+    """x_ext (T+1, D) with zero scratch row T; src_of_slot / w_slot (E*C,);
+    counts (E,).  Each occupied slot adds ``w_slot * swiglu(x_ext[src])``
+    in fp32 into row ``src``; returns (T, D) fp32.  The expert output is
+    not rounded before the weighted add (the fused kernel keeps it fp32)."""
+    E = w_gate.shape[0]
+    Tp1, D = x_ext.shape
+    C = src_of_slot.shape[0] // E
+    src = src_of_slot.to(torch.int64)
+    buf = x_ext[src].reshape(E, C, D)
+    keep = (occupancy_mask(counts, E, C).reshape(-1) if counts is not None
+            else torch.ones(E * C, dtype=torch.bool, device=x_ext.device))
+    buf = torch.where(keep.reshape(E, C, 1), buf,
+                      torch.zeros((), dtype=buf.dtype, device=buf.device))
+    y = _swiglu_rows(buf, w_gate, w_up, w_down).reshape(E * C, D)
+    w = torch.where(keep, w_slot.to(torch.float32), 0.0)
+    out = torch.zeros((Tp1, D), dtype=torch.float32, device=x_ext.device)
+    out.index_add_(0, torch.where(keep, src, Tp1 - 1), y * w[:, None])
+    return out[:-1]
+
+
+def gather_swiglu_scatter_cuda(x_ext: Tensor, src_of_slot: Tensor,
+                               w_slot: Tensor, w_gate: Tensor, w_up: Tensor,
+                               w_down: Tensor,
+                               counts: Tensor | None = None) -> Tensor:
+    """CUDA kernel for :func:`gather_swiglu_scatter_plain`: bf16 table and
+    weights, fp32 ``w_slot``, (T, D) fp32 out (atomics: run-to-run order)."""
+    name = "gather_swiglu_scatter"
+    Tp1, D = x_ext.shape
+    E = w_gate.shape[0]
+    F = _check_weights(name, x_ext, w_gate, w_up, w_down, E, D)
+    n_slots = src_of_slot.shape[0]
+    if n_slots % E or w_slot.shape != (n_slots,):
+        raise ValueError(f"{name}: {n_slots} slots / w_slot {tuple(w_slot.shape)} "
+                         f"do not fit {E} experts")
+    C = n_slots // E
+    src = src_of_slot.to(torch.int32).contiguous()
+    ws = w_slot.to(torch.float32).contiguous()
+    cnt, B = _flat_counts(counts, E, C, x_ext.device)
+    if B != 1:
+        raise ValueError(f"{name}: takes flat per-expert counts")
+    cnt = cnt.contiguous()
+    _check_cuda(name, x_ext=x_ext, src=src, w_slot=ws, cnt=cnt, w_gate=w_gate,
+                w_up=w_up, w_down=w_down)
+    out = torch.zeros((Tp1, D), dtype=torch.float32, device=x_ext.device)
+    if n_slots == 0 or Tp1 == 0:
+        return out[:-1]
+    h = torch.empty((n_slots, F), dtype=x_ext.dtype, device=x_ext.device)
+    lib = build.library()
+    with torch.cuda.device(x_ext.device):
+        stream = torch.cuda.current_stream(x_ext.device).cuda_stream
+        err = lib.gather_swiglu_scatter_launch(
+            x_ext.data_ptr(), src.data_ptr(), ws.data_ptr(), cnt.data_ptr(),
+            w_gate.data_ptr(), w_up.data_ptr(), w_down.data_ptr(),
+            h.data_ptr(), out.data_ptr(), Tp1, E, C, D, F, stream)
+    build.check(err, name)
+    gather_swiglu_scatter_cuda.launches += 1
+    return out[:-1]
+
+
+gather_swiglu_scatter_cuda.launches = 0
