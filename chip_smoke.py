@@ -8,40 +8,60 @@ Phases, each printed as one JSON line:
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: the hand-written CUDA kernels (src/repro_torch/csrc) built with
    nvcc for sm_90a, and the seconds it took;
-3. serve (the main path): qwen2-moe-a2.7b at full width and depth (24
+3. serve (the serving path): qwen2-moe-a2.7b at full width and depth (24
    layers; random weights from a seed) served through
    ``repro_torch.launch.serve.generate`` over a rank-stacked EP world of 4:
    batch 4, prompt 256, 16 generated tokens on the fp32 wire, then a
    shorter run (4 tokens) on the fp8 wire.  Batched HT prefill and LL
-   decode go through the four kernels; every kernel's launch count is set
-   to 0 just before and read just after, and must be > 0;
+   decode go through the four EP kernels; their launch counts are set to 0
+   just before and read just after, and must be > 0;
 4. profile: the fp32 serve once more (run-to-run spread), then one
    prefill and one decode step under torch.profiler (device busy share,
    the device activities and host operators that take the most time);
 5. moe_served: HT at the served shape (1024 tokens), on the MoE inputs
    one prefill recorded: per-layer drops, and layer 0 and the layer that
    drops most against the dense oracle with no choice dropped;
-6. kernels: each kernel, on the inputs of the first call of each kind
-   (shapes) it had in the main path — for the wire kernels, the HT prefill
-   and the LL decode dispatch — against its plain PyTorch version:
-   gather_quantize and dequantize bit for bit, grouped_swiglu and
+6. kernel (EP): each EP kernel, on the inputs of the first call of each
+   kind (shapes) it had in the serving path -- for the wire kernels, the
+   HT prefill and the LL decode dispatch -- against its plain PyTorch
+   version: gather_quantize and dequantize bit for bit, grouped_swiglu and
    gather_swiglu_scatter within a stated tolerance; with CUDA-event times
    (median of 20 after 3 warm-ups) of the kernel and the plain version,
    and the bound the card's peak rates set for the same work;
 7. moe_layer: the routed part of ``moe_apply`` (the shared expert, which
    bypasses EP, left out) at full width (256 tokens) against the port's
    dense oracle ``moe_ref`` for LL/HT, one-level P=4 and two-level (2, 2),
-   fp32/fp8/int8 wires, with no dropped tokens.
+   fp32/fp8/int8 wires, with no dropped tokens;
+8. train (the training path): the serving model is freed, then
+   falcon-mamba-7b at full width (d_model 4096, d_inner 8192, vocab
+   65,024) and 16 of its 64 layers (the depth the card's memory allows
+   for fp32 AdamW state), random fp32 weights from a seed, takes 5 AdamW
+   steps (peak lr 3e-4, warm-up 1) on batch 4 x 1024 synthetic tokens
+   through ``repro_torch.training.train_loop``.  Per step: loss, grad norm
+   and seconds; tokens/s over steps 2-5; peak device memory; the launch
+   counts of ``mamba_scan`` and ``mamba_scan_bwd`` (set to 0 just before,
+   read just after, both > 0).  Every loss and grad norm must be finite,
+   and the last loss below the first;
+9. train_profile: one more step under torch.profiler, and the time of
+   one AdamW update of every parameter;
+10. kernel (scan): ``mamba_scan`` on the inputs of its first call of each
+   kind in the train phase against the plain version, and
+   ``mamba_scan_bwd`` on the same inputs with a seeded dy against
+   ``torch.autograd.grad`` through the plain version, all six gradients;
+   both timed beside their bound and the plain version's time.
 
-Then the kernels line ``{"kernels": [...]}``, the nvidia-smi line, and as
-the last line ``{"ok": true, "device": {...}}``.  Any failed check raises
-and the exit code is not 0.  Without a CUDA device, or without the rest of
-the repository beside it, it exits non-zero and prints no result.
+Then the kernels line ``{"kernels": [...]}`` (all six kernels), the
+nvidia-smi line, and as the last line ``{"ok": true, "device": {...}}``.
+Any failed check raises and the exit code is not 0.  Without a CUDA
+device, or without the rest of the repository beside it, it exits
+non-zero and prints no result.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -63,7 +83,15 @@ KERNEL_INFO = {  # name: (source, the TPU kernel it replaces)
                         "src/repro/kernels/quantize_pack.py:105"),
     "dequantize": ("src/repro_torch/csrc/dequantize.cu",
                    "src/repro/kernels/quantize_pack.py:161"),
+    # the TPU package has no backward kernel: it differentiates the oracle
+    # of the kernel below, which mamba_scan_bwd replaces on the card
+    "mamba_scan": ("src/repro_torch/csrc/mamba_scan.cu",
+                   "src/repro/kernels/mamba_scan.py:53"),
+    "mamba_scan_bwd": ("src/repro_torch/csrc/mamba_scan.cu",
+                       "src/repro/kernels/mamba_scan.py:53"),
 }
+EP_KERNELS = ("grouped_swiglu", "gather_swiglu_scatter", "gather_quantize",
+              "dequantize")
 # max |kernel - plain| allowed, as a fraction of max |plain| (None: bitwise)
 KERNEL_TOL = {
     # h and y round to bf16 (2^-8 relative each) on both sides, after fp32
@@ -73,7 +101,25 @@ KERNEL_TOL = {
     "gather_swiglu_scatter": 5e-3,
     "gather_quantize": None,
     "dequantize": None,
+    # fp32 on both sides; expf and FMA contraction differ from torch's exp
+    # and separate roundings by ulps, which the decaying recurrence carries
+    "mamba_scan": 1e-5,
+    # per gradient: dA, dB, dC and dD are sums over thousands of terms
+    # (time and batch, or channels) added with fp32 atomics in any order
+    "mamba_scan_bwd": 1e-4,
 }
+# exponentials run on the special-function units: 16 per SM per clock,
+# 132 SMs, 1.98 GHz boost (H100 SXM); one accurate expf is at least one
+SFU_OP_PER_S = 16 * 132 * 1.98e9
+# the scan's fp32 operations per (b, t, d, n): forward dt*A, dt*B*x (2),
+# the state FMA (2) and the output FMA (2); backward the forward's 7 to
+# recompute h, and 19 to carry dh and form the five gradient terms and
+# their sums.  Exponentials per (b, t, d, n): forward 1, backward 2
+SCAN_FWD_OPS, SCAN_BWD_OPS = 7, 26
+SCAN_FWD_EXPS, SCAN_BWD_EXPS = 1, 2
+# the training path: 16 of falcon-mamba-7b's 64 layers at full width (the
+# depth whose fp32 AdamW state fits the card), batch 4 x 1024, 5 steps
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 4, 1024, 5
 # moe_apply vs the dense oracle, max error over max |oracle|: the fp32
 # wire keeps bf16 activations (h, the LL expert output and the combined
 # output each round to bf16); fp8/int8 as the reference's DESIGN.md §14
@@ -106,8 +152,8 @@ class Recorder:
         key = (tuple(tuple(a.shape) if hasattr(a, "shape") else a
                      for a in args), tuple(sorted(kwargs.items())))
         if key not in self.cases:
-            self.cases[key] = (tuple(a.clone() if hasattr(a, "clone") else a
-                                     for a in args), dict(kwargs))
+            self.cases[key] = (tuple(a.detach().clone() if hasattr(a, "clone")
+                                     else a for a in args), dict(kwargs))
         return self.fn(*args, **kwargs)
 
 
@@ -227,13 +273,31 @@ def check_kernel(name, rec, launches) -> dict:
             "cases": cases}
 
 
+# device activities by kind, from their names: (kind, name fragments)
+DEVICE_KINDS = (("scan kernels", ("scan_fwd_kernel", "scan_bwd_kernel")),
+                ("EP kernels", ("swiglu_tiles", "gather_quantize",
+                                "dequantize_kernel")),
+                ("cuBLAS GEMM", ("nvjet", "gemm", "cutlass", "xmma")),
+                ("copies and casts", ("copy", "Memcpy", "Memset")),
+                ("reductions", ("reduce", "Reduce", "softmax", "Softmax")),
+                ("elementwise", ("elementwise",)))
+
+
+def device_kind(name: str) -> str:
+    for kind, frags in DEVICE_KINDS:
+        if any(f in name for f in frags):
+            return kind
+    return "other"
+
+
 def profile_step(what: str, step) -> dict:
     """``step()`` once under torch.profiler: the device's busy share of the
     step's wall time (the union of the device activities' intervals: the
-    kernels, copies and fills the card ran), the device activities with the
-    most time, and the host operators with the most self time.  Host
-    operators (``aten::mm``, ...) also carry the device time of the kernels
-    they launch; only device rows count as device time here."""
+    kernels, copies and fills the card ran), the device time by kind of
+    activity, the device activities with the most time, and the host
+    operators with the most self time.  Host operators (``aten::mm``, ...)
+    also carry the device time of the kernels they launch; only device rows
+    count as device time here."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -261,11 +325,18 @@ def profile_step(what: str, step) -> dict:
             host_rows.append((ev.self_cpu_time_total, ev.key, ev.count))
     dev_rows.sort(reverse=True)
     host_rows.sort(reverse=True)
+    by_kind: dict = {}
+    for us, k, c in dev_rows:
+        kind = by_kind.setdefault(device_kind(k), {"device_ms": 0.0,
+                                                   "calls": 0})
+        kind["device_ms"] += us / 1e3
+        kind["calls"] += c
     busy_ms = busy_us / 1e3
     return {"phase": "profile", "what": what, "wall_ms": wall * 1e3,
             "device_busy_ms": busy_ms if spans else None,
             "device_busy_share": (busy_ms / (wall * 1e3)) if spans else None,
             "device_activities": len(spans),
+            "device_ms_by_kind": by_kind,
             "top_device": [{"name": k[:80], "device_ms": us / 1e3,
                             "calls": c} for us, k, c in dev_rows[:8]],
             "top_host_self": [{"name": k[:80], "host_ms": us / 1e3,
@@ -305,8 +376,8 @@ def moe_served(cfg, params, prompts, dist) -> dict:
 
     seen = []
 
-    def record(c, d, p, x, *, mode, chunks):
-        y, aux = moe_apply(c, d, p, x, mode=mode, chunks=chunks)
+    def record(c, d, p, x, **kw):
+        y, aux = moe_apply(c, d, p, x, **kw)
         seen.append((x.clone(), float(aux["dropped"]),
                      float(aux["imbalance"])))
         return y, aux
@@ -357,18 +428,209 @@ def moe_served(cfg, params, prompts, dist) -> dict:
             "checks": checks}
 
 
+def scan_bound(name: str, args) -> tuple[float, str, dict]:
+    """Least time for one scan call (forward, or backward from the chunk
+    states): the larger of its bytes (fp32 inputs read once, outputs
+    written once) over the memory rate and its operations, each type over
+    its own rate: the fp32 arithmetic over the fp32 rate, the
+    exponentials over the SFU rate (the two pipes run side by side, so the
+    slower one bounds)."""
+    x, _, A, _, _, _ = args[:6]
+    Bt, S, Di = x.shape
+    N = A.shape[1]
+    elems = Bt * S * Di
+    small = Di * N + Di                                   # A, D
+    if name == "mamba_scan":
+        nbytes = 4 * (3 * elems + 2 * Bt * S * N + small)  # x, dt, y; B, C
+        ops, exps = SCAN_FWD_OPS * elems * N, SCAN_FWD_EXPS * elems * N
+    else:
+        n_chunks = args[6].shape[1]
+        # x, dt, dy in and dx, ddt out; the chunk states; B, C in and
+        # dB, dC out; A, D in and dA, dD out
+        nbytes = 4 * (5 * elems + Bt * n_chunks * Di * N + 4 * Bt * S * N
+                      + 2 * small)
+        ops, exps = SCAN_BWD_OPS * elems * N, SCAN_BWD_EXPS * elems * N
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_fp32, t_exp = ops / FP32_FLOP_PER_S, exps / SFU_OP_PER_S
+    t_ops = max(t_fp32, t_exp)
+    work = {"bytes": nbytes, "bytes_ms": t_bytes * 1e3, "fp32_ops": ops,
+            "fp32_ms": t_fp32 * 1e3, "exponentials": exps,
+            "exp_ms": t_exp * 1e3}
+    if t_bytes >= t_ops:
+        return t_bytes * 1e3, "bytes", work
+    return t_ops * 1e3, "operations", work
+
+
+def check_scan(rec, launches: dict) -> list:
+    """``mamba_scan`` and ``mamba_scan_bwd`` on each kind of call the
+    training path made to the scan, against the plain version (forward)
+    and autograd through it (backward, seeded dy); both timed."""
+    import torch
+
+    from repro_torch.kernels import mamba_scan as ms
+    if not rec.cases:
+        raise RuntimeError("mamba_scan: the training path never called it")
+    fwd_cases, bwd_cases = [], []
+    names = ("dx", "ddt", "dA", "dB", "dC", "dD")
+    for args, _ in rec.cases.values():
+        with torch.no_grad():
+            y, states = ms._scan_fwd(*args, save_states=True)
+            ref = ms.mamba_scan_plain(*args)
+        torch.cuda.synchronize()
+        err = float((y - ref).abs().max())
+        scale = float(ref.abs().max())
+        if not torch.isfinite(y).all() or err > KERNEL_TOL["mamba_scan"] * scale:
+            raise AssertionError(f"mamba_scan: max |err| {err} > "
+                                 f"{KERNEL_TOL['mamba_scan']} * {scale}")
+        del y, ref
+        bound_ms, bound_by, work = scan_bound("mamba_scan", args)
+        with torch.no_grad():
+            fwd_cases.append({
+                "max_abs_err": err, "max_abs_ref": scale,
+                "ms": cuda_ms(lambda: ms._scan_fwd(*args, save_states=True)),
+                "plain_ms": cuda_ms(lambda: ms.mamba_scan_plain(*args), n=5,
+                                    warmup=1),
+                "bound_ms": bound_ms, "bound_by": bound_by, "work": work,
+                "shape": list(args[0].shape)})
+        gen = torch.Generator(device=args[0].device).manual_seed(2)
+        dy = torch.randn(args[0].shape, generator=gen, device=args[0].device)
+        got = ms.mamba_scan_bwd_cuda(*args, states, dy)
+        ins = [a.detach().requires_grad_(True) for a in args]
+        y_plain = ms.mamba_scan_plain(*ins)
+        ref = torch.autograd.grad(y_plain, ins, dy, retain_graph=True)
+        torch.cuda.synchronize()
+        per = {}
+        for n, g, r in zip(names, got, ref):
+            e, sc = float((g - r).abs().max()), float(r.abs().max())
+            per[n] = {"max_abs_err": e, "max_abs_ref": sc}
+            if not torch.isfinite(g).all() or e > KERNEL_TOL["mamba_scan_bwd"] * sc:
+                raise AssertionError(f"mamba_scan_bwd {n}: max |err| {e} > "
+                                     f"{KERNEL_TOL['mamba_scan_bwd']} * {sc}")
+        del got, ref
+        bargs = (*args, states)
+        bound_ms, bound_by, work = scan_bound("mamba_scan_bwd", bargs)
+        bwd_cases.append({
+            "max_abs_err": max(v["max_abs_err"] for v in per.values()),
+            "per_gradient": per,
+            "ms": cuda_ms(lambda: ms.mamba_scan_bwd_cuda(*args, states, dy)),
+            # the plain version's backward alone, its graph built once
+            "plain_ms": cuda_ms(lambda: torch.autograd.grad(
+                y_plain, ins, dy, retain_graph=True), n=5, warmup=1),
+            "bound_ms": bound_ms, "bound_by": bound_by, "work": work})
+        del y_plain, ins, states, dy
+        gc.collect()
+        torch.cuda.empty_cache()
+    out = []
+    for name, cases in (("mamba_scan", fwd_cases), ("mamba_scan_bwd",
+                                                    bwd_cases)):
+        src, replaces = KERNEL_INFO[name]
+        out.append({"name": name, "route": "cuda", "source": src,
+                    "replaces": replaces, "launches": launches[name],
+                    **{k: cases[0][k] for k in ("ms", "plain_ms", "bound_ms",
+                                                "bound_by")},
+                    "max_abs_err": max(c["max_abs_err"] for c in cases),
+                    "library_ms": None, "tolerance": KERNEL_TOL[name],
+                    "cases": cases})
+    return out
+
+
+def train_phase(dev) -> tuple[list, "Recorder", dict]:
+    """The training path: falcon-mamba-7b at full width, 16 layers, 5 AdamW
+    steps on batch 4 x 1024 through ``train_loop``; then one more step under
+    the profiler, and one optimizer update timed.  Returns (phase lines,
+    the scan's Recorder, launches)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import ops
+    from repro_torch.optim.adamw import apply_updates, tree_leaves, tree_map
+    from repro_torch.training.train_loop import (HParams, Watchdog,
+                                                 init_state, train_loop,
+                                                 train_step)
+
+    cfg = dataclasses.replace(get_config("falcon_mamba_7b"),
+                              n_layers=TRAIN_LAYERS)
+    B, S, STEPS = TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS
+    hp = HParams(peak_lr=3e-4, warmup=1, total_steps=STEPS)
+    dc = DataConfig(vocab_size=cfg.vocab_size, batch=B, seq_len=S, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_state(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in tree_leaves(state.params))
+    original = ops.KERNELS["mamba_scan"]
+    rec = Recorder(original[0])
+    ops.KERNELS["mamba_scan"] = (rec, original[1])
+    counters = {"mamba_scan": ms.mamba_scan_cuda,
+                "mamba_scan_bwd": ms.mamba_scan_bwd_cuda}
+    for c in counters.values():
+        c.launches = 0
+    # every step trains on the same batch: a step along the gradients must
+    # then lower the loss on the batch they came from, whatever five steps
+    # on fresh batches would generalise
+    batch = synth_batch(dc, 0)
+    wd = Watchdog()
+    try:
+        state, hist = train_loop(cfg, hp, None, lambda step: batch,
+                                 steps=STEPS, state=state, watchdog=wd,
+                                 log_every=0, device=dev)
+        launches = {n: c.launches for n, c in counters.items()}
+    finally:
+        ops.KERNELS["mamba_scan"] = original
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [h["loss"] for h in hist]
+    gnorms = [h["grad_norm"] for h in hist]
+    secs = list(wd.history)
+    for n, k in launches.items():
+        if k <= 0:
+            raise AssertionError(f"kernel {n} was not launched on the "
+                                 "training path")
+    if not all(map(math.isfinite, losses + gnorms)):
+        raise AssertionError(f"non-finite loss or grad norm: {losses} {gnorms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    lines = [{"phase": "train", "model": "falcon_mamba_7b", "width": "full",
+              "d_model": cfg.d_model, "d_inner": 2 * cfg.d_model,
+              "vocab": cfg.vocab_size, "layers": cfg.n_layers,
+              "layers_published": get_config("falcon_mamba_7b").n_layers,
+              "params": n_params, "batch": B, "seq": S, "steps": STEPS,
+              "optimizer": "adamw", "peak_lr": hp.peak_lr,
+              "warmup": hp.warmup, "remat": cfg.remat,
+              "steps_detail": [{"step": i, "loss": l, "grad_norm": g,
+                                "seconds": t} for i, (l, g, t) in
+                               enumerate(zip(losses, gnorms, secs))],
+              "tokens_per_s_steps_2_5": (B * S * (STEPS - 1)
+                                         / sum(secs[1:STEPS])),
+              "init_params_s": init_s, "peak_mem_gb": peak_gb,
+              "launches": launches}]
+    holder = [state]
+
+    def step():
+        holder[0], _ = train_step(cfg, hp, None, holder[0], batch)
+
+    prof = profile_step(f"one train step (falcon_mamba_7b, {cfg.n_layers} "
+                        f"layers, batch {B} x {S})", step)
+    prof["phase"] = "train_profile"
+    # the optimizer's share of a step: one update of every parameter (zero
+    # gradients, lr 0: the same bytes moved as a real update)
+    params, opt = holder[0]
+    zeros = tree_map(torch.zeros_like, params)
+    prof["adamw_update_ms"] = cuda_ms(lambda: apply_updates(
+        params, zeros, opt, lr=torch.tensor(0.0)), n=3, warmup=1)
+    lines.append(prof)
+    return lines, rec, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing measured", file=sys.stderr)
         return 2
 
-    from repro_torch.configs import get_config
-    from repro_torch.core.moe import moe_apply
-    from repro_torch.distributed.sharding import make_dist_ctx
-    from repro_torch.kernels import build, ops
-    from repro_torch.launch.serve import generate
-    from repro_torch.models import model_zoo as Z
+    from repro_torch.kernels import build
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -385,7 +647,40 @@ def main() -> int:
           "nvcc_seconds": build.last_build_seconds, "library": so.name,
           "sources": [p.name for p in build.sources()]})
 
-    # ---------------------------------------------------- main path ------
+    kernels = serve_phases(dev)
+    # the serving model and the recorded EP inputs have left the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    lines, scan_rec, scan_launches = train_phase(dev)
+    for line in lines:
+        emit(line)
+    gc.collect()
+    torch.cuda.empty_cache()
+    scan_kernels = check_scan(scan_rec, scan_launches)
+    for k in scan_kernels:
+        emit({"phase": "kernel", **k})
+    kernels += scan_kernels
+
+    emit({"kernels": [{k: v for k, v in kk.items()
+                       if k not in ("tolerance", "cases")} for kk in kernels]})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+def serve_phases(dev) -> list:
+    """The serving path and its checks (phases 3-7); returns the EP
+    kernels' entries of the kernels line."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.moe import moe_apply
+    from repro_torch.distributed.sharding import make_dist_ctx
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model_zoo as Z
+
     cfg = get_config("qwen2_moe_a2_7b")
     cfg_fp8 = dataclasses.replace(cfg, moe=dataclasses.replace(
         cfg.moe, wire_dtype="fp8"))
@@ -403,7 +698,7 @@ def main() -> int:
     generate(cfg_fp8, params, prompts[:, :32], 2, dist=dist)
     torch.cuda.synchronize()
 
-    originals = dict(ops.KERNELS)
+    originals = {n: ops.KERNELS[n] for n in EP_KERNELS}
     recorders = {n: Recorder(c) for n, (c, _) in originals.items()}
     for n, (c, p) in originals.items():
         ops.KERNELS[n] = (recorders[n], p)
@@ -456,8 +751,8 @@ def main() -> int:
         emit(prof)
     emit(moe_served(cfg, params, prompts, dist))
 
-    # ---------------------------------------------- kernels vs plain -----
-    kernels = [check_kernel(n, recorders[n], launches) for n in KERNEL_INFO]
+    # ------------------------------------------- EP kernels vs plain -----
+    kernels = [check_kernel(n, recorders[n], launches) for n in EP_KERNELS]
     for k in kernels:
         emit({"phase": "kernel", **k})
 
@@ -491,13 +786,7 @@ def main() -> int:
           "oracle_ms": cuda_ms(lambda: moe_apply(cfg, None, p, x,
                                                  mode="ref"), n=5, warmup=1),
           "cases": cases})
-
-    emit({"kernels": [{k: v for k, v in kk.items()
-                       if k not in ("tolerance", "cases")} for kk in kernels]})
-    print(smi, flush=True)
-    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
-                                 "count": torch.cuda.device_count()}})
-    return 0
+    return kernels
 
 
 if __name__ == "__main__":

@@ -35,6 +35,8 @@ def scan_period(cfg: ModelConfig) -> tuple[int, int]:
     """(period, n_periods): layers repeat with this period (the JAX package
     stacks each slot's parameters over n_periods and scans them)."""
     period = 1
+    if cfg.attn_every > 1:
+        period = math.lcm(period, cfg.attn_every)
     if cfg.moe.enabled and cfg.moe.moe_every > 1:
         period = math.lcm(period, cfg.moe.moe_every)
     assert cfg.n_layers % period == 0, (cfg.arch_id, cfg.n_layers, period)

@@ -35,6 +35,8 @@ SIGNATURES = {
     "gather_quantize_launch": [_P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _F, _F, _I, _P],
     "dequantize_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "mamba_scan_fwd_launch": [_P] * 8 + [_I, _I, _I, _P],
+    "mamba_scan_bwd_launch": [_P] * 14 + [_I, _I, _I, _P],
 }
 
 _lib = None

@@ -1,9 +1,12 @@
-"""Transformer blocks of the serving path: the local-cache prefill and
-decode of ``repro.models.blocks``.
+"""Transformer and Mamba blocks: the training ``block_apply`` and the
+local-cache prefill and decode of ``repro.models.blocks``.
 
 A layer's parameters are a dict in the JAX layout (``ln1``, ``ln2``,
-``attn``, ``moe`` or ``mlp``); its decode cache is a dict ``{"k", "v"}`` of
-``(B, S_max, Hkv, hd)`` tensors, which prefill and decode update in place.
+``attn`` or ``mamba``, ``moe`` or ``mlp``); its decode cache is a dict
+``{"k", "v"}`` of ``(B, S_max, Hkv, hd)`` tensors, which prefill and decode
+update in place.  The reference's mesh constraints and its ``sp_islands``
+shard_map islands place tensors on a TPU mesh; they have no counterpart on
+one card.
 """
 from __future__ import annotations
 
@@ -14,10 +17,11 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.moe import moe_apply, moe_init
 from repro_torch.distributed.sharding import DistCtx
-from repro_torch.models.layers import (_qkv, attn_init,
+from repro_torch.models.layers import (_qkv, attention, attn_init,
                                        decode_attention_local, decode_qkv,
                                        flash_attention_blocked, mlp_init,
                                        rmsnorm, rmsnorm_init, swiglu)
+from repro_torch.models.mamba import mamba_apply, mamba_init
 
 Tensor = torch.Tensor
 
@@ -25,8 +29,11 @@ Tensor = torch.Tensor
 def block_init(cfg: ModelConfig, layer_idx: int, gen: torch.Generator,
                device) -> dict:
     p: dict = {"ln1": rmsnorm_init(cfg.d_model, device),
-               "ln2": rmsnorm_init(cfg.d_model, device),
-               "attn": attn_init(cfg, gen, device)}
+               "ln2": rmsnorm_init(cfg.d_model, device)}
+    if cfg.is_attn_layer(layer_idx):
+        p["attn"] = attn_init(cfg, gen, device)
+    elif cfg.mamba.enabled:
+        p["mamba"] = mamba_init(cfg, gen, device)
     if cfg.is_moe_layer(layer_idx):
         p["moe"] = moe_init(cfg, gen, device)
     elif cfg.d_ff:
@@ -47,6 +54,22 @@ def _ffn(cfg, dist, p, h, mode, chunks):
     if "mlp" in p:
         return swiglu(p["mlp"], h), {}
     return torch.zeros_like(h), {}
+
+
+def block_apply(cfg: ModelConfig, dist: Optional[DistCtx], p: dict,
+                x: Tensor, positions: Tensor, *, moe_mode: str = "ht",
+                moe_chunks: int = 1,
+                causal_skip: bool = False) -> tuple[Tensor, dict]:
+    """Training/prefill block: x (B, S, D) residual -> (x', aux)."""
+    h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    if "attn" in p:
+        h = attention(cfg, p["attn"], h, positions, causal_skip=causal_skip)
+    elif "mamba" in p:
+        h = mamba_apply(cfg, p["mamba"], h)
+    x = x + h
+    h, aux = _ffn(cfg, dist, p, rmsnorm(x, p["ln2"], cfg.norm_eps),
+                  moe_mode, moe_chunks)
+    return x + h, aux
 
 
 def block_prefill(cfg: ModelConfig, dist: Optional[DistCtx], p: dict,

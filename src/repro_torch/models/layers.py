@@ -5,7 +5,8 @@ Parameters keep the JAX layouts: ``wq (d, H, hd)``, ``wk/wv (d, Hkv, hd)``,
 ``wo (H, hd, d)``, biases ``(H, hd)``, MLP ``w_gate/w_up (d, ff)``,
 ``w_down (ff, d)``; attention parameters are a dict with those keys.
 Attention is plain PyTorch (einsum and the blocked online softmax of the
-reference), as the JAX package computes it in jnp.
+reference, with its hierarchical causal decomposition behind
+``causal_skip``), as the JAX package computes it in jnp.
 """
 from __future__ import annotations
 
@@ -108,9 +109,14 @@ def _partial_attn(q, k, v, mask, scale) -> _POut:
 
 def flash_attention_blocked(q: Tensor, k: Tensor, v: Tensor, *,
                             causal: bool = True, q_block: int = 512,
-                            kv_block: int = 512) -> Tensor:
+                            kv_block: int = 512,
+                            causal_skip: bool = False) -> Tensor:
     """Blocked attention with a running softmax, O(block^2) live memory.
-    q: (B, Sq, H, Dh); k/v: (B, Skv, Hkv, Dh), H % Hkv == 0."""
+    q: (B, Sq, H, Dh); k/v: (B, Skv, Hkv, Dh), H % Hkv == 0.
+    ``causal_skip``: the hierarchical causal decomposition, which computes
+    no fully-masked block (:func:`_causal_hierarchical`)."""
+    if causal and causal_skip and q.shape[1] == k.shape[1]:
+        return _causal_hierarchical(q, k, v, q_block)
     B, Sq, H, Dh = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     if Sq % q_block or Skv % kv_block:
@@ -150,6 +156,69 @@ def flash_attention_blocked(q: Tensor, k: Tensor, v: Tensor, *,
         l = torch.where(l == 0.0, 1.0, l)
         outs.append((o / l[..., None]).to(q.dtype))
     return torch.cat(outs, dim=1)
+
+
+def merge_partials(parts: list[_POut]) -> Tensor:
+    """LSE-merge partial attention results (flash-decoding combine)."""
+    m = parts[0].m
+    for p in parts[1:]:
+        m = torch.maximum(m, p.m)
+    o = torch.zeros_like(parts[0].o)
+    l = torch.zeros_like(parts[0].l)
+    for p in parts:
+        c = torch.exp(torch.where(torch.isneginf(p.m), float("-inf"),
+                                  p.m - m))
+        o = o + p.o * c[..., None]
+        l = l + p.l * c
+    l = torch.where(l == 0.0, 1.0, l)
+    return o / l[..., None]
+
+
+def _causal_hierarchical(q: Tensor, k: Tensor, v: Tensor, block: int) -> Tensor:
+    """Exact causal attention without fully-masked blocks: level 0 is the
+    block diagonal (masked); at level k >= 1, stride 2^k * block, the upper
+    half of each pair attends the lower half unmasked."""
+    B, S, H, Dh = q.shape
+    Hkv = k.shape[2]
+    scale = 1.0 / math.sqrt(Dh)
+    nb = S // block
+    if nb & (nb - 1):
+        raise ValueError("hierarchical causal attention needs a power-of-two "
+                         f"number of blocks, got {nb}")
+    qb = q.reshape(B, nb, block, H, Dh)
+    kb = k.reshape(B, nb, block, Hkv, Dh)
+    vb = v.reshape(B, nb, block, Hkv, Dh)
+    pos = torch.arange(block, device=q.device)
+    dmask = (pos[:, None] >= pos[None, :])[None, :, None, :]
+    parts = [[_partial_attn(qb[:, i], kb[:, i], vb[:, i], dmask, scale)]
+             for i in range(nb)]
+    level = 1
+    while (1 << level) <= nb:
+        span = 1 << level
+        half = span // 2
+        for start in range(0, nb, span):
+            lo = slice(start, start + half)
+            hi = slice(start + half, start + span)
+            part = _partial_attn(qb[:, hi].reshape(B, -1, H, Dh),
+                                 kb[:, lo].reshape(B, -1, Hkv, Dh),
+                                 vb[:, lo].reshape(B, -1, Hkv, Dh), None, scale)
+            for bi in range(half):
+                sl = slice(bi * block, (bi + 1) * block)
+                parts[start + half + bi].append(
+                    _POut(part.o[:, sl], part.m[:, sl], part.l[:, sl]))
+        level += 1
+    outs = [merge_partials(ps).to(q.dtype) for ps in parts]
+    return torch.cat(outs, dim=1).reshape(B, S, H, Dh)
+
+
+def attention(cfg: ModelConfig, p: dict, x: Tensor, positions: Tensor, *,
+              causal_skip: bool = False) -> Tensor:
+    """Training/prefill self-attention: (B, S, d_model) -> (B, S, d_model)."""
+    q, k, v = _qkv(cfg, p, x, positions)
+    blk = min(512, x.shape[1])
+    o = flash_attention_blocked(q, k, v, causal=True, q_block=blk,
+                                kv_block=blk, causal_skip=causal_skip)
+    return torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
 
 
 def decode_attention_local(q, cache_k, cache_v, pos: int, *,

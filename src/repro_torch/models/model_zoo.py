@@ -1,17 +1,23 @@
-"""Model init, cache, prefill and decode for the serving path (the port of
-``repro.models.model_zoo``).
+"""Model init, the training forward and loss, cache, prefill and decode
+(the port of ``repro.models.model_zoo``).
 
 The JAX package stacks each layer slot's parameters over ``n_periods`` and
 scans them; here ``params["blocks"]`` is a list of per-layer dicts and a
-Python loop runs them.  ``cast_params`` casts to the compute dtype once,
-at load; ``prefill`` and ``decode_step`` take parameters already cast.
+Python loop runs them.  With ``cfg.remat`` the training forward recomputes
+each layer in the backward (``torch.utils.checkpoint``, the counterpart of
+the reference's ``jax.checkpoint`` per period).  ``loss_fn`` takes fp32
+parameters and casts them to the compute dtype inside the graph, each step,
+as the reference does; for serving, ``cast_params`` casts once, at load,
+and ``prefill`` and ``decode_step`` take parameters already cast.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import DistCtx
@@ -71,6 +77,84 @@ def lm_head_weight(cfg: ModelConfig, params: dict) -> Tensor:
     return params["lm_head"]
 
 
+# --------------------------------------------------------------- forward --
+def forward(cfg: ModelConfig, params: dict, tokens: Tensor, *,
+            dist: Optional[DistCtx] = None, moe_mode: str = "ht",
+            moe_chunks: int = 1,
+            causal_skip: bool = False) -> tuple[Tensor, dict]:
+    """tokens (B, S) -> hidden (B, S, D), aux: ``aux_loss`` summed over
+    layers, ``dropped`` averaged over the MoE layers, and ``loads``, each
+    MoE layer's expert loads by layer index."""
+    x = B.vocab_embed(params["embed"], tokens)
+    S = x.shape[1]
+    positions = torch.arange(S, device=x.device)[None].expand(x.shape[0], S)
+    layer = functools.partial(B.block_apply, cfg, dist, moe_mode=moe_mode,
+                              moe_chunks=moe_chunks, causal_skip=causal_skip)
+    aux_loss = torch.zeros((), dtype=torch.float32, device=x.device)
+    dropped, loads = [], {}
+    for i, p in enumerate(params["blocks"]):
+        if cfg.remat:
+            x, aux = checkpoint(layer, p, x, positions, use_reentrant=False)
+        else:
+            x, aux = layer(p, x, positions)
+        if "aux_loss" in aux:
+            aux_loss = aux_loss + aux["aux_loss"]
+        if "dropped" in aux:
+            dropped.append(aux["dropped"])
+        if "load" in aux:
+            loads[i] = aux["load"]
+    x = rmsnorm(x, params["final_ln"], cfg.norm_eps)
+    return x, {"aux_loss": aux_loss,
+               "dropped": (torch.stack(dropped).mean() if dropped else
+                           torch.zeros((), device=x.device)),
+               "loads": loads}
+
+
+def loss_fn(cfg: ModelConfig, params: dict, tokens: Tensor, labels: Tensor,
+            *, dist: Optional[DistCtx] = None, moe_mode: str = "ht",
+            moe_chunks: int = 1, causal_skip: bool = False,
+            loss_chunk: int = 2048) -> tuple[Tensor, dict]:
+    """Next-token cross entropy over a seq-chunked head, plus the routers'
+    aux loss.  ``params`` are fp32; they are cast to ``cfg.dtype`` here,
+    inside the graph, so their gradients come back in fp32."""
+    dtype = compute_dtype(cfg)
+    x, aux = forward(cfg, cast_params(params, dtype), tokens, dist=dist,
+                     moe_mode=moe_mode, moe_chunks=moe_chunks,
+                     causal_skip=causal_skip)
+    head = lm_head_weight(cfg, params).to(dtype)
+    total, count = _chunked_xent(cfg, x, head, labels, loss_chunk)
+    xent = total / torch.clamp(count, min=1.0)
+    loss = xent + aux["aux_loss"]
+    metrics = {"xent": xent, "aux_loss": aux["aux_loss"],
+               "dropped": aux["dropped"],
+               "loads": {i: l.detach() for i, l in aux["loads"].items()}}
+    return loss, metrics
+
+
+def _chunked_xent(cfg: ModelConfig, x: Tensor, head: Tensor, labels: Tensor,
+                  chunk: int) -> tuple[Tensor, Tensor]:
+    """(sum of token losses, count of labelled tokens); a label < 0 is
+    unlabelled.  Logits beyond the real vocab are masked out."""
+    _, S, _ = x.shape
+    V = head.shape[1]
+    chunk = min(chunk, S)
+    real = torch.arange(V, device=x.device) < cfg.vocab_size
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    count = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(-(-S // chunk)):
+        sl = slice(c * chunk, min((c + 1) * chunk, S))
+        xc, yc = x[:, sl], labels[:, sl]
+        logits = (xc @ head).to(torch.float32)
+        logits = torch.where(real, logits, float("-inf"))
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            yc.clamp(min=0).to(torch.int64)[..., None])[..., 0]
+        ok = (yc >= 0).to(torch.float32)
+        total = total + ((lse - gold) * ok).sum()
+        count = count + ok.sum()
+    return total, count
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device="cuda") -> list:
     return [B.block_init_cache(cfg, batch, max_len, dtype, device)
@@ -94,7 +178,11 @@ def prefill(cfg: ModelConfig, params: dict, cache: list, tokens: Tensor, *,
     """Batched prompt prefill: ONE forward pass over tokens (B, S) that
     fills ``cache[:, :S]`` of every layer.  Returns the last position's
     logits (B, V_pad) fp32, the cache, and ``{"dropped",
-    "dropped_per_layer"}`` (see :func:`_dropped`)."""
+    "dropped_per_layer"}`` (see :func:`_dropped`).  Attention-only stacks
+    (serving Mamba models is a later slice)."""
+    if cfg.mamba.enabled:
+        raise NotImplementedError("serving Mamba layers (mamba_decode_step) "
+                                  "is not ported yet")
     x = B.vocab_embed(params["embed"], tokens)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None].expand(x.shape[0], S)

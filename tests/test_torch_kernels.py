@@ -125,7 +125,8 @@ def test_ops_dispatch_cpu_takes_plain_version():
         ops.dequantize_tokens(q, s).numpy(),
         qp.dequantize_plain(q, s).numpy())
     assert set(ops.KERNELS) == {"grouped_swiglu", "gather_swiglu_scatter",
-                                "gather_quantize", "dequantize"}
+                                "gather_quantize", "dequantize",
+                                "mamba_scan", "mamba_scan_bwd"}
 
 
 @pytest.mark.parametrize("name", ["grouped_swiglu", "gather_swiglu_scatter",
