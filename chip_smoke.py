@@ -13,8 +13,10 @@ Phases, each printed as one JSON line:
    ``repro_torch.launch.serve.generate`` over a rank-stacked EP world of 4:
    batch 4, prompt 256, 16 generated tokens on the fp32 wire, then a
    shorter run (4 tokens) on the fp8 wire.  Batched HT prefill and LL
-   decode go through the four EP kernels; their launch counts are set to 0
-   just before and read just after, and must be > 0;
+   decode go through the four EP kernels, and their norms and attention
+   (MHA, 16 heads) through the RMSNorm, flash attention and flash decoding
+   kernels; the launch counts of all seven are set to 0 just before and
+   read just after, and must be > 0;
 4. profile: the fp32 serve once more (run-to-run spread), then one
    prefill and one decode step under torch.profiler (device busy share,
    the device activities and host operators that take the most time);
@@ -27,7 +29,11 @@ Phases, each printed as one JSON line:
    version: gather_quantize and dequantize bit for bit, grouped_swiglu and
    gather_swiglu_scatter within a stated tolerance; with CUDA-event times
    (median of 20 after 3 warm-ups) of the kernel and the plain version,
-   and the bound the card's peak rates set for the same work;
+   the kernel's device time from the profiler (``device_ms``: without the
+   host's time to issue the call), and the bound the card's peak rates set
+   for the same work; then the norm and attention kernels on this path's
+   recorded inputs (MHA prefill; decoding with one query head a kv head),
+   as in phase 12;
 7. moe_layer: the routed part of ``moe_apply`` (the shared expert, which
    bypasses EP, left out) at full width (256 tokens) against the port's
    dense oracle ``moe_ref`` for LL/HT, one-level P=4 and two-level (2, 2),
@@ -48,9 +54,28 @@ Phases, each printed as one JSON line:
    kind in the train phase against the plain version, and
    ``mamba_scan_bwd`` on the same inputs with a seeded dy against
    ``torch.autograd.grad`` through the plain version, all six gradients;
-   both timed beside their bound and the plain version's time.
+   both timed beside their bound and the plain version's time;
+11. serve-qwen3 (the dense GQA serving path): qwen3-4b at full width and
+   all 36 layers (random bf16 weights from seed 0) served through
+   ``generate``: batch 4, prompts of 2048 random tokens, 32 greedy tokens.
+   Prefill and decode run their norms and attention through the RMSNorm,
+   flash attention and flash decoding kernels, whose launch counts are set
+   to 0 just before and read just after (all > 0); TTFT, decode tokens/s,
+   peak memory.  Then serve_qwen3_plain: one prefill and one decode step
+   of 4 x 256 tokens through the kernels against the same through their
+   plain versions (logits within ``SERVE_PLAIN_TOL`` of their largest), and
+   serve_qwen3_profile: one prefill and one decode step under the
+   profiler;
+12. kernel (norm and attention): ``rmsnorm`` on each kind of call the path
+   made (d_model and head-dim rows, prefill and decode), ``flash_attention``
+   on the prefill's, ``decode_attention`` on the first decode step's (pos
+   2048), the last's (pos 2078) and the last's cache at pos 0, against
+   their plain versions row by row (each output row within its tolerance
+   of that row's largest plain value), timed beside their bound, the plain
+   version and one PyTorch library call computing the same function
+   (``library_ms``).
 
-Then the kernels line ``{"kernels": [...]}`` (all six kernels), the
+Then the kernels line ``{"kernels": [...]}`` (all nine kernels), the
 nvidia-smi line, and as the last line ``{"ok": true, "device": {...}}``.
 Any failed check raises and the exit code is not 0.  Without a CUDA
 device, or without the rest of the repository beside it, it exits
@@ -89,10 +114,18 @@ KERNEL_INFO = {  # name: (source, the TPU kernel it replaces)
                    "src/repro/kernels/mamba_scan.py:53"),
     "mamba_scan_bwd": ("src/repro_torch/csrc/mamba_scan.cu",
                        "src/repro/kernels/mamba_scan.py:53"),
+    "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
+                "src/repro/kernels/rmsnorm.py:19"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:68"),
+    "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention.py:67"),
 }
 EP_KERNELS = ("grouped_swiglu", "gather_swiglu_scatter", "gather_quantize",
               "dequantize")
-# max |kernel - plain| allowed, as a fraction of max |plain| (None: bitwise)
+NORM_ATTN_KERNELS = ("rmsnorm", "flash_attention", "decode_attention")
+# max |kernel - plain| allowed, as a fraction of max |plain| (None: bitwise);
+# for ROW_KERNELS, of each output row's own max |plain|
 KERNEL_TOL = {
     # h and y round to bf16 (2^-8 relative each) on both sides, after fp32
     # sums taken in another order, so a rounding may land one ulp apart
@@ -107,7 +140,20 @@ KERNEL_TOL = {
     # per gradient: dA, dB, dC and dD are sums over thousands of terms
     # (time and batch, or channels) added with fp32 atomics in any order
     "mamba_scan_bwd": 1e-4,
+    # the same fp32 value up to summation order and rsqrtf, rounded once to
+    # bf16: at most one bf16 ulp (2^-7 of a value) apart
+    "rmsnorm": 2.0 ** -7,
+    # the reference's bf16 tolerance for its attention kernels
+    # (tests/test_kernels.py:235-236): P rounds to bf16 against a running
+    # max that differs between the two, sums in another order
+    "flash_attention": 2e-2,
+    "decode_attention": 2e-2,
 }
+# kernels held row by row (a normed row; one query's head): a causal row
+# averages the values of every key it sees, so its magnitude falls with
+# its position, and a limit taken from the largest row (row 0 is v[0])
+# would let a late row's error be as large as the row itself
+ROW_KERNELS = NORM_ATTN_KERNELS
 # exponentials run on the special-function units: 16 per SM per clock,
 # 132 SMs, 1.98 GHz boost (H100 SXM); one accurate expf is at least one
 SFU_OP_PER_S = 16 * 132 * 1.98e9
@@ -124,6 +170,15 @@ TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 4, 1024, 5
 # wire keeps bf16 activations (h, the LL expert output and the combined
 # output each round to bf16); fp8/int8 as the reference's DESIGN.md §14
 MOE_TOL = {"fp32": 2e-2, "fp8": 0.2, "int8": 0.05}
+# the dense GQA serving path: qwen3-4b, batch 4, prompts of 2048, 32 tokens
+QWEN3_BATCH, QWEN3_PROMPT, QWEN3_GEN = 4, 2048, 32
+# qwen3-4b's logits through the kernels against through their plain
+# versions, max error over max |plain|: each kernel agrees to a bf16
+# rounding, and 36 layers of bf16 carry such differences to the logits
+# (0.020 measured on an H100, the same in every run: no kernel on the path
+# adds in a varying order); twice that, where a typical |logit| is a sixth
+# of the largest
+SERVE_PLAIN_TOL = 0.04
 
 
 def emit(obj) -> None:
@@ -140,16 +195,17 @@ def nvidia_smi() -> str:
 
 class Recorder:
     """Stands in for a kernel wrapper during the main path: calls it and
-    keeps a copy of the inputs of the first call of each kind — the
-    arguments' shapes, with None for an absent one — so that, e.g., both
-    the HT prefill dispatch and the LL decode dispatch (occupied counts,
-    empty slots) of ``gather_quantize`` are held to the plain version."""
+    keeps a copy of the inputs of the first call of each kind — the tensor
+    arguments' shapes, None for any other argument (an absent tensor, a
+    position, eps) — so that, e.g., both the HT prefill dispatch and the LL
+    decode dispatch (occupied counts, empty slots) of ``gather_quantize``
+    are held to the plain version."""
 
     def __init__(self, fn):
         self.fn, self.cases = fn, {}
 
     def __call__(self, *args, **kwargs):
-        key = (tuple(tuple(a.shape) if hasattr(a, "shape") else a
+        key = (tuple(tuple(a.shape) if hasattr(a, "shape") else None
                      for a in args), tuple(sorted(kwargs.items())))
         if key not in self.cases:
             self.cases[key] = (tuple(a.detach().clone() if hasattr(a, "clone")
@@ -173,12 +229,33 @@ def cuda_ms(fn, n: int = 20, warmup: int = 3) -> float:
     return t[n // 2]
 
 
+def device_ms(fn, n: int = 10) -> float:
+    """Device time of one ``fn()``: the summed time of the device
+    activities of ``n`` calls under torch.profiler, over ``n``.  Where the
+    host takes longer to issue a call than the card to run it, CUDA events
+    around the call (``cuda_ms``) read the host; this reads the card."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / n
+
+
 def bound(name: str, args, kwargs) -> tuple[float, str, dict]:
     """Least time the card could take for this call's work: the larger of
     its bytes (each input read once, each output written once, counting
     only the rows this call's counts occupy) over the memory rate and its
     operations over the peak rate for their type."""
     import torch
+    if name in NORM_ATTN_KERNELS:
+        return norm_attn_bound(name, args, kwargs)
     if name in ("grouped_swiglu", "gather_swiglu_scatter"):
         if name == "grouped_swiglu":
             x, wg, wu, wd, counts = args
@@ -223,6 +300,69 @@ def bound(name: str, args, kwargs) -> tuple[float, str, dict]:
     return t_ops * 1e3, "operations", work
 
 
+def decode_live(args, kwargs) -> int:
+    """Cache positions a decode_attention call attends: start..pos."""
+    k, pos = args[1], args[3]
+    return min(max(pos - kwargs.get("start", 0) + 1, 0), k.shape[1])
+
+
+def norm_attn_bound(name: str, args, kwargs) -> tuple[float, str, dict]:
+    """Least time for one RMSNorm / attention call: the larger of its bytes
+    (inputs read once, the output written once; for decoding, only the
+    live cache rows) over the memory rate and its operations over their
+    peak rate (attention: 4 * D FLOP per query-key pair the mask keeps, on
+    bf16 tensor cores; RMSNorm: 4 fp32 operations per element)."""
+    if name == "rmsnorm":
+        x, scale = args[:2]
+        nbytes = 2 * x.numel() * x.element_size() + scale.numel() * 4
+        t_ops = 4.0 * x.numel() / FP32_FLOP_PER_S
+        work = {"rows": x.numel() // x.shape[-1], "width": x.shape[-1]}
+    else:
+        q, k, v = args[:3]
+        B, H, D = q.shape[0], q.shape[-2], q.shape[-1]
+        if name == "flash_attention":
+            Sq, Skv = q.shape[1], k.shape[1]
+            pairs = (sum(min(i + 1, Skv) for i in range(Sq))
+                     if kwargs.get("causal", True) else Sq * Skv)
+            kv_rows = Skv
+        else:
+            pairs = kv_rows = decode_live(args, kwargs)
+        nbytes = (2 * q.numel() + 2 * B * kv_rows * k.shape[2] * D) * 2
+        t_ops = 4.0 * D * B * H * pairs / BF16_FLOP_PER_S
+        work = {"query_key_pairs": B * H * pairs}
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    work.update(bytes=nbytes, bytes_ms=t_bytes * 1e3, ops_ms=t_ops * 1e3)
+    if t_bytes >= t_ops:
+        return t_bytes * 1e3, "bytes", work
+    return t_ops * 1e3, "operations", work
+
+
+def library_call(name: str, args, kwargs):
+    """One PyTorch call computing what kernel ``name`` computes on these
+    inputs (the yardstick ``library_ms``; the port never calls it), or
+    None.  ``rms_norm`` takes the scale in x's dtype, its fused kernel's
+    condition."""
+    import torch.nn.functional as F
+    if name == "rmsnorm":
+        x, scale, eps = args
+        w = scale.to(x.dtype)
+        return lambda: F.rms_norm(x, (x.shape[-1],), w, eps)
+    if name == "flash_attention":
+        q, k, v = (a.transpose(1, 2) for a in args)
+        causal = kwargs.get("causal", True)
+        return lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True)
+    if name == "decode_attention":
+        live = decode_live(args, kwargs)
+        if live == 0:
+            return None
+        q = args[0][:, :, None]
+        k, v = (a[:, :live].transpose(1, 2) for a in args[1:3])
+        return lambda: F.scaled_dot_product_attention(q, k, v,
+                                                      enable_gqa=True)
+    return None
+
+
 def check_case(name, args, kwargs) -> dict:
     """One recorded call of kernel ``name`` against its plain version on
     the same inputs, and both timed."""
@@ -234,7 +374,7 @@ def check_case(name, args, kwargs) -> dict:
     torch.cuda.synchronize()
     pairs = list(zip(got, ref)) if isinstance(got, tuple) else [(got, ref)]
     tol = KERNEL_TOL[name]
-    err = 0.0
+    err = rel = 0.0
     for g, r in pairs:
         if tol is None:
             same = torch.equal(g.view(torch.uint8) if g.element_size() == 1
@@ -247,34 +387,58 @@ def check_case(name, args, kwargs) -> dict:
             raise AssertionError(f"{name}: non-finite output")
         e = float((gf - rf).abs().max()) if gf.numel() else 0.0
         err = max(err, e)
-        if tol is not None:
-            scale = float(rf.abs().max())
-            if e > tol * scale:
-                raise AssertionError(f"{name}: max |err| {e} > {tol} * {scale}")
+        if tol is None or not gf.numel():
+            continue
+        if name in ROW_KERNELS:
+            e_row = (gf - rf).abs().amax(-1)
+            scale = rf.abs().amax(-1)
+        else:
+            e_row, scale = torch.tensor(e), rf.abs().max()
+        rel = max(rel, float((e_row / scale.clamp_min(1e-30)).max()))
+        bad = e_row > tol * scale
+        if bad.any():
+            i = int(bad.flatten().nonzero()[0])
+            raise AssertionError(
+                f"{name}: |err| {float(e_row.flatten()[i])} > {tol} * "
+                f"{float(scale.flatten()[i])} in output row {i} of "
+                f"{bad.numel()} ({int(bad.sum())} rows over; max |err| {e} "
+                f"against max |plain| {float(rf.abs().max())})")
     bound_ms, bound_by, work = bound(name, args, kwargs)
-    return {"max_abs_err": err, "ms": cuda_ms(lambda: cuda(*args, **kwargs)),
+    ms = cuda_ms(lambda: cuda(*args, **kwargs))
+    lib = library_call(name, args, kwargs)
+    return {"shapes": [list(a.shape) for a in args if hasattr(a, "shape")],
+            "max_abs_err": err, "max_rel_err": rel, "ms": ms,
+            "device_ms": device_ms(lambda: cuda(*args, **kwargs)),
             "plain_ms": cuda_ms(lambda: plain(*args, **kwargs)),
-            "bound_ms": bound_ms, "bound_by": bound_by, "work": work}
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_share": bound_ms / ms,
+            "library_ms": cuda_ms(lib) if lib is not None else None,
+            "work": work}
 
 
-def check_kernel(name, rec, launches) -> dict:
-    """Every kind of call the main path made to kernel ``name``; the first
-    kind's numbers stand for the kernel in the kernels line."""
+def check_kernel(name, rec, launches, extra=()) -> dict:
+    """Every kind of call the main path made to kernel ``name`` (and the
+    ``extra`` (args, kwargs) cases); the first kind's numbers stand for the
+    kernel in the kernels line."""
     if not rec.cases:
         raise RuntimeError(f"{name}: the main path never called it")
-    cases = [check_case(name, a, kw) for a, kw in rec.cases.values()]
+    cases = [check_case(name, a, kw)
+             for a, kw in [*rec.cases.values(), *extra]]
     src, replaces = KERNEL_INFO[name]
     return {"name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[name],
             **{k: cases[0][k] for k in ("ms", "plain_ms", "bound_ms",
-                                        "bound_by")},
+                                        "bound_by", "library_ms")},
             "max_abs_err": max(c["max_abs_err"] for c in cases),
-            "library_ms": None, "tolerance": KERNEL_TOL[name],
-            "cases": cases}
+            "max_rel_err": max(c["max_rel_err"] for c in cases),
+            "tolerance": KERNEL_TOL[name], "cases": cases}
 
 
 # device activities by kind, from their names: (kind, name fragments)
 DEVICE_KINDS = (("scan kernels", ("scan_fwd_kernel", "scan_bwd_kernel")),
+                ("attention and norm kernels", (
+                    "flash_fwd_kernel", "decode_split_kernel",
+                    "decode_merge_kernel", "rmsnorm_kernel")),
                 ("EP kernels", ("swiglu_tiles", "gather_quantize",
                                 "dequantize_kernel")),
                 ("cuBLAS GEMM", ("nvjet", "gemm", "cutlass", "xmma")),
@@ -624,6 +788,139 @@ def train_phase(dev) -> tuple[list, "Recorder", dict]:
     return lines, rec, launches
 
 
+def serve_qwen3(dev) -> list:
+    """The dense GQA serving path (phases 11-12): qwen3-4b at full width and
+    depth through ``generate``, its kernels' launches counted; the logits
+    against the plain versions' on a short input; a profiled prefill and
+    decode step; then the three kernels on their recorded inputs.  Returns
+    their entries of the kernels line."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model_zoo as Z
+    from repro_torch.optim.adamw import tree_leaves
+
+    cfg = get_config("qwen3_4b")
+    B, S, N_GEN = QWEN3_BATCH, QWEN3_PROMPT, QWEN3_GEN
+    t0 = time.perf_counter()
+    params = Z.init_params(cfg, seed=0, device=dev,
+                           dtype=Z.compute_dtype(cfg))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    gen = torch.Generator().manual_seed(0)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen).to(dev)
+    # warm-up at the served shape: first launches, library loads, and the
+    # allocator's growth to the prefill's activations, which TTFT would
+    # otherwise carry
+    generate(cfg, params, prompts, 2)
+    torch.cuda.synchronize()
+
+    originals = {n: ops.KERNELS[n] for n in NORM_ATTN_KERNELS}
+    recorders = {n: Recorder(c) for n, (c, _) in originals.items()}
+    for n, (_, p) in originals.items():
+        ops.KERNELS[n] = (recorders[n], p)
+    # decode_attention also on the last decode step's inputs, not copied:
+    # nothing writes the cache rows it reads after it
+    last_decode = []
+
+    def decode_last(*args, **kwargs):
+        last_decode[:] = [(args, kwargs)]
+        return recorders["decode_attention"](*args, **kwargs)
+    ops.KERNELS["decode_attention"] = (decode_last,
+                                       originals["decode_attention"][1])
+    cudas = {n: c for n, (c, _) in originals.items()}
+    for c in cudas.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        res = generate(cfg, params, prompts, N_GEN)
+        launches = {n: c.launches for n, c in cudas.items()}
+    finally:
+        ops.KERNELS.update(originals)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for n, k in launches.items():
+        if k <= 0:
+            raise AssertionError(f"kernel {n} was not launched on the dense "
+                                 "serving path")
+    if (res["tokens"].shape != (B, N_GEN)
+            or not torch.isfinite(res["logits"]).all()
+            or not ((res["tokens"] >= 0)
+                    & (res["tokens"] < cfg.vocab_size)).all()):
+        raise AssertionError("serve-qwen3 produced a wrong shape, non-finite "
+                             "logits or a token outside the vocab")
+    emit({"phase": "serve-qwen3", "model": "qwen3_4b", "width": "full",
+          "layers": cfg.n_layers, "d_model": cfg.d_model,
+          "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+          "params": n_params, "batch": B, "prompt": S, "generated": N_GEN,
+          "ttft_s": res["ttft_s"], "total_s": res["total_s"],
+          "tokens_per_s": res["tokens_per_s"],
+          "decode_tokens_per_s": res["decode_tokens_per_s"],
+          "launches": launches, "first_tokens": res["tokens"][0].tolist(),
+          "init_params_s": init_s, "peak_mem_gb": peak_gb})
+
+    # the same path through the plain versions, on 4 x 256 tokens: a
+    # prefill and one decode step of the token the kernels' run chose
+    short = prompts[:, :256]
+
+    def prefill_and_step(tok=None):
+        with torch.inference_mode():
+            cache = Z.init_cache(cfg, B, 257, dtype=Z.compute_dtype(cfg),
+                                 device=dev)
+            first, cache, _ = Z.prefill(cfg, params, cache, short)
+            if tok is None:
+                tok = torch.argmax(first[:, :cfg.vocab_size], -1)[:, None]
+            nxt, _, _ = Z.decode_step(cfg, params, cache, tok, 256)
+        return first, nxt, tok
+
+    got = prefill_and_step()
+    ops.KERNELS.update({n: (p, p) for n, (_, p) in originals.items()})
+    try:
+        ref = prefill_and_step(got[2])
+    finally:
+        ops.KERNELS.update(originals)
+    agree = {}
+    for g, r, what in zip(got, ref, ("prefill", "decode")):
+        err = float((g - r).abs().max()) / float(r.abs().max())
+        agree[what] = {"rel_err": err, "argmax_agree": float(
+            (g.argmax(-1) == r.argmax(-1)).float().mean())}
+        if not err <= SERVE_PLAIN_TOL:
+            raise AssertionError(f"serve-qwen3 {what} logits through the "
+                                 f"kernels: rel err {err} to the plain path")
+    emit({"phase": "serve_qwen3_plain", "tokens": [B, 256],
+          "tol": SERVE_PLAIN_TOL, **agree})
+
+    cache = Z.init_cache(cfg, B, S + 1, dtype=Z.compute_dtype(cfg),
+                         device=dev)
+
+    def prefill():
+        with torch.inference_mode():
+            Z.prefill(cfg, params, cache, prompts)
+
+    def decode():
+        with torch.inference_mode():
+            Z.decode_step(cfg, params, cache, prompts[:, -1:], S)
+    for what, step in ((f"one prefill (batch {B} x {S})", prefill),
+                       ("one decode step (batch 4, pos 2048)", decode)):
+        prof = profile_step(what, step)
+        prof["phase"] = "serve_qwen3_profile"
+        emit(prof)
+    del cache
+
+    kernels = []
+    with torch.inference_mode():
+        for n in NORM_ATTN_KERNELS:
+            extra = ()
+            if n == "decode_attention":      # the last step, then pos 0
+                (q, k, v, pos), kw = last_decode[0]
+                extra = (((q, k, v, pos), kw), ((q, k, v, 0), kw))
+            kernels.append(check_kernel(n, recorders[n], launches, extra))
+            emit({"phase": "kernel", **kernels[-1]})
+    return kernels
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -651,6 +948,9 @@ def main() -> int:
     # the serving model and the recorded EP inputs have left the card
     gc.collect()
     torch.cuda.empty_cache()
+    kernels += serve_qwen3(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
     lines, scan_rec, scan_launches = train_phase(dev)
     for line in lines:
         emit(line)
@@ -662,7 +962,8 @@ def main() -> int:
     kernels += scan_kernels
 
     emit({"kernels": [{k: v for k, v in kk.items()
-                       if k not in ("tolerance", "cases")} for kk in kernels]})
+                       if k not in ("tolerance", "cases", "max_rel_err")}
+                      for kk in kernels]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
@@ -698,7 +999,9 @@ def serve_phases(dev) -> list:
     generate(cfg_fp8, params, prompts[:, :32], 2, dist=dist)
     torch.cuda.synchronize()
 
-    originals = {n: ops.KERNELS[n] for n in EP_KERNELS}
+    # the EP kernels, and the norm and attention kernels the serving blocks
+    # share with qwen3 (here MHA: 16 heads, 16 kv heads)
+    originals = {n: ops.KERNELS[n] for n in EP_KERNELS + NORM_ATTN_KERNELS}
     recorders = {n: Recorder(c) for n, (c, _) in originals.items()}
     for n, (c, p) in originals.items():
         ops.KERNELS[n] = (recorders[n], p)
@@ -755,6 +1058,12 @@ def serve_phases(dev) -> list:
     kernels = [check_kernel(n, recorders[n], launches) for n in EP_KERNELS]
     for k in kernels:
         emit({"phase": "kernel", **k})
+    # the norm and attention kernels at this path's shapes; the kernels
+    # line carries their entries from the qwen3 path
+    with torch.inference_mode():
+        for n in NORM_ATTN_KERNELS:
+            emit({"phase": "kernel", "path": "qwen2_moe_a2_7b",
+                  **check_kernel(n, recorders[n], launches)})
 
     # ---------------------------------------------- MoE layer vs oracle --
     p = {k: v for k, v in params["blocks"][0]["moe"].items()

@@ -62,9 +62,11 @@ class ModelConfig:
     head_dim: int = 0                 # 0 -> d_model // n_heads
     d_ff: int = 0                     # dense FFN hidden (0 for pure-MoE)
     vocab_size: int = 32000
+    qk_norm: bool = False             # RMSNorm of q and k per head
     qkv_bias: bool = False
     rope_theta: float = 1e6
     norm_eps: float = 1e-5
+    tie_embeddings: bool = False      # the head is embed.T
     moe: MoEConfig = field(default_factory=MoEConfig)
     mamba: MambaConfig = field(default_factory=lambda: MambaConfig(d_state=0))
     # hybrid (jamba): one attention layer per `attn_every` layers; rest mamba
@@ -103,7 +105,8 @@ class ModelConfig:
         return layer_idx % self.moe.moe_every == (self.moe.moe_every - 1)
 
 
-ARCH_IDS = ("qwen2_moe_a2_7b", "falcon_mamba_7b", "jamba_1_5_large_398b")
+ARCH_IDS = ("qwen2_moe_a2_7b", "falcon_mamba_7b", "jamba_1_5_large_398b",
+            "qwen3_4b", "qwen3_1_7b")
 _ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
 
 

@@ -24,8 +24,10 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C entry points: every pointer and the stream are c_void_p, ints c_int;
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
+# C entry points: every pointer and the stream are c_void_p, ints c_int
+# (c_longlong for row counts and strides);
 # each returns its cudaGetLastError() as an int
 SIGNATURES = {
     "grouped_swiglu_launch": [_P, _P, _P, _P, _P, _P, _P,
@@ -37,6 +39,9 @@ SIGNATURES = {
     "dequantize_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
     "mamba_scan_fwd_launch": [_P] * 8 + [_I, _I, _I, _P],
     "mamba_scan_bwd_launch": [_P] * 14 + [_I, _I, _I, _P],
+    "rmsnorm_launch": [_P, _P, _P, _L, _I, _F, _P],
+    "flash_attention_launch": [_P] * 4 + [_I] * 6 + [_L] * 9 + [_P],
+    "decode_attention_launch": [_P] * 7 + [_I] * 7 + [_P],
 }
 
 _lib = None

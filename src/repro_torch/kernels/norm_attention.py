@@ -1,0 +1,222 @@
+"""RMSNorm, causal flash attention and flash decoding: the port of
+``repro.kernels.rmsnorm`` (``rmsnorm_pallas``),
+``repro.kernels.flash_attention`` (``flash_attention_pallas``) and the
+contiguous kernel of ``repro.kernels.decode_attention``
+(``decode_attention_pallas``).
+
+Each kernel has a plain PyTorch version here (``*_plain``: what the CPU
+path runs and what the CUDA kernel is held against on the card) and a
+wrapper (``*_cuda``) that checks its inputs, allocates the output and
+scratch, and launches the hand-written kernel of ``csrc/rmsnorm.cu``,
+``csrc/flash_attention.cu`` or ``csrc/decode_attention.cu`` on the current
+stream.  The wrappers take bf16 activations (RMSNorm with an fp32 scale,
+the dtype ``cast_params`` keeps norm scales in) and head dim 128, and
+raise on anything else; each counts its launches in ``.launches``.
+
+The plain attention versions follow the TPU kernels' arithmetic rather
+than a softmax: fp32 scores, ``m_safe`` for rows with no live key, the
+unnormalised ``P`` rounded to ``v.dtype`` before the PV product while the
+sum takes it in fp32, ``l == 0 -> 1``, one division at the end
+(:func:`partial_softmax`, whose step the training path's blocked attention
+in ``models.layers`` shares, with its PV product in v's dtype).  Nothing
+here has a backward kernel: the serving path calls these under
+``torch.inference_mode()``, and training keeps to ``models.layers``.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.grouped_matmul import _check_cuda
+
+Tensor = torch.Tensor
+
+HEAD_DIM = 128       # the head dim the attention kernels are written for
+DECODE_CHUNK = 256   # cache positions a decode block takes
+DECODE_REPS = (1, 2, 4, 8)   # query heads a kv head may serve (H / Hkv)
+
+
+# ================================================================ RMSNorm ==
+def rmsnorm_plain(x: Tensor, scale: Tensor, eps: float = 1e-5) -> Tensor:
+    """x (..., D); scale (D,) fp32: ``x * rsqrt(mean(x^2) + eps) * scale``
+    reduced in fp32 and rounded once to ``x.dtype``."""
+    x32 = x.to(torch.float32)
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * scale).to(x.dtype)
+
+
+def rmsnorm_cuda(x: Tensor, scale: Tensor, eps: float = 1e-5) -> Tensor:
+    """CUDA kernel for :func:`rmsnorm_plain`: bf16 x, fp32 scale."""
+    name = "rmsnorm"
+    D = x.shape[-1]
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"{name}: x must be bfloat16, got {x.dtype}")
+    if scale.dtype != torch.float32 or tuple(scale.shape) != (D,):
+        raise ValueError(f"{name}: scale must be float32 of shape ({D},), got "
+                         f"{scale.dtype} {tuple(scale.shape)}")
+    if D % 4:
+        raise ValueError(f"{name}: the row width {D} must be a multiple of 4")
+    _check_cuda(name, x=x, scale=scale)
+    if scale.device != x.device:
+        raise ValueError(f"{name}: scale on {scale.device}, x on {x.device}")
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    lib = build.library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.rmsnorm_launch(x.data_ptr(), scale.data_ptr(),
+                                 out.data_ptr(), x.numel() // D, D, eps,
+                                 stream)
+    build.check(err, name)
+    rmsnorm_cuda.launches += 1
+    return out
+
+
+rmsnorm_cuda.launches = 0
+
+
+# ============================================================== attention ==
+def partial_softmax(s: Tensor, v: Tensor, spec: str,
+                    pv_dtype: torch.dtype = torch.float32
+                    ) -> tuple[Tensor, Tensor, Tensor]:
+    """One block of attention the TPU kernels' way, from fp32 scores ``s``
+    (-inf where masked, keys last) and ``v``: the unnormalised output
+    (fp32), the row max (-inf for a row with no live key) and the sum.  P
+    is rounded to ``v.dtype`` before the PV product (the einsum ``spec``,
+    taken in ``pv_dtype``) while the sum takes it in fp32."""
+    m = s.amax(dim=-1)
+    # fully-masked rows have m = -inf; exp(s - m) would be NaN
+    m_safe = torch.where(torch.isneginf(m), 0.0, m)
+    p = torch.exp(s - m_safe[..., None])
+    o = torch.einsum(spec, p.to(v.dtype).to(pv_dtype), v.to(pv_dtype))
+    return o.to(torch.float32), m, p.sum(dim=-1)
+
+
+def _normalise(o: Tensor, l: Tensor) -> Tensor:
+    return o / torch.where(l == 0.0, 1.0, l)[..., None]
+
+
+def flash_attention_plain(q: Tensor, k: Tensor, v: Tensor, *,
+                          causal: bool = True) -> Tensor:
+    """q (B, Sq, H, D); k/v (B, Skv, Hkv, D), H % Hkv == 0 (q head h reads
+    kv head h // (H // Hkv)) -> (B, Sq, H, D) in q.dtype.  The causal mask
+    is top-left aligned: query i sees keys 0..i."""
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Sq, Hkv, H // Hkv, D).to(torch.float32)
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qg, k.to(torch.float32)) * (
+        1.0 / math.sqrt(D))
+    if causal:
+        qpos = torch.arange(Sq, device=q.device)
+        kpos = torch.arange(Skv, device=q.device)
+        s = torch.where(qpos[:, None] >= kpos[None, :], s, float("-inf"))
+    o, _, l = partial_softmax(s, v, "bgrqk,bkgd->bgrqd")
+    return _normalise(o, l).permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+
+
+def _check_attention(name: str, q: Tensor, k: Tensor, v: Tensor,
+                     q_dims: int) -> None:
+    if q.dim() != q_dims or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    H, D, Hkv = q.shape[-2], q.shape[-1], k.shape[2]
+    if q.shape[0] != k.shape[0] or k.shape[3] != D:
+        raise ValueError(f"{name}: q {tuple(q.shape)} does not fit k "
+                         f"{tuple(k.shape)}")
+    if D != HEAD_DIM:
+        raise ValueError(f"{name}: the CUDA kernel takes head dim {HEAD_DIM}, "
+                         f"got {D}")
+    if Hkv == 0 or H % Hkv:
+        raise ValueError(f"{name}: {H} heads do not share {Hkv} kv heads")
+    for n, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"{name}: {n} must be bfloat16, got {t.dtype}")
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError(f"{name}: {n} is on {t.device}, not on q's "
+                             "CUDA device")
+        if (t.stride(-1) != 1 or any(st % 8 for st in t.stride()[:-1])
+                or t.data_ptr() % 16):
+            raise ValueError(f"{name}: {n} needs unit last stride, row "
+                             "starts 16-byte aligned")
+
+
+def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *,
+                         causal: bool = True) -> Tensor:
+    """CUDA kernel for :func:`flash_attention_plain` (bf16, head dim 128;
+    q, k and v may be strided views with a unit last stride)."""
+    name = "flash_attention"
+    _check_attention(name, q, k, v, 4)
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    lib = build.library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, Sq, Skv, H, Hkv, int(causal), *q.stride()[:3],
+            *k.stride()[:3], *v.stride()[:3], stream)
+    build.check(err, name)
+    flash_attention_cuda.launches += 1
+    return out
+
+
+flash_attention_cuda.launches = 0
+
+
+# ========================================================== flash decoding ==
+def decode_attention_plain(q: Tensor, k: Tensor, v: Tensor, pos: int, *,
+                           start: int = 0) -> Tensor:
+    """q (B, H, D) one query per sequence; k/v (B, S, Hkv, D) a cache slice
+    holding global positions [start, start + S); positions start..pos are
+    live.  GQA as :func:`flash_attention_plain`.  Returns (B, H, D) in
+    q.dtype, 0 for a sequence with no live position."""
+    B, H, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Hkv, H // Hkv, D).to(torch.float32)
+    s = torch.einsum("bgrd,bsgd->bgrs", qg, k.to(torch.float32)) * (
+        1.0 / math.sqrt(D))
+    kpos = start + torch.arange(S, device=q.device)
+    s = torch.where(kpos <= pos, s, float("-inf"))
+    o, _, l = partial_softmax(s, v, "bgrs,bsgd->bgrd")
+    return _normalise(o, l).reshape(B, H, D).to(q.dtype)
+
+
+def decode_attention_cuda(q: Tensor, k: Tensor, v: Tensor, pos: int, *,
+                          start: int = 0) -> Tensor:
+    """CUDA kernels for :func:`decode_attention_plain` (bf16, head dim 128,
+    contiguous q and cache, H / Hkv in ``DECODE_REPS``).  ``pos`` is a
+    host int: only the chunks of the live prefix are launched."""
+    name = "decode_attention"
+    _check_attention(name, q, k, v, 3)
+    B, H, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    if H // Hkv not in DECODE_REPS:
+        raise ValueError(f"{name}: {H // Hkv} query heads a kv head; the "
+                         f"kernel takes {DECODE_REPS}")
+    _check_cuda(name, q=q, k=k, v=v)
+    n_live = min(max(int(pos) - int(start) + 1, 0), S)
+    ns = max(1, -(-n_live // DECODE_CHUNK))
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    part_o = torch.empty((B, H, ns, D), dtype=torch.float32, device=q.device)
+    part_ml = torch.empty((2, B, H, ns), dtype=torch.float32, device=q.device)
+    lib = build.library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.decode_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), part_o.data_ptr(),
+            part_ml[0].data_ptr(), part_ml[1].data_ptr(), out.data_ptr(),
+            B, S, H, Hkv, n_live, ns, DECODE_CHUNK, stream)
+    build.check(err, name)
+    decode_attention_cuda.launches += 1
+    return out
+
+
+decode_attention_cuda.launches = 0

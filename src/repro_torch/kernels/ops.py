@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.kernels import grouped_matmul as _gm
 from repro_torch.kernels import mamba_scan as _ms
+from repro_torch.kernels import norm_attention as _na
 from repro_torch.kernels import quantize_pack as _qp
 
 # the kernels by name: (CUDA wrapper, plain); the scan's CUDA wrapper is
@@ -32,6 +33,10 @@ KERNELS = {
     "dequantize": (_qp.dequantize_cuda, _qp.dequantize_plain),
     "mamba_scan": (_ms.mamba_scan_cuda, _ms.mamba_scan_plain),
     "mamba_scan_bwd": (_ms.mamba_scan_bwd_cuda, _ms.mamba_scan_bwd_plain),
+    "rmsnorm": (_na.rmsnorm_cuda, _na.rmsnorm_plain),
+    "flash_attention": (_na.flash_attention_cuda, _na.flash_attention_plain),
+    "decode_attention": (_na.decode_attention_cuda,
+                         _na.decode_attention_plain),
 }
 # kernels whose CUDA wrapper is differentiable on the card
 WITH_BACKWARD = frozenset({"mamba_scan"})
@@ -93,3 +98,22 @@ def mamba_scan(x, dt, A, B, C, D):
             raise ValueError(f"mamba_scan: {name} must be float32, got "
                              f"{t.dtype}")
     return _pick("mamba_scan", x)(x, dt, A, B, C, D)
+
+
+def rmsnorm(x, scale, eps: float = 1e-5):
+    """``x * rsqrt(mean(x^2) + eps) * scale`` over the last dim, reduced in
+    fp32 (bf16 x and an fp32 scale on the card)."""
+    return _pick("rmsnorm", x, scale)(x, scale, eps)
+
+
+def flash_attention(q, k, v, *, causal: bool = True):
+    """Attention of q (B, Sq, H, D) over k/v (B, Skv, Hkv, D), GQA, causal
+    (top-left aligned) or full -> (B, Sq, H, D)."""
+    return _pick("flash_attention", q, k, v)(q, k, v, causal=causal)
+
+
+def decode_attention(q, k, v, pos: int, *, start: int = 0):
+    """One query a sequence, q (B, H, D), over the cache slice k/v (B, S,
+    Hkv, D) of positions [start, start + S), live up to ``pos`` (a host
+    int) -> normalised (B, H, D)."""
+    return _pick("decode_attention", q, k, v)(q, k, v, pos, start=start)

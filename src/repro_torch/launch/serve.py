@@ -3,9 +3,13 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_moe_a2_7b \\
       --mesh local --local-model-axis 4 --batch 4 --prompt-len 256 --gen 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_4b \\
+      --batch 4 --prompt-len 2048 --gen 32
 
-Runs on ``cuda`` unless ``--device cpu``.  With ``--mesh local`` the MoE
-layers run expert parallel over a rank-stacked world of
+Runs on ``cuda`` unless ``--device cpu``.  Prefill and decode run their
+norms and attention through the RMSNorm, flash attention and flash
+decoding kernels, under ``torch.inference_mode()``.  With ``--mesh
+local`` the MoE layers run expert parallel over a rank-stacked world of
 ``--local-model-axis`` ranks on the one device; the KV cache is local, so
 prefill is one batched pass through the HT dispatch and decode goes token
 by token through LL.  ``--mesh none`` runs the dense MoE oracle.
@@ -33,20 +37,22 @@ def generate(cfg, params, prompts, n_gen: int, *, dist=None) -> dict:
                          device=dev)
     sync()
     t0 = time.perf_counter()
-    logits, cache, aux = Z.prefill(cfg, params, cache, prompts, dist=dist,
-                                   moe_mode="ht")
-    tok = torch.argmax(logits[:, :cfg.vocab_size], dim=-1)[:, None]
-    sync()
-    t_first = time.perf_counter() - t0
-    out, dropped = [tok], [aux["dropped"]]
-    prefill_per_layer = aux["dropped_per_layer"]
-    for t in range(S, max_len - 1):
-        logits, cache, aux = Z.decode_step(cfg, params, cache, tok, t,
-                                           dist=dist, moe_mode="ll")
+    # no gradients: the norm and attention kernels have no backward
+    with torch.inference_mode():
+        logits, cache, aux = Z.prefill(cfg, params, cache, prompts,
+                                       dist=dist, moe_mode="ht")
         tok = torch.argmax(logits[:, :cfg.vocab_size], dim=-1)[:, None]
-        out.append(tok)
-        dropped.append(aux["dropped"])
-    sync()
+        sync()
+        t_first = time.perf_counter() - t0
+        out, dropped = [tok], [aux["dropped"]]
+        prefill_per_layer = aux["dropped_per_layer"]
+        for t in range(S, max_len - 1):
+            logits, cache, aux = Z.decode_step(cfg, params, cache, tok, t,
+                                               dist=dist, moe_mode="ll")
+            tok = torch.argmax(logits[:, :cfg.vocab_size], dim=-1)[:, None]
+            out.append(tok)
+            dropped.append(aux["dropped"])
+        sync()
     dt = time.perf_counter() - t0
     total = B * len(out)
     return {"tokens": torch.cat(out, dim=1), "logits": logits,

@@ -4,9 +4,12 @@ local-cache prefill and decode of ``repro.models.blocks``.
 A layer's parameters are a dict in the JAX layout (``ln1``, ``ln2``,
 ``attn`` or ``mamba``, ``moe`` or ``mlp``); its decode cache is a dict
 ``{"k", "v"}`` of ``(B, S_max, Hkv, hd)`` tensors, which prefill and decode
-update in place.  The reference's mesh constraints and its ``sp_islands``
-shard_map islands place tensors on a TPU mesh; they have no counterpart on
-one card.
+update in place.  Training (``block_apply``) computes its norms and
+attention in the model's own tensor code, as the reference does; prefill
+and decode run them through ``kernels.ops`` (RMSNorm, flash attention,
+flash decoding), whose CUDA kernels have no backward.  The reference's
+mesh constraints and its ``sp_islands`` shard_map islands place tensors on
+a TPU mesh; they have no counterpart on one card.
 """
 from __future__ import annotations
 
@@ -17,10 +20,10 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.moe import moe_apply, moe_init
 from repro_torch.distributed.sharding import DistCtx
-from repro_torch.models.layers import (_qkv, attention, attn_init,
-                                       decode_attention_local, decode_qkv,
-                                       flash_attention_blocked, mlp_init,
-                                       rmsnorm, rmsnorm_init, swiglu)
+from repro_torch.kernels import ops
+from repro_torch.models.layers import (_qkv, attention, attn_init, decode_qkv,
+                                       mlp_init, rmsnorm, rmsnorm_init,
+                                       swiglu)
 from repro_torch.models.mamba import mamba_apply, mamba_init
 
 Tensor = torch.Tensor
@@ -78,17 +81,15 @@ def block_prefill(cfg: ModelConfig, dist: Optional[DistCtx], p: dict,
                   moe_chunks: int = 1) -> tuple[Tensor, dict, dict]:
     """Batched prompt prefill: x (B, S, D) -> (x', cache, aux); the
     projected k/v land in ``cache[:, :S]``."""
-    h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-    q, k_new, v_new = _qkv(cfg, p["attn"], h, positions)
+    h = ops.rmsnorm(x, p["ln1"], cfg.norm_eps)
+    q, k_new, v_new = _qkv(cfg, p["attn"], h, positions, norm=ops.rmsnorm)
     S = x.shape[1]
-    blk = min(512, S)
-    o = flash_attention_blocked(q, k_new, v_new, causal=True, q_block=blk,
-                                kv_block=blk)
+    o = ops.flash_attention(q, k_new, v_new, causal=True)
     cache["k"][:, :S] = k_new.to(cache["k"].dtype)
     cache["v"][:, :S] = v_new.to(cache["v"].dtype)
     h = torch.einsum("bshk,hkd->bsd", o, p["attn"]["wo"].to(h.dtype))
     x = x + h
-    h, aux = _ffn(cfg, dist, p, rmsnorm(x, p["ln2"], cfg.norm_eps),
+    h, aux = _ffn(cfg, dist, p, ops.rmsnorm(x, p["ln2"], cfg.norm_eps),
                   moe_mode, moe_chunks)
     return x + h, cache, aux
 
@@ -97,16 +98,15 @@ def block_decode(cfg: ModelConfig, dist: Optional[DistCtx], p: dict,
                  x: Tensor, cache: dict, pos: int, *,
                  moe_mode: str = "ll") -> tuple[Tensor, dict, dict]:
     """One-token decode: x (B, 1, D) at position ``pos``."""
-    h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-    q, k_new, v_new = decode_qkv(cfg, p["attn"], h, pos)
+    h = ops.rmsnorm(x, p["ln1"], cfg.norm_eps)
+    q, k_new, v_new = decode_qkv(cfg, p["attn"], h, pos, norm=ops.rmsnorm)
     cache["k"][:, pos] = k_new[:, 0].to(cache["k"].dtype)
     cache["v"][:, pos] = v_new[:, 0].to(cache["v"].dtype)
-    part = decode_attention_local(q, cache["k"], cache["v"], pos)
-    l = torch.where(part.l == 0, 1.0, part.l)
-    o = (part.o / l[..., None]).to(h.dtype)
+    # the whole cache: the kernel reads only positions 0..pos
+    o = ops.decode_attention(q[:, 0], cache["k"], cache["v"], pos)[:, None]
     h = torch.einsum("bshk,hkd->bsd", o, p["attn"]["wo"].to(h.dtype))
     x = x + h
-    h, aux = _ffn(cfg, dist, p, rmsnorm(x, p["ln2"], cfg.norm_eps),
+    h, aux = _ffn(cfg, dist, p, ops.rmsnorm(x, p["ln2"], cfg.norm_eps),
                   moe_mode, 1)
     return x + h, cache, aux
 

@@ -3,10 +3,13 @@ port of ``repro.models.layers``).
 
 Parameters keep the JAX layouts: ``wq (d, H, hd)``, ``wk/wv (d, Hkv, hd)``,
 ``wo (H, hd, d)``, biases ``(H, hd)``, MLP ``w_gate/w_up (d, ff)``,
-``w_down (ff, d)``; attention parameters are a dict with those keys.
-Attention is plain PyTorch (einsum and the blocked online softmax of the
-reference, with its hierarchical causal decomposition behind
-``causal_skip``), as the JAX package computes it in jnp.
+``w_down (ff, d)``, with ``qk_norm`` the per-head scales ``q_norm`` and
+``k_norm (hd,)``; attention parameters are a dict with those keys.  The
+training attention is plain PyTorch (einsum and the blocked online softmax
+of the reference, with its hierarchical causal decomposition behind
+``causal_skip``), as the JAX package computes it in jnp; the serving path
+(``blocks.block_prefill`` / ``block_decode``) goes through the kernels of
+``kernels.ops``.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.norm_attention import partial_softmax, rmsnorm_plain
 
 Tensor = torch.Tensor
 
@@ -25,10 +29,9 @@ def rmsnorm_init(d: int, device) -> Tensor:
     return torch.ones((d,), dtype=torch.float32, device=device)
 
 
-def rmsnorm(x: Tensor, scale: Tensor, eps: float = 1e-5) -> Tensor:
-    x32 = x.to(torch.float32)
-    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
-    return (x32 * torch.rsqrt(var + eps) * scale).to(x.dtype)
+# the reference's jnp RMSNorm is the RMSNorm kernel's plain version: the
+# training path computes it so; the serving path goes through ops.rmsnorm
+rmsnorm = rmsnorm_plain
 
 
 # ------------------------------------------------------------------- RoPE --
@@ -61,10 +64,16 @@ def attn_init(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
     if cfg.qkv_bias:
         for k, n in (("bq", h), ("bk", hkv), ("bv", hkv)):
             p[k] = torch.zeros((n, hd), device=device)
+    if cfg.qk_norm:
+        p["q_norm"] = rmsnorm_init(hd, device)
+        p["k_norm"] = rmsnorm_init(hd, device)
     return p
 
 
-def _qkv(cfg: ModelConfig, p: dict, x: Tensor, positions: Tensor):
+def _qkv(cfg: ModelConfig, p: dict, x: Tensor, positions: Tensor, *,
+         norm=rmsnorm):
+    """Projections, biases, the per-head ``qk_norm`` (through ``norm``:
+    ``ops.rmsnorm`` when serving, :func:`rmsnorm` in training), RoPE."""
     dt = x.dtype
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(dt))
@@ -73,16 +82,20 @@ def _qkv(cfg: ModelConfig, p: dict, x: Tensor, positions: Tensor):
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
         v = v + p["bv"].to(dt)
+    if "q_norm" in p:
+        q = norm(q, p["q_norm"], cfg.norm_eps)
+        k = norm(k, p["k_norm"], cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
-def decode_qkv(cfg: ModelConfig, p: dict, x: Tensor, pos: int):
+def decode_qkv(cfg: ModelConfig, p: dict, x: Tensor, pos: int, *,
+               norm=rmsnorm):
     """x: (B, 1, d) new token at position ``pos``."""
     positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
                            device=x.device)
-    return _qkv(cfg, p, x, positions)
+    return _qkv(cfg, p, x, positions, norm=norm)
 
 
 class _POut(NamedTuple):
@@ -98,13 +111,7 @@ def _partial_attn(q, k, v, mask, scale) -> _POut:
     s = torch.einsum("bqhd,bkhd->bqhk", q, k).to(torch.float32) * scale
     if mask is not None:
         s = torch.where(mask, s, float("-inf"))
-    m = s.amax(dim=-1)
-    # fully-masked rows have m = -inf; exp(s - m) would be NaN
-    m_safe = torch.where(torch.isneginf(m), 0.0, m)
-    p = torch.exp(s - m_safe[..., None])
-    l = p.sum(dim=-1)
-    o = torch.einsum("bqhk,bkhd->bqhd", p.to(v.dtype), v).to(torch.float32)
-    return _POut(o, m, l)
+    return _POut(*partial_softmax(s, v, "bqhk,bkhd->bqhd", v.dtype))
 
 
 def flash_attention_blocked(q: Tensor, k: Tensor, v: Tensor, *,
@@ -219,17 +226,6 @@ def attention(cfg: ModelConfig, p: dict, x: Tensor, positions: Tensor, *,
     o = flash_attention_blocked(q, k, v, causal=True, q_block=blk,
                                 kv_block=blk, causal_skip=causal_skip)
     return torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
-
-
-def decode_attention_local(q, cache_k, cache_v, pos: int, *,
-                           start: int = 0) -> _POut:
-    """Partial decode attention over a cache slice: q (B, 1, H, Dh);
-    cache_* (B, S_local, Hkv, Dh); valid positions are [0, pos]."""
-    S_local = cache_k.shape[1]
-    kpos = start + torch.arange(S_local, device=q.device)
-    mask = (kpos <= pos)[None, None, None, :]
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    return _partial_attn(q, cache_k, cache_v, mask, scale)
 
 
 # ----------------------------------------------------------------- SwiGLU --

@@ -20,7 +20,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import DistCtx
+from repro_torch.distributed.sharding import DistCtx, scan_period
+from repro_torch.kernels import ops
 from repro_torch.models import blocks as B
 from repro_torch.models.layers import rmsnorm, rmsnorm_init
 
@@ -65,15 +66,18 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
                       * 0.02, "embed"),
         "final_ln": rmsnorm_init(d, device),
     }
-    params["lm_head"] = done(torch.randn((d, vp), generator=gen,
-                                         device=device) / math.sqrt(d),
-                             "lm_head")
+    if not cfg.tie_embeddings:
+        params["lm_head"] = done(torch.randn((d, vp), generator=gen,
+                                             device=device) / math.sqrt(d),
+                                 "lm_head")
     params["blocks"] = [done(B.block_init(cfg, i, gen, device))
                         for i in range(cfg.n_layers)]
     return params
 
 
 def lm_head_weight(cfg: ModelConfig, params: dict) -> Tensor:
+    if cfg.tie_embeddings:
+        return params["embed"].T
     return params["lm_head"]
 
 
@@ -83,15 +87,18 @@ def forward(cfg: ModelConfig, params: dict, tokens: Tensor, *,
             moe_chunks: int = 1,
             causal_skip: bool = False) -> tuple[Tensor, dict]:
     """tokens (B, S) -> hidden (B, S, D), aux: ``aux_loss`` summed over
-    layers, ``dropped`` averaged over the MoE layers, and ``loads``, each
-    MoE layer's expert loads by layer index."""
+    layers, ``dropped`` as the reference reads it (each scan period's
+    dropped fractions summed, then the mean over periods; 0 without MoE),
+    and ``loads``, each MoE layer's expert loads by layer index."""
     x = B.vocab_embed(params["embed"], tokens)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None].expand(x.shape[0], S)
     layer = functools.partial(B.block_apply, cfg, dist, moe_mode=moe_mode,
                               moe_chunks=moe_chunks, causal_skip=causal_skip)
     aux_loss = torch.zeros((), dtype=torch.float32, device=x.device)
-    dropped, loads = [], {}
+    _, n_periods = scan_period(cfg)
+    dropped = torch.zeros((), dtype=torch.float32, device=x.device)
+    loads = {}
     for i, p in enumerate(params["blocks"]):
         if cfg.remat:
             x, aux = checkpoint(layer, p, x, positions, use_reentrant=False)
@@ -100,13 +107,11 @@ def forward(cfg: ModelConfig, params: dict, tokens: Tensor, *,
         if "aux_loss" in aux:
             aux_loss = aux_loss + aux["aux_loss"]
         if "dropped" in aux:
-            dropped.append(aux["dropped"])
+            dropped = dropped + aux["dropped"]
         if "load" in aux:
             loads[i] = aux["load"]
     x = rmsnorm(x, params["final_ln"], cfg.norm_eps)
-    return x, {"aux_loss": aux_loss,
-               "dropped": (torch.stack(dropped).mean() if dropped else
-                           torch.zeros((), device=x.device)),
+    return x, {"aux_loss": aux_loss, "dropped": dropped / n_periods,
                "loads": loads}
 
 
@@ -191,7 +196,7 @@ def prefill(cfg: ModelConfig, params: dict, cache: list, tokens: Tensor, *,
         x, _, aux = B.block_prefill(cfg, dist, p, x, c, positions,
                                     moe_mode=moe_mode)
         auxes.append(aux)
-    x = rmsnorm(x, params["final_ln"], cfg.norm_eps)
+    x = ops.rmsnorm(x, params["final_ln"], cfg.norm_eps)
     logits = (x[:, -1] @ lm_head_weight(cfg, params)).to(torch.float32)
     return logits, cache, _dropped(auxes, x.device)
 
@@ -208,6 +213,6 @@ def decode_step(cfg: ModelConfig, params: dict, cache: list, tokens: Tensor,
         x, _, aux = B.block_decode(cfg, dist, p, x, c, pos,
                                    moe_mode=moe_mode)
         auxes.append(aux)
-    x = rmsnorm(x, params["final_ln"], cfg.norm_eps)
+    x = ops.rmsnorm(x, params["final_ln"], cfg.norm_eps)
     logits = (x[:, 0] @ lm_head_weight(cfg, params)).to(torch.float32)
     return logits, cache, _dropped(auxes, x.device)

@@ -11,6 +11,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import grouped_matmul as gm  # noqa: E402
 from repro_torch.kernels import mamba_scan as ms  # noqa: E402
+from repro_torch.kernels import norm_attention as na  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import quantize_pack as qp  # noqa: E402
 
@@ -230,3 +231,173 @@ def test_cuda_train_cli_reduced_mamba(cuda_device, capsys):
     # 2 layers x 3 steps; the forward runs again under recomputation
     assert ms.mamba_scan_cuda.launches - f0 == 12
     assert ms.mamba_scan_bwd_cuda.launches - b0 == 6
+
+
+# ---------------------------------------- RMSNorm, flash attention, decode --
+def _bf16(rng, shape, device, s=1.0):
+    return torch.from_numpy((rng.standard_normal(shape) * s).astype(
+        np.float32)).to(device, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,D", [(37, 128), (5, 2560), (9, 1024),
+                                    (3, 1028), (300, 200)])
+def test_cuda_rmsnorm_matches_plain(cuda_device, rows, D):
+    """One warp a row up to D = 1024, one block a row above; bf16 x with
+    rows of very different scales, fp32 scale."""
+    rng = np.random.default_rng(D)
+    x = _bf16(rng, (rows, D), cuda_device) * torch.from_numpy(
+        rng.uniform(0.01, 50, (rows, 1)).astype(np.float32)).to(
+            cuda_device, torch.bfloat16)
+    scale = torch.from_numpy(rng.standard_normal(D).astype(np.float32)).to(
+        cuda_device)
+    got = na.rmsnorm_cuda(x, scale, 1e-5).float()
+    ref = na.rmsnorm_plain(x, scale, 1e-5).float()
+    # the same fp32 value up to summation order, rounded once: at most one
+    # bf16 ulp (2^-7 of the value) apart, and almost never apart at all
+    # (a kernel that rounded the fp32 scale to bf16 would move about a
+    # quarter of the elements by an ulp)
+    assert ((got - ref).abs() <= 2.0 ** -7 * ref.abs()).all()
+    assert (got != ref).float().mean() < 0.01
+    x3 = x.reshape(1, rows, D)
+    assert torch.equal(na.rmsnorm_cuda(x3, scale).reshape(rows, D),
+                       na.rmsnorm_cuda(x, scale))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Skv,H,Hkv,causal", [
+    (2, 200, 200, 8, 2, True),      # ragged against the 64-row tiles
+    (2, 200, 200, 8, 2, False),
+    (1, 64, 64, 4, 4, True),        # one tile, MHA
+    (1, 130, 130, 8, 1, True),      # GQA rep 8
+    (1, 70, 150, 4, 2, False),      # Sq != Skv
+    (1, 150, 70, 4, 2, True),       # rows past Skv see every key
+    (1, 2048, 2048, 32, 8, True),   # the qwen3-4b prefill's shape at batch 1
+])
+def test_cuda_flash_attention_matches_plain(cuda_device, B, Sq, Skv, H, Hkv,
+                                            causal):
+    rng = np.random.default_rng(Sq * H + Skv)
+    q = _bf16(rng, (B, Sq, H, 128), cuda_device)
+    k = _bf16(rng, (B, Skv, Hkv, 128), cuda_device)
+    v = _bf16(rng, (B, Skv, Hkv, 128), cuda_device)
+    got = na.flash_attention_cuda(q, k, v, causal=causal).float()
+    ref = na.flash_attention_plain(q, k, v, causal=causal).float()
+    # the reference's bf16 tolerance (tests/test_kernels.py:235-236)
+    torch.testing.assert_close(got, ref, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_takes_strided_views(cuda_device):
+    """q, k and v as views into one fused (B, S, H + 2 Hkv, D) projection."""
+    rng = np.random.default_rng(3)
+    B, S, H, Hkv = 2, 96, 4, 2
+    qkv = _bf16(rng, (B, S, H + 2 * Hkv, 128), cuda_device)
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + Hkv], qkv[:, :, H + Hkv:]
+    assert not q.is_contiguous()
+    got = na.flash_attention_cuda(q, k, v)
+    ref = na.flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                  v.contiguous())
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,Hkv,pos,start", [
+    (2, 600, 8, 2, 0, 0),          # one live position
+    (2, 600, 8, 2, 100, 0),        # inside the first chunk
+    (2, 600, 8, 2, 255, 0),        # the last position of a chunk
+    (2, 600, 8, 2, 256, 0),        # the first of the next
+    (2, 600, 8, 2, 599, 0),        # the whole cache, ragged last chunk
+    (2, 600, 8, 2, 5000, 0),       # pos past the slice: all of it live
+    (2, 400, 8, 2, 300, 50),       # a slice starting at 50
+    (2, 400, 8, 2, 20, 50),        # pos before the slice: nothing live
+    (3, 300, 16, 16, 290, 0),      # MHA (qwen2-moe)
+    (1, 300, 8, 1, 200, 0),        # rep 8
+    (4, 2080, 32, 8, 2079, 0),     # the qwen3-4b decode's shape
+])
+def test_cuda_decode_attention_matches_plain(cuda_device, B, S, H, Hkv, pos,
+                                             start):
+    rng = np.random.default_rng(S + pos)
+    q = _bf16(rng, (B, H, 128), cuda_device)
+    k = _bf16(rng, (B, S, Hkv, 128), cuda_device)
+    v = _bf16(rng, (B, S, Hkv, 128), cuda_device)
+    got = na.decode_attention_cuda(q, k, v, pos, start=start).float()
+    ref = na.decode_attention_plain(q, k, v, pos, start=start).float()
+    torch.testing.assert_close(got, ref, rtol=2e-2, atol=2e-2)
+    if pos < start:
+        assert (got == 0).all()
+    # positions past pos are never read: NaN there changes nothing
+    n_live = min(max(pos - start + 1, 0), S)
+    k[:, n_live:] = float("nan")
+    v[:, n_live:] = float("nan")
+    again = na.decode_attention_cuda(q, k, v, pos, start=start).float()
+    assert torch.equal(again, got)
+
+
+@pytest.mark.cuda
+def test_cuda_attention_and_norm_refuse_grad(cuda_device):
+    """The three kernels have no backward: an input that requires a
+    gradient under grad mode raises; under inference mode they launch."""
+    rng = np.random.default_rng(4)
+    x = _bf16(rng, (4, 128), cuda_device)
+    scale = torch.ones(128, device=cuda_device, requires_grad=True)
+    q = _bf16(rng, (1, 64, 4, 128), cuda_device).requires_grad_(True)
+    k = _bf16(rng, (1, 64, 2, 128), cuda_device)
+    before = (na.rmsnorm_cuda.launches, na.flash_attention_cuda.launches,
+              na.decode_attention_cuda.launches)
+    with pytest.raises(NotImplementedError, match="no backward kernel"):
+        ops.rmsnorm(x, scale)
+    with pytest.raises(NotImplementedError, match="no backward kernel"):
+        ops.flash_attention(q, k, k)
+    with pytest.raises(NotImplementedError, match="no backward kernel"):
+        ops.decode_attention(q[:, 0], k, k, 10)
+    assert (na.rmsnorm_cuda.launches, na.flash_attention_cuda.launches,
+            na.decode_attention_cuda.launches) == before
+    with torch.inference_mode():
+        ops.rmsnorm(x, scale)
+        ops.flash_attention(q, k, k)
+        ops.decode_attention(q[:, 0].contiguous(), k, k, 10)
+    assert (na.rmsnorm_cuda.launches, na.flash_attention_cuda.launches,
+            na.decode_attention_cuda.launches) == tuple(b + 1 for b in before)
+
+
+@pytest.mark.cuda
+def test_cuda_attention_wrappers_raise_on_inputs_they_do_not_take(
+        cuda_device):
+    rng = np.random.default_rng(5)
+    q = _bf16(rng, (1, 8, 4, 64), cuda_device)           # head dim 64
+    with pytest.raises(ValueError, match="head dim"):
+        na.flash_attention_cuda(q, q[:, :, :2], q[:, :, :2])
+    q = _bf16(rng, (1, 8, 4, 128), cuda_device)
+    with pytest.raises(ValueError, match="bfloat16"):
+        na.flash_attention_cuda(q.float(), q, q)
+    with pytest.raises(ValueError, match="kv heads"):
+        na.flash_attention_cuda(q, q[:, :, :3], q[:, :, :3])
+    k = _bf16(rng, (1, 32, 1, 128), cuda_device)
+    with pytest.raises(ValueError, match="query heads a kv head"):
+        na.decode_attention_cuda(_bf16(rng, (1, 16, 128), cuda_device), k, k,
+                                 5)
+    x = _bf16(rng, (3, 128), cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        na.rmsnorm_cuda(x, torch.ones(128, device=cuda_device,
+                                      dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        na.rmsnorm_cuda(_bf16(rng, (128, 3), cuda_device).T,
+                        torch.ones(128, device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_cuda_serve_cli_reduced_qwen3(cuda_device, capsys):
+    """A reduced qwen3 (head dim 128) served on the card goes through the
+    three kernels."""
+    from repro_torch.launch import serve
+    before = (na.rmsnorm_cuda.launches, na.flash_attention_cuda.launches,
+              na.decode_attention_cuda.launches)
+    assert serve.main(["--arch", "qwen3_4b", "--reduced", "--d-model", "512",
+                       "--batch", "2", "--prompt-len", "40", "--gen",
+                       "4"]) == 0
+    assert "[serve] generated 8 tokens" in capsys.readouterr().out
+    after = (na.rmsnorm_cuda.launches, na.flash_attention_cuda.launches,
+             na.decode_attention_cuda.launches)
+    # a prefill and 3 decode steps, each 2 layers of 4 norms and the final
+    # one; 2 prefill attentions, 2 x 3 decode attentions
+    assert [a - b for a, b in zip(after, before)] == [4 * 9, 2, 6]

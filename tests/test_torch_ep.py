@@ -7,6 +7,7 @@ wires, plus skewed tables that drop — runs in ONE subprocess with fake
 CPU devices, whose results the parametrized tests below compare.  Both
 sides run the real expert function of their ``moe`` module (the jnp refs
 on the JAX side, the plain versions here)."""
+import dataclasses
 import textwrap
 
 import numpy as np
@@ -18,13 +19,20 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from jax.sharding import AxisType, PartitionSpec as P  # noqa: E402
 
+from repro.configs import get_config as jget_config  # noqa: E402
+from repro.configs import reduced_config as jreduced  # noqa: E402
 from repro.core import moe as jmoe  # noqa: E402
 from repro.core.backend import get_backend as jget_backend  # noqa: E402
 from repro.core.ep import EPSpec as JSpec  # noqa: E402
+from repro.models import model_zoo as JZ  # noqa: E402
+from repro_torch.configs import get_config, reduced_config  # noqa: E402
+from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.core import moe as tmoe  # noqa: E402
 from repro_torch.core.backend import (available_backends,  # noqa: E402
                                       get_backend)
 from repro_torch.core.ep import EPSpec, moe_ref  # noqa: E402
+from repro_torch.distributed.sharding import make_dist_ctx  # noqa: E402
+from repro_torch.models import model_zoo as Z  # noqa: E402
 
 E, D, F = 8, 160, 24          # D = 160: two wire blocks, the second ragged
 RTOL, ATOL = 3e-4, 3e-5       # tests/test_backends.py:80
@@ -204,3 +212,64 @@ def test_ep_multi_rank_matches_jax_collectives(jax_multi_rank, name):
         assert (got["dropped"] > 0).any()      # the skewed cases do drop
     else:
         assert (got["dropped"] == 0).all()
+
+
+# a reduced jamba whose scan period (4 layers: attention, Mamba + MoE,
+# Mamba, Mamba + MoE) holds two MoE layers, two periods; one sequence of
+# 256 tokens, so each of the 2 EP ranks holds 128 (the seq split of the
+# reference's model axis and the port's row split agree), at capacity
+# factor 1 so that HT drops
+_DROP_CFG = dict(n_layers=8, d_model=64, vocab=512)
+
+
+def _drop_cfg(get, reduce):
+    cfg = reduce(get("jamba_1_5_large_398b"), **_DROP_CFG)
+    return dataclasses.replace(cfg, attn_every=4, dtype="float32",
+                               moe=dataclasses.replace(cfg.moe,
+                                                       capacity_factor=1.0))
+
+
+_FORWARD_SCRIPT = textwrap.dedent("""
+    import dataclasses
+    import numpy as np
+    import jax
+    from jax.sharding import AxisType
+    from repro.configs import get_config, reduced_config
+    from repro.distributed.sharding import make_dist_ctx
+    from repro.models import model_zoo as Z
+    cfg = reduced_config(get_config("jamba_1_5_large_398b"), **%(kw)r)
+    cfg = dataclasses.replace(cfg, attn_every=4, dtype="float32",
+                              moe=dataclasses.replace(cfg.moe,
+                                                      capacity_factor=1.0))
+    mesh = jax.make_mesh((1, 2), ("data", "model"),
+                         axis_types=(AxisType.Auto,) * 2,
+                         devices=jax.devices()[:2])
+    params = Z.init_params(cfg, jax.random.PRNGKey(0))
+    tokens = np.asarray(%(tokens)r, np.int32)
+    dist = make_dist_ctx(cfg, mesh)
+    with jax.set_mesh(mesh):
+        _, aux = jax.jit(lambda p, t: Z.forward(cfg, p, t, dist=dist))(
+            params, tokens)
+    print("DROPPED", repr(float(aux["dropped"])))
+""")
+
+
+def test_forward_dropped_reads_as_the_reference(dist_runner):
+    """``forward``'s ``dropped`` is the reference's: the MoE layers'
+    fractions summed within each scan period, then the mean over periods
+    (model_zoo.py:97-122).  With two MoE layers a period that is twice the
+    mean over MoE layers, so the two readings differ wherever HT drops."""
+    tokens = np.random.default_rng(0).integers(0, 512, (1, 256)).tolist()
+    out = dist_runner(_FORWARD_SCRIPT % {"kw": _DROP_CFG, "tokens": tokens},
+                      n_devices=2, timeout=600)
+    ref = float(out.split("DROPPED")[-1])
+    jcfg = _drop_cfg(jget_config, jreduced)
+    cfg = _drop_cfg(get_config, reduced_config)
+    params = params_from_jax(cfg, jax.tree.map(
+        np.asarray, JZ.init_params(jcfg, jax.random.PRNGKey(0))), device="cpu")
+    assert sum(cfg.is_moe_layer(i) for i in range(4)) == 2
+    with torch.no_grad():
+        _, aux = Z.forward(cfg, params, torch.tensor(tokens),
+                           dist=make_dist_ctx(cfg, model=2))
+    assert ref > 0
+    np.testing.assert_allclose(float(aux["dropped"]), ref, rtol=1e-6)

@@ -126,11 +126,13 @@ def test_ops_dispatch_cpu_takes_plain_version():
         qp.dequantize_plain(q, s).numpy())
     assert set(ops.KERNELS) == {"grouped_swiglu", "gather_swiglu_scatter",
                                 "gather_quantize", "dequantize",
-                                "mamba_scan", "mamba_scan_bwd"}
+                                "mamba_scan", "mamba_scan_bwd", "rmsnorm",
+                                "flash_attention", "decode_attention"}
 
 
 @pytest.mark.parametrize("name", ["grouped_swiglu", "gather_swiglu_scatter",
-                                  "gather_quantize", "dequantize"])
+                                  "gather_quantize", "dequantize", "rmsnorm",
+                                  "flash_attention", "decode_attention"])
 def test_cuda_wrapper_refuses_cpu_tensors(name):
     """A CUDA wrapper launches its kernel or raises: on CPU tensors it
     raises before touching the kernel library and counts no launch."""
@@ -146,6 +148,12 @@ def test_cuda_wrapper_refuses_cpu_tensors(name):
                                         wire_dtype="int8"),
         "dequantize": lambda: cuda(torch.zeros((4, 16), dtype=torch.int8),
                                    torch.ones((4, 1))),
+        "rmsnorm": lambda: cuda(x[0], torch.ones(16), 1e-5),
+        "flash_attention": lambda: cuda(*[torch.zeros(
+            (1, 8, 2, 128), dtype=torch.bfloat16)] * 3),
+        "decode_attention": lambda: cuda(torch.zeros(
+            (1, 2, 128), dtype=torch.bfloat16), *[torch.zeros(
+                (1, 8, 2, 128), dtype=torch.bfloat16)] * 2, 3),
     }[name]
     with pytest.raises(ValueError):
         args()

@@ -1,6 +1,7 @@
 """The port's training slice against the reference on the same numpy
 inputs: ``loss_fn``'s loss and every gradient (reduced falcon-mamba,
-jamba and qwen2-moe, fp32, no mesh), the optimizer (full and factored),
+jamba, qwen2-moe, qwen3-4b and qwen3-1.7b with its tied head, fp32, no
+mesh), the optimizer (full and factored),
 the schedule, the synthetic data bit for bit, three ``train_loop`` steps
 from the same parameters; and the loop's own behaviour: checkpoint round
 trip, recovery from an injected failure, the watchdog, the CLI on the
@@ -34,7 +35,8 @@ from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.optim.schedule import cosine_with_warmup  # noqa: E402
 from repro_torch.training import train_loop as T  # noqa: E402
 
-ARCHS = ["falcon_mamba_7b", "jamba_1_5_large_398b", "qwen2_moe_a2_7b"]
+ARCHS = ["falcon_mamba_7b", "jamba_1_5_large_398b", "qwen2_moe_a2_7b",
+         "qwen3_4b", "qwen3_1_7b"]
 # the configs' own compute dtype, on the two with Mamba layers (jamba: also
 # attention, MLP and MoE layers)
 BF16_ARCHS = ["falcon_mamba_7b", "jamba_1_5_large_398b"]
