@@ -22,7 +22,17 @@ Phases, each printed as one JSON line:
    the device activities and host operators that take the most time);
 5. moe_served: HT at the served shape (1024 tokens), on the MoE inputs
    one prefill recorded: per-layer drops, and layer 0 and the layer that
-   drops most against the dense oracle with no choice dropped;
+   drops most against the dense oracle with no choice dropped; then
+   ht_unfused: layer 0's input through ``dispatch_combine_ht`` with a
+   plain ``fn(tokens, counts)`` (no ``.fused``), once under
+   ``REPRO_SWIGLU_DB=1`` (``grouped_swiglu_db`` launches) and once without
+   (it does not), against the fused path (drops equal, outputs within
+   ``gather_swiglu_scatter``'s tolerance plus one bf16 ulp), and
+   ``ops.grouped_matmul`` (``x @ w_gate``) driven on the gathered buffer;
+   then combine_reduce: ``ops.combine_reduce`` of layer 0's 1024 tokens x
+   4 expert outputs (bf16) with the router's weights (fp32) against the
+   dense oracle; the launch counts of the three kernels are set to 0 just
+   before and read just after each driven call, and must be > 0;
 6. kernel (EP): each EP kernel, on the inputs of the first call of each
    kind (shapes) it had in the serving path -- for the wire kernels, the
    HT prefill and the LL decode dispatch -- against its plain PyTorch
@@ -73,9 +83,16 @@ Phases, each printed as one JSON line:
    their plain versions row by row (each output row within its tolerance
    of that row's largest plain value), timed beside their bound, the plain
    version and one PyTorch library call computing the same function
-   (``library_ms``).
+   (``library_ms``); then paged_decode: the last decode step's query and
+   last layer's cache copied into block pools whose tables a
+   ``KVBlockPool`` makes (ragged positions 2078, 2047, 1031, 17; 16-token
+   blocks; unread rows NaN), through ``ops.decode_attention_paged``
+   (launches counted as above), and at one position for all four against
+   the contiguous kernel.  ``grouped_swiglu_db``, ``grouped_matmul``,
+   ``combine_reduce`` and ``decode_attention_paged`` are checked and timed
+   as the kernels of phase 6, on the inputs of phases 5 and 12.
 
-Then the kernels line ``{"kernels": [...]}`` (all nine kernels), the
+Then the kernels line ``{"kernels": [...]}`` (all thirteen kernels), the
 nvidia-smi line, and as the last line ``{"ok": true, "device": {...}}``.
 Any failed check raises and the exit code is not 0.  Without a CUDA
 device, or without the rest of the repository beside it, it exits
@@ -120,6 +137,14 @@ KERNEL_INFO = {  # name: (source, the TPU kernel it replaces)
                         "src/repro/kernels/flash_attention.py:68"),
     "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:67"),
+    "grouped_swiglu_db": ("src/repro_torch/csrc/grouped_swiglu_db.cu",
+                          "src/repro/kernels/grouped_matmul.py:269"),
+    "grouped_matmul": ("src/repro_torch/csrc/grouped_matmul.cu",
+                       "src/repro/kernels/grouped_matmul.py:105"),
+    "combine_reduce": ("src/repro_torch/csrc/combine_reduce.cu",
+                       "src/repro/kernels/combine_reduce.py:22"),
+    "decode_attention_paged": ("src/repro_torch/csrc/decode_attention_paged.cu",
+                               "src/repro/kernels/decode_attention.py:149"),
 }
 EP_KERNELS = ("grouped_swiglu", "gather_swiglu_scatter", "gather_quantize",
               "dequantize")
@@ -148,12 +173,20 @@ KERNEL_TOL = {
     # max that differs between the two, sums in another order
     "flash_attention": 2e-2,
     "decode_attention": 2e-2,
+    # as grouped_swiglu: fp32 sums in another order, bf16 roundings
+    "grouped_swiglu_db": 1e-2,
+    "grouped_matmul": 1e-2,
+    # "ulp": each element within one ulp of the output dtype at the plain
+    # value (both sum in fp32 in k order, products and sums rounded apart,
+    # so they agree bit for bit; one rounding of the output may differ)
+    "combine_reduce": "ulp",
+    "decode_attention_paged": 2e-2,
 }
 # kernels held row by row (a normed row; one query's head): a causal row
 # averages the values of every key it sees, so its magnitude falls with
 # its position, and a limit taken from the largest row (row 0 is v[0])
 # would let a late row's error be as large as the row itself
-ROW_KERNELS = NORM_ATTN_KERNELS
+ROW_KERNELS = NORM_ATTN_KERNELS + ("decode_attention_paged",)
 # exponentials run on the special-function units: 16 per SM per clock,
 # 132 SMs, 1.98 GHz boost (H100 SXM); one accurate expf is at least one
 SFU_OP_PER_S = 16 * 132 * 1.98e9
@@ -179,6 +212,9 @@ QWEN3_BATCH, QWEN3_PROMPT, QWEN3_GEN = 4, 2048, 32
 # adds in a varying order); twice that, where a typical |logit| is a sixth
 # of the largest
 SERVE_PLAIN_TOL = 0.04
+# paged decoding at qwen3-4b's decode shape: ragged per-sequence positions
+# and 16-token blocks
+PAGED_POS, PAGED_BLOCK = (2078, 2047, 1031, 17), 16
 
 
 def emit(obj) -> None:
@@ -211,6 +247,15 @@ class Recorder:
             self.cases[key] = (tuple(a.detach().clone() if hasattr(a, "clone")
                                      else a for a in args), dict(kwargs))
         return self.fn(*args, **kwargs)
+
+
+def ulp(t):
+    """The spacing of ``t``'s dtype (bf16 or fp32) at each |value|, in
+    fp32 (the smallest normal's spacing at 0)."""
+    import torch
+    mant = {torch.float32: 23, torch.bfloat16: 7}[t.dtype]
+    _, e = torch.frexp(t.float().abs().clamp_min(torch.finfo(t.dtype).tiny))
+    return torch.ldexp(torch.ones_like(t, dtype=torch.float32), e - 1 - mant)
 
 
 def cuda_ms(fn, n: int = 20, warmup: int = 3) -> float:
@@ -254,10 +299,30 @@ def bound(name: str, args, kwargs) -> tuple[float, str, dict]:
     only the rows this call's counts occupy) over the memory rate and its
     operations over the peak rate for their type."""
     import torch
-    if name in NORM_ATTN_KERNELS:
+    if name in NORM_ATTN_KERNELS + ("decode_attention_paged",):
         return norm_attn_bound(name, args, kwargs)
-    if name in ("grouped_swiglu", "gather_swiglu_scatter"):
-        if name == "grouped_swiglu":
+    if name == "grouped_matmul":
+        x, w, counts = args
+        G, M, K = x.shape
+        N = w.shape[2]
+        cnt = (torch.full((G,), M, device=x.device) if counts is None
+               else counts.clamp(0, M))
+        rows = int(cnt.sum())
+        groups = int((cnt > 0).sum())
+        # occupied rows and groups' weights read, the whole output written
+        nbytes = rows * K * 2 + groups * K * N * 2 + G * M * N * 2 + G * 4
+        t_ops = 2.0 * K * N * rows / BF16_FLOP_PER_S
+        work = {"occupied_rows": rows, "occupied_groups": groups}
+    elif name == "combine_reduce":
+        parts, w = args
+        T, K, D = parts.shape
+        nbytes = (parts.numel() * parts.element_size()
+                  + w.numel() * w.element_size() + T * D * parts.element_size())
+        t_ops = 2.0 * T * K * D / FP32_FLOP_PER_S
+        work = {"tokens": T, "parts": K}
+    elif name in ("grouped_swiglu", "grouped_swiglu_db",
+                  "gather_swiglu_scatter"):
+        if name != "gather_swiglu_scatter":
             x, wg, wu, wd, counts = args
             G, C, D = x.shape
             out_bytes = x.numel() * 2
@@ -306,6 +371,15 @@ def decode_live(args, kwargs) -> int:
     return min(max(pos - kwargs.get("start", 0) + 1, 0), k.shape[1])
 
 
+def paged_live(args) -> list:
+    """Positions each sequence of a decode_attention_paged call attends:
+    those of allocated blocks up to its pos."""
+    from repro_torch.kernels.norm_attention import _paged_live
+    _, k_pool, _, tables, pos = args
+    _, live = _paged_live(tables, pos, k_pool.shape[0], k_pool.shape[1])
+    return live.sum(1).tolist()
+
+
 def norm_attn_bound(name: str, args, kwargs) -> tuple[float, str, dict]:
     """Least time for one RMSNorm / attention call: the larger of its bytes
     (inputs read once, the output written once; for decoding, only the
@@ -324,12 +398,20 @@ def norm_attn_bound(name: str, args, kwargs) -> tuple[float, str, dict]:
             Sq, Skv = q.shape[1], k.shape[1]
             pairs = (sum(min(i + 1, Skv) for i in range(Sq))
                      if kwargs.get("causal", True) else Sq * Skv)
-            kv_rows = Skv
+            kv_rows = B * Skv
+        elif name == "decode_attention_paged":
+            # live rows summed over the sequences; B * pairs counts each
+            # sequence's own
+            kv_rows = sum(paged_live(args))
+            pairs = kv_rows / B
         else:
-            pairs = kv_rows = decode_live(args, kwargs)
-        nbytes = (2 * q.numel() + 2 * B * kv_rows * k.shape[2] * D) * 2
+            pairs = decode_live(args, kwargs)
+            kv_rows = B * pairs
+        nbytes = (2 * q.numel() + 2 * kv_rows * k.shape[2] * D) * 2
         t_ops = 4.0 * D * B * H * pairs / BF16_FLOP_PER_S
         work = {"query_key_pairs": B * H * pairs}
+        if name == "decode_attention_paged":
+            nbytes += args[3].numel() * 4 + args[4].numel() * 4
     t_bytes = nbytes / HBM_BYTES_PER_S
     work.update(bytes=nbytes, bytes_ms=t_bytes * 1e3, ops_ms=t_ops * 1e3)
     if t_bytes >= t_ops:
@@ -360,6 +442,17 @@ def library_call(name: str, args, kwargs):
         k, v = (a[:, :live].transpose(1, 2) for a in args[1:3])
         return lambda: F.scaled_dot_product_attention(q, k, v,
                                                       enable_gqa=True)
+    if name == "grouped_matmul":      # the whole buffer, counts ignored
+        import torch
+        x, w = args[:2]
+        return lambda: torch.bmm(x, w)
+    if name == "combine_reduce":
+        # one batched GEMV; bmm takes one dtype, so the weights are cast to
+        # the parts' dtype beforehand (rounded, where they are fp32)
+        import torch
+        parts, w = args
+        wc = w.to(parts.dtype)[:, None, :]
+        return lambda: torch.bmm(wc, parts)
     return None
 
 
@@ -376,7 +469,12 @@ def check_case(name, args, kwargs) -> dict:
     tol = KERNEL_TOL[name]
     err = rel = 0.0
     for g, r in pairs:
-        if tol is None:
+        if tol == "ulp":
+            over = (g.float() - r.float()).abs() > ulp(r)
+            if over.any():
+                raise AssertionError(f"{name}: {int(over.sum())} elements "
+                                     "more than one ulp from plain")
+        elif tol is None:
             same = torch.equal(g.view(torch.uint8) if g.element_size() == 1
                                else g, r.view(torch.uint8)
                                if r.element_size() == 1 else r)
@@ -387,7 +485,7 @@ def check_case(name, args, kwargs) -> dict:
             raise AssertionError(f"{name}: non-finite output")
         e = float((gf - rf).abs().max()) if gf.numel() else 0.0
         err = max(err, e)
-        if tol is None or not gf.numel():
+        if tol in (None, "ulp") or not gf.numel():
             continue
         if name in ROW_KERNELS:
             e_row = (gf - rf).abs().amax(-1)
@@ -524,10 +622,10 @@ def profile_serve(cfg, params, prompts, dist) -> list:
     return out
 
 
-def moe_served(cfg, params, prompts, dist) -> dict:
+def moe_served(cfg, params, prompts, dist) -> tuple[dict, "torch.Tensor"]:
     """HT at the served shape.  One fp32 prefill records every MoE layer's
     input (batch x prompt tokens), its dropped fraction and its routing
-    imbalance.  Then, for layer 0 and the layer that dropped most, the
+    imbalance; returns the phase line and layer 0's recorded input.  Then, for layer 0 and the layer that dropped most, the
     routed part of ``moe_apply`` (HT) runs again on that input: at the
     configured capacity factor it must drop what the prefill dropped, and
     with the capacity factor raised until no choice can drop it must match
@@ -589,7 +687,196 @@ def moe_served(cfg, params, prompts, dist) -> dict:
             "capacity_factor_all": cf_all,
             "dropped_per_layer": drops,
             "imbalance_per_layer": [i for _, _, i in seen],
-            "checks": checks}
+            "checks": checks}, seen[0][0]
+
+
+def counted(cudas: dict, fn):
+    """``fn()`` with the launch counts of the CUDA wrappers ``cudas``
+    ({name: wrapper}) set to 0 just before and read just after: (result,
+    {name: launches})."""
+    for c in cudas.values():
+        c.launches = 0
+    out = fn()
+    return out, {n: c.launches for n, c in cudas.items()}
+
+
+def recording(names):
+    """Recorders standing in for the CUDA wrappers of kernels ``names``,
+    and a function that puts the wrappers back."""
+    from repro_torch.kernels import ops
+    originals = {n: ops.KERNELS[n] for n in names}
+    recs = {n: Recorder(c) for n, (c, _) in originals.items()}
+    for n, (_, plain) in originals.items():
+        ops.KERNELS[n] = (recs[n], plain)
+    return recs, lambda: ops.KERNELS.update(originals)
+
+
+def with_env(var: str, value, fn):
+    """``fn()`` with environment variable ``var`` set to ``value`` (None:
+    unset), restored after."""
+    import os
+    old = os.environ.pop(var, None)
+    if value is not None:
+        os.environ[var] = value
+    try:
+        return fn()
+    finally:
+        os.environ.pop(var, None)
+        if old is not None:
+            os.environ[var] = old
+
+
+def ht_unfused(cfg, params, x, dist) -> tuple[dict, list]:
+    """HT at the served shape (layer 0's recorded MoE input, 1024 tokens
+    over the EP world of 4) through a plain ``fn(tokens, counts)`` without
+    ``.fused``: once with ``REPRO_SWIGLU_DB=1`` (the double-buffered
+    kernel), once without (the grouped kernel), then the fused path.  The
+    three must drop the same choices and agree; the first launches
+    ``grouped_swiglu_db``, the second does not.  Then ``grouped_matmul``
+    (``x @ w_gate``) is driven on the buffer the first run gathered, and
+    both kernels are held to their plain versions on it."""
+    import torch
+
+    from repro_torch.core.ep import dispatch_combine_ht
+    from repro_torch.core.moe import _expert_fn, make_ep_spec
+    from repro_torch.core.routing import RouterParams, route
+    from repro_torch.kernels import ops
+
+    p = params["blocks"][0]["moe"]
+    spec = make_ep_spec(cfg, dist, mode="ht", dtype=x.dtype)
+    R = spec.degree
+    B, S, D = x.shape
+    t = x.reshape(R, B * S // R, D)
+    rout = route(cfg.moe, RouterParams(w=p["router_w"],
+                                       bias=p.get("router_b")), t,
+                 cfg.moe.n_experts)
+    fused = _expert_fn(p["w_gate"], p["w_up"], p["w_down"])
+
+    def plain(tokens, counts):
+        return fused(tokens, counts)
+
+    def run(fn):
+        out = dispatch_combine_ht(spec, t, rout.top_idx, rout.top_w, fn)
+        torch.cuda.synchronize()
+        return out
+
+    cudas = {n: ops.KERNELS[n][0] for n in ("grouped_swiglu_db",
+                                            "grouped_swiglu",
+                                            "gather_swiglu_scatter")}
+    recs, restore = recording(("grouped_swiglu_db",))
+    try:
+        res_db, l_db = with_env("REPRO_SWIGLU_DB", "1",
+                                lambda: counted(cudas, lambda: run(plain)))
+    finally:
+        restore()
+    res_gs, l_gs = with_env("REPRO_SWIGLU_DB", None,
+                            lambda: counted(cudas, lambda: run(plain)))
+    res_f, l_f = counted(cudas, lambda: run(fused))
+    if not (l_db["grouped_swiglu_db"] > 0 and l_gs["grouped_swiglu_db"] == 0
+            and l_gs["grouped_swiglu"] > 0
+            and l_f["gather_swiglu_scatter"] > 0):
+        raise AssertionError(f"ht_unfused launches: db run {l_db}, plain run "
+                             f"{l_gs}, fused run {l_f}")
+    ref = res_f.out.float()
+    scale = float(ref.abs().max())
+    tol = KERNEL_TOL["gather_swiglu_scatter"]
+    checks = {}
+    for what, res in (("db", res_db), ("grouped", res_gs)):
+        if not torch.equal(res.aux["dropped"], res_f.aux["dropped"]):
+            raise AssertionError(f"ht_unfused {what}: dropped "
+                                 f"{res.aux['dropped'].tolist()}, fused "
+                                 f"{res_f.aux['dropped'].tolist()}")
+        diff = (res.out.float() - ref).abs()
+        # gather_swiglu_scatter's tolerance, and one bf16 ulp of each
+        # element: both outputs round to bf16 after fp32 sums that differ
+        # by the unfused path's rounding of the expert output to bf16
+        over = diff > tol * scale + ulp(res_f.out)
+        checks[what] = {"max_abs_err": float(diff.max()),
+                        "rel_err": float(diff.max()) / scale,
+                        "elements_over": int(over.sum())}
+        if over.any() or not torch.isfinite(res.out).all():
+            raise AssertionError(f"ht_unfused {what} vs fused: {checks[what]}")
+    times = {
+        "db_ms": with_env("REPRO_SWIGLU_DB", "1", lambda: cuda_ms(
+            lambda: run(plain), n=5, warmup=1)),
+        "grouped_ms": cuda_ms(lambda: run(plain), n=5, warmup=1),
+        "fused_ms": cuda_ms(lambda: run(fused), n=5, warmup=1)}
+    # the grouped GEMM on the buffer the db run gathered: x @ w_gate
+    (buf, wg, _, _, counts), _ = next(iter(recs["grouped_swiglu_db"].cases
+                                           .values()))
+    gm_cuda = {"grouped_matmul": ops.KERNELS["grouped_matmul"][0]}
+    gm_recs, restore = recording(("grouped_matmul",))
+    try:
+        y, l_gm = counted(gm_cuda,
+                          lambda: ops.grouped_matmul(buf, wg, counts))
+    finally:
+        restore()
+    if l_gm["grouped_matmul"] <= 0 or not torch.isfinite(y).all():
+        raise AssertionError("grouped_matmul was not launched or gave a "
+                             "non-finite output")
+    launches = {"grouped_swiglu_db": l_db["grouped_swiglu_db"], **l_gm}
+    kernels = [check_kernel("grouped_swiglu_db", recs["grouped_swiglu_db"],
+                            launches),
+               check_kernel("grouped_matmul", gm_recs["grouped_matmul"],
+                            launches)]
+    line = {"phase": "ht_unfused", "tokens": B * S, "ep_world": R,
+            "buffer": list(buf.shape), "occupied_rows": int(counts.sum()),
+            "dropped": res_f.aux["dropped"].tolist(),
+            "launches": {"db_run": l_db, "grouped_run": l_gs,
+                         "fused_run": l_f, "grouped_matmul": l_gm},
+            "tol": tol, "tol_plus_ulp": True, "checks": checks, **times}
+    return line, kernels
+
+
+def combine_phase(cfg, params, x, dist) -> tuple[dict, dict]:
+    """``ops.combine_reduce`` at the served prefill's combine shape: layer
+    0's 1024 tokens, each with its 4 experts' outputs (bf16, computed per
+    expert from the weights, h rounded to bf16 as the kernels round it) as
+    parts, and the router's weights in fp32.  The combined output must
+    match the routed part of the dense oracle ``moe_ref`` within
+    ``MOE_TOL["fp32"]``, and the kernel its plain version to one ulp."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.ep import moe_ref
+    from repro_torch.core.routing import RouterParams, route
+    from repro_torch.kernels import ops
+
+    p = params["blocks"][0]["moe"]
+    t = x.reshape(-1, x.shape[-1])
+    rout = route(cfg.moe, RouterParams(w=p["router_w"],
+                                       bias=p.get("router_b")), t,
+                 cfg.moe.n_experts)
+    idx, w = rout.top_idx, rout.top_w.to(torch.float32)
+    T, K = idx.shape
+    parts = torch.zeros((T, K, t.shape[1]), dtype=t.dtype, device=t.device)
+    f32 = torch.float32
+    for e in range(p["w_gate"].shape[0]):
+        ti, ki = (idx == e).nonzero(as_tuple=True)
+        if ti.numel():
+            xe = t[ti].to(f32)
+            h = (F.silu(xe @ p["w_gate"][e].to(f32)) * (
+                xe @ p["w_up"][e].to(f32))).to(t.dtype).to(f32)
+            parts[ti, ki] = (h @ p["w_down"][e].to(f32)).to(t.dtype)
+    cuda = {"combine_reduce": ops.KERNELS["combine_reduce"][0]}
+    recs, restore = recording(("combine_reduce",))
+    try:
+        out, launches = counted(cuda, lambda: ops.combine_reduce(parts, w))
+    finally:
+        restore()
+    if launches["combine_reduce"] <= 0:
+        raise AssertionError("combine_reduce was not launched")
+    y_ref = moe_ref(t, idx, w, p["w_gate"], p["w_up"], p["w_down"]).float()
+    err = float((out.float() - y_ref).abs().max()) / float(
+        y_ref.abs().max())
+    if out.shape != (T, t.shape[1]) or not err <= MOE_TOL["fp32"]:
+        raise AssertionError(f"combine_reduce vs moe_ref: rel err {err}")
+    line = {"phase": "combine_reduce", "tokens": T, "parts": K,
+            "d_model": t.shape[1], "parts_dtype": str(parts.dtype),
+            "weights_dtype": str(w.dtype), "launches": launches,
+            "rel_err_vs_moe_ref": err, "tol": MOE_TOL["fp32"]}
+    return line, check_kernel("combine_reduce", recs["combine_reduce"],
+                              launches)
 
 
 def scan_bound(name: str, args) -> tuple[float, str, dict]:
@@ -788,6 +1075,93 @@ def train_phase(dev) -> tuple[list, "Recorder", dict]:
     return lines, rec, launches
 
 
+def paged_pools(k, v, pos, bs):
+    """Block pools and tables holding rows 0..pos[b] of the contiguous
+    caches k / v (B, S, Hkv, D) for each sequence b: a ``KVBlockPool``
+    grows the sequences round-robin, one block each a step, so their blocks
+    interleave; sequence 1 is released and grown again (LIFO: its blocks
+    come back in the same order); tables end in -1; every pool row no live
+    position reads (8 never allocated blocks, the rows past pos in each
+    last block) is NaN.  Returns (k_pool, v_pool, tables, pos, pool)."""
+    import torch
+
+    from repro_torch.serving.kv_cache import KVBlockPool
+    B, _, Hkv, D = k.shape
+    n_live = [p + 1 for p in pos]
+    pool = KVBlockPool(n_blocks=sum(-(-n // bs) for n in n_live) + 8,
+                       block_size=bs)
+    for step in range(-(-max(n_live) // bs)):
+        for b in range(B):
+            if step * bs < n_live[b]:
+                pool.grow(b, min((step + 1) * bs, n_live[b]))
+    table_1 = pool.block_table(1)
+    pool.release(1)
+    pool.grow(1, n_live[1])
+    pool.assert_consistent()
+    if pool.block_table(1) != table_1:
+        raise AssertionError("KVBlockPool: a released sequence grown again "
+                             "did not get its blocks back in LIFO order")
+    nb = max(len(pool.block_table(b)) for b in range(B)) + 2
+    tables = pool.block_tables(range(B), width=nb, device=k.device)
+    shape = (pool.n_blocks, bs, Hkv, D)
+    k_pool = torch.full(shape, float("nan"), dtype=k.dtype, device=k.device)
+    v_pool = torch.full_like(k_pool, float("nan"))
+    for b in range(B):
+        rows = torch.arange(n_live[b], device=k.device)
+        blk = tables[b].long()[rows // bs]
+        k_pool[blk, rows % bs] = k[b, rows]
+        v_pool[blk, rows % bs] = v[b, rows]
+    posv = torch.tensor(pos, dtype=torch.int32, device=k.device)
+    return k_pool, v_pool, tables, posv, pool
+
+
+def paged_decode(q, k, v) -> tuple[dict, dict]:
+    """``ops.decode_attention_paged`` at qwen3-4b's decode shape on the
+    last decode step's query and last layer's cache, copied into block
+    pools (``paged_pools``) at the ragged positions ``PAGED_POS``; then,
+    with every position at the contiguous run's pos, against the
+    contiguous ``decode_attention`` kernel on the same rows."""
+    import torch
+
+    from repro_torch.kernels import norm_attention as na
+    from repro_torch.kernels import ops
+
+    k_pool, v_pool, tables, posv, pool = paged_pools(k, v, PAGED_POS,
+                                                     PAGED_BLOCK)
+    cuda = {"decode_attention_paged": ops.KERNELS["decode_attention_paged"][0]}
+    recs, restore = recording(("decode_attention_paged",))
+    try:
+        out, launches = counted(cuda, lambda: ops.decode_attention_paged(
+            q, k_pool, v_pool, tables, posv))
+    finally:
+        restore()
+    torch.cuda.synchronize()
+    if (launches["decode_attention_paged"] <= 0 or out.shape != q.shape
+            or not torch.isfinite(out).all()):
+        raise AssertionError("paged_decode: no launch, or a wrong or "
+                             "non-finite output")
+    # one pos for all four: the contiguous kernel on the same rows
+    pos_all = max(PAGED_POS)
+    same = (q, *paged_pools(k, v, (pos_all,) * len(PAGED_POS),
+                            PAGED_BLOCK)[:4])
+    got = na.decode_attention_paged_cuda(*same)
+    cont = na.decode_attention_cuda(q, k, v, pos_all)
+    torch.cuda.synchronize()
+    e_row = (got.float() - cont.float()).abs().amax(-1)
+    rel = float((e_row / cont.float().abs().amax(-1).clamp_min(1e-30)).max())
+    if not rel <= KERNEL_TOL["decode_attention_paged"]:
+        raise AssertionError(f"paged vs contiguous decoding: row rel err {rel}")
+    line = {"phase": "paged_decode", "batch": q.shape[0], "heads": q.shape[1],
+            "kv_heads": k.shape[2], "block": PAGED_BLOCK, "pos": PAGED_POS,
+            "pool_blocks": pool.n_blocks, "table_width": tables.shape[1],
+            "table_heads": tables[:, :4].tolist(), "launches": launches,
+            "vs_contiguous": {"pos": pos_all, "max_row_rel_err": rel,
+                              "bitwise_equal": bool(torch.equal(got, cont))}}
+    return line, check_kernel("decode_attention_paged",
+                              recs["decode_attention_paged"], launches,
+                              extra=((same, {}),))
+
+
 def serve_qwen3(dev) -> list:
     """The dense GQA serving path (phases 11-12): qwen3-4b at full width and
     depth through ``generate``, its kernels' launches counted; the logits
@@ -918,6 +1292,11 @@ def serve_qwen3(dev) -> list:
                 extra = (((q, k, v, pos), kw), ((q, k, v, 0), kw))
             kernels.append(check_kernel(n, recorders[n], launches, extra))
             emit({"phase": "kernel", **kernels[-1]})
+        (q, k, v, _), _ = last_decode[0]
+        line, paged = paged_decode(q, k, v)
+        emit(line)
+        emit({"phase": "kernel", **paged})
+        kernels.append(paged)
     return kernels
 
 
@@ -1052,10 +1431,18 @@ def serve_phases(dev) -> list:
           "ttft_s": rep["ttft_s"]})
     for prof in profile_serve(cfg, params, prompts, dist):
         emit(prof)
-    emit(moe_served(cfg, params, prompts, dist))
+    served, x0 = moe_served(cfg, params, prompts, dist)
+    emit(served)
+    line, new_kernels = ht_unfused(cfg, params, x0, dist)
+    emit(line)
+    line, cr_kernel = combine_phase(cfg, params, x0, dist)
+    emit(line)
+    new_kernels.append(cr_kernel)
+    del x0
 
     # ------------------------------------------- EP kernels vs plain -----
     kernels = [check_kernel(n, recorders[n], launches) for n in EP_KERNELS]
+    kernels += new_kernels
     for k in kernels:
         emit({"phase": "kernel", **k})
     # the norm and attention kernels at this path's shapes; the kernels

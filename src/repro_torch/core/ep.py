@@ -292,9 +292,12 @@ def _expert_apply(spec: EPSpec, x_in: Tensor, eid: Tensor, w: Tensor,
                   expert_fn: Callable, cf: float, n_tokens_hint: int):
     """Final-level compute over entries (R, N, D), each with <= K local
     expert ids: bucket (entry, choice) pairs per local expert, apply
-    ``expert_fn.fused`` (gather -> grouped FFN -> weighted scatter-add), and
-    return the weighted partial sum per entry (R, N, D) fp32 — the
-    intra-node reduce — with per-rank drops and occupancy.
+    ``expert_fn.fused`` (gather -> grouped FFN -> weighted scatter-add) or,
+    for an ``expert_fn`` without ``fused``, gather an (R*eps, Ce, D) buffer,
+    call ``expert_fn(buf, counts)`` with flat per-(rank, expert) counts and
+    scatter-add the weighted outputs; return the weighted partial sum per
+    entry (R, N, D) fp32 — the intra-node reduce — with per-rank drops and
+    occupancy.
 
     Capacity is sized from the real expected load (``n_tokens_hint`` source
     tokens x K choices over the rank's experts), not from N.
@@ -318,9 +321,21 @@ def _expert_apply(spec: EPSpec, x_in: Tensor, eid: Tensor, w: Tensor,
         1, slot, w.reshape(R, N * K).to(torch.float32))[:, :-1].reshape(-1)
     counts = torch.clamp(pl.counts, max=Ce)                    # (R, eps)
     occupancy = counts.sum(1) / (eps * Ce)
-    # fused gather -> expert SwiGLU -> weighted fp32 scatter-add over every
-    # rank's slots in one launch
-    part = expert_fn.fused(x_ext, ent, w_of_slot, counts.reshape(-1))
+    fused = getattr(expert_fn, "fused", None)
+    if fused is not None:
+        # fused gather -> expert SwiGLU -> weighted fp32 scatter-add over
+        # every rank's slots in one launch
+        part = fused(x_ext, ent, w_of_slot, counts.reshape(-1))
+    else:
+        buf = x_ext[ent].reshape(R * eps, Ce, D)
+        out_e = planlib.call_expert_fn(expert_fn, buf, counts.reshape(-1))
+        # weighted scatter-add back per entry; slots of weight 0 (empty or
+        # dropped) go to the scratch row
+        tgt = torch.where(w_of_slot != 0, ent, R * N)
+        part = torch.zeros((R * N + 1, D), dtype=torch.float32, device=dev)
+        part.index_add_(0, tgt, out_e.reshape(-1, D).to(torch.float32)
+                        * w_of_slot[:, None])
+        part = part[:-1]
     return part.reshape(R, N, D), pl.n_dropped, occupancy
 
 

@@ -30,8 +30,11 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # (c_longlong for row counts and strides);
 # each returns its cudaGetLastError() as an int
 SIGNATURES = {
+    "grouped_matmul_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "grouped_swiglu_launch": [_P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _P],
+    "grouped_swiglu_db_launch": [_P, _P, _P, _P, _P, _P, _P,
+                                 _I, _I, _I, _I, _P],
     "gather_swiglu_scatter_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                      _I, _I, _I, _I, _I, _P],
     "gather_quantize_launch": [_P, _P, _P, _P, _P,
@@ -42,6 +45,8 @@ SIGNATURES = {
     "rmsnorm_launch": [_P, _P, _P, _L, _I, _F, _P],
     "flash_attention_launch": [_P] * 4 + [_I] * 6 + [_L] * 9 + [_P],
     "decode_attention_launch": [_P] * 7 + [_I] * 7 + [_P],
+    "decode_attention_paged_launch": [_P] * 9 + [_I] * 8 + [_P],
+    "combine_reduce_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lib = None

@@ -1,11 +1,13 @@
-"""Grouped expert SwiGLU kernels: the port of ``repro.kernels.grouped_matmul``
-(``grouped_swiglu_pallas`` and ``gather_swiglu_scatter_pallas``).
+"""Grouped expert kernels: the port of ``repro.kernels.grouped_matmul``
+(``grouped_matmul_pallas``, ``grouped_swiglu_pallas``,
+``grouped_swiglu_db_pallas`` and ``gather_swiglu_scatter_pallas``).
 
 Each kernel has a plain PyTorch version here (``*_plain``: what the CPU
 path runs and what the CUDA kernel is held against on the card) and a
 wrapper (``*_cuda``) that checks its inputs, allocates outputs and
 scratch, and launches the hand-written CUDA kernel in
-``csrc/grouped_swiglu.cu`` / ``csrc/gather_swiglu_scatter.cu`` on the
+``csrc/grouped_matmul.cu``, ``csrc/grouped_swiglu.cu``,
+``csrc/grouped_swiglu_db.cu`` or ``csrc/gather_swiglu_scatter.cu`` on the
 current stream.  The wrappers take bf16 activations and weights and raise
 on anything else; each counts its launches in ``.launches``.
 
@@ -36,6 +38,14 @@ def _flat_counts(counts, G: int, C: int, device):
     if B == 0 or C % B:
         raise ValueError(f"{B} sub-buckets do not divide capacity {C}")
     return torch.clamp(counts.to(torch.int32).reshape(-1), max=C // B), B
+
+
+def _refuse_bucketed(name: str, counts) -> None:
+    """The grouped matmul and the double-buffered SwiGLU take flat (G,)
+    counts only, as their TPU kernels assert (grouped_matmul.py:116, :303)."""
+    if counts is not None and counts.dim() == 2 and counts.shape[1] != 1:
+        raise ValueError(f"{name}: takes flat per-group counts, not "
+                         f"bucketed counts of shape {tuple(counts.shape)}")
 
 
 def _swiglu_rows(x: Tensor, wg: Tensor, wu: Tensor, wd: Tensor) -> Tensor:
@@ -69,6 +79,18 @@ def _check_cuda(name: str, **tensors) -> None:
             raise ValueError(f"{name}: {k} must be 16-byte aligned")
 
 
+def _check_swiglu(name, x, w_gate, w_up, w_down, counts):
+    """The grouped SwiGLU wrappers' checks: (F, counts (E*B,) int32, B)."""
+    E, C, D = x.shape
+    F = _check_weights(name, x, w_gate, w_up, w_down, w_gate.shape[0], D)
+    if E != w_gate.shape[0]:
+        raise ValueError(f"{name}: {E} groups for {w_gate.shape[0]} experts")
+    cnt, B = _flat_counts(counts, E, C, x.device)
+    cnt = cnt.contiguous()
+    _check_cuda(name, x=x, w_gate=w_gate, w_up=w_up, w_down=w_down, cnt=cnt)
+    return F, cnt, B
+
+
 def _check_weights(name, x, w_gate, w_up, w_down, E, D):
     F = w_gate.shape[2]
     for k, w, shape in (("w_gate", w_gate, (E, D, F)), ("w_up", w_up, (E, D, F)),
@@ -89,12 +111,7 @@ def grouped_swiglu_cuda(x: Tensor, w_gate: Tensor, w_up: Tensor,
     """CUDA kernel for :func:`grouped_swiglu_plain` (bf16 in and out)."""
     name = "grouped_swiglu"
     E, C, D = x.shape
-    F = _check_weights(name, x, w_gate, w_up, w_down, w_gate.shape[0], D)
-    if E != w_gate.shape[0]:
-        raise ValueError(f"{name}: {E} groups for {w_gate.shape[0]} experts")
-    cnt, B = _flat_counts(counts, E, C, x.device)
-    cnt = cnt.contiguous()
-    _check_cuda(name, x=x, w_gate=w_gate, w_up=w_up, w_down=w_down, cnt=cnt)
+    F, cnt, B = _check_swiglu(name, x, w_gate, w_up, w_down, counts)
     G, Cg = E * B, C // B
     y = torch.empty_like(x)
     if x.numel() == 0:
@@ -113,6 +130,96 @@ def grouped_swiglu_cuda(x: Tensor, w_gate: Tensor, w_up: Tensor,
 
 
 grouped_swiglu_cuda.launches = 0
+
+
+# ======================================================== grouped matmul ==
+def grouped_matmul_plain(x: Tensor, w: Tensor,
+                         counts: Tensor | None = None) -> Tensor:
+    """x (G, M, K) @ w (G, K, N) -> (G, M, N) in x.dtype, summed in fp32
+    from w cast to x.dtype; rows at or past ``counts[g]`` (flat (G,)
+    counts) read as zeros and are exact zeros."""
+    _refuse_bucketed("grouped_matmul", counts)
+    G, M, _ = x.shape
+    if counts is not None:
+        x = torch.where(occupancy_mask(counts, G, M)[..., None], x,
+                        torch.zeros((), dtype=x.dtype, device=x.device))
+    f32 = torch.float32
+    return torch.matmul(x.to(f32), w.to(x.dtype).to(f32)).to(x.dtype)
+
+
+def grouped_matmul_cuda(x: Tensor, w: Tensor,
+                        counts: Tensor | None = None) -> Tensor:
+    """CUDA kernel for :func:`grouped_matmul_plain` (bf16 in and out; K
+    and N multiples of 8 for the 16-byte loads)."""
+    name = "grouped_matmul"
+    if (x.dim() != 3 or w.dim() != 3 or w.shape[0] != x.shape[0]
+            or w.shape[1] != x.shape[2]):
+        raise ValueError(f"{name}: x {tuple(x.shape)} does not fit w "
+                         f"{tuple(w.shape)}")
+    G, M, K = x.shape
+    N = w.shape[2]
+    for k, t in (("x", x), ("w", w)):
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"{name}: {k} must be bfloat16, got {t.dtype}")
+    if K % 8 or N % 8:
+        raise ValueError(f"{name}: K={K} and N={N} must be multiples of 8")
+    _refuse_bucketed(name, counts)
+    cnt, _ = _flat_counts(counts, G, M, x.device)
+    cnt = cnt.contiguous()
+    _check_cuda(name, x=x, w=w, cnt=cnt)
+    y = torch.empty((G, M, N), dtype=x.dtype, device=x.device)
+    if y.numel() == 0:
+        return y
+    lib = build.library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.grouped_matmul_launch(x.data_ptr(), cnt.data_ptr(),
+                                        w.data_ptr(), y.data_ptr(), G, M, K,
+                                        N, stream)
+    build.check(err, name)
+    grouped_matmul_cuda.launches += 1
+    return y
+
+
+grouped_matmul_cuda.launches = 0
+
+
+# ====================================== double-buffered grouped swiglu ====
+def grouped_swiglu_db_plain(x: Tensor, w_gate: Tensor, w_up: Tensor,
+                            w_down: Tensor,
+                            counts: Tensor | None = None) -> Tensor:
+    """The function of :func:`grouped_swiglu_plain`, flat (E,) counts only
+    (the double-buffered kernel's contract)."""
+    _refuse_bucketed("grouped_swiglu_db", counts)
+    return grouped_swiglu_plain(x, w_gate, w_up, w_down, counts)
+
+
+def grouped_swiglu_db_cuda(x: Tensor, w_gate: Tensor, w_up: Tensor,
+                           w_down: Tensor,
+                           counts: Tensor | None = None) -> Tensor:
+    """CUDA kernel for :func:`grouped_swiglu_db_plain` (bf16 in and out):
+    ``csrc/grouped_swiglu_db.cu``, whose blocks stream only the occupied
+    row tiles through a two-stage ``cp.async`` ring."""
+    name = "grouped_swiglu_db"
+    E, C, D = x.shape
+    _refuse_bucketed(name, counts)
+    F, cnt, _ = _check_swiglu(name, x, w_gate, w_up, w_down, counts)
+    y = torch.empty_like(x)
+    if x.numel() == 0:
+        return y
+    h = torch.empty((E * C, F), dtype=x.dtype, device=x.device)
+    lib = build.library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.grouped_swiglu_db_launch(
+            x.data_ptr(), cnt.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
+            w_down.data_ptr(), h.data_ptr(), y.data_ptr(), E, C, D, F, stream)
+    build.check(err, name)
+    grouped_swiglu_db_cuda.launches += 1
+    return y
+
+
+grouped_swiglu_db_cuda.launches = 0
 
 
 # ================================== fused gather -> swiglu -> scatter =====

@@ -1,15 +1,15 @@
 """RMSNorm, causal flash attention and flash decoding: the port of
 ``repro.kernels.rmsnorm`` (``rmsnorm_pallas``),
-``repro.kernels.flash_attention`` (``flash_attention_pallas``) and the
-contiguous kernel of ``repro.kernels.decode_attention``
-(``decode_attention_pallas``).
+``repro.kernels.flash_attention`` (``flash_attention_pallas``) and both
+kernels of ``repro.kernels.decode_attention`` (``decode_attention_pallas``
+over a contiguous cache, ``decode_attention_paged`` through block tables).
 
 Each kernel has a plain PyTorch version here (``*_plain``: what the CPU
 path runs and what the CUDA kernel is held against on the card) and a
 wrapper (``*_cuda``) that checks its inputs, allocates the output and
 scratch, and launches the hand-written kernel of ``csrc/rmsnorm.cu``,
-``csrc/flash_attention.cu`` or ``csrc/decode_attention.cu`` on the current
-stream.  The wrappers take bf16 activations (RMSNorm with an fp32 scale,
+``csrc/flash_attention.cu``, ``csrc/decode_attention.cu`` or
+``csrc/decode_attention_paged.cu`` on the current stream.  The wrappers take bf16 activations (RMSNorm with an fp32 scale,
 the dtype ``cast_params`` keeps norm scales in) and head dim 128, and
 raise on anything else; each counts its launches in ``.launches``.
 
@@ -220,3 +220,105 @@ def decode_attention_cuda(q: Tensor, k: Tensor, v: Tensor, pos: int, *,
 
 
 decode_attention_cuda.launches = 0
+
+
+# ================================================ paged flash decoding ====
+def _paged_live(block_tables: Tensor, pos: Tensor, n_blocks: int,
+                bs: int) -> tuple[Tensor, Tensor]:
+    """(block ids with the unallocated clamped to 0 (B, nb), live positions
+    (B, nb * bs)): a position is live when its table entry names a pool
+    block (-1, or any id outside [0, n_blocks), is unallocated) and it is
+    at most the sequence's ``pos``."""
+    bt = block_tables.to(torch.int64)
+    alloc = (bt >= 0) & (bt < n_blocks)
+    kpos = torch.arange(bt.shape[1] * bs, device=bt.device)
+    live = (alloc.repeat_interleave(bs, dim=1)
+            & (kpos[None, :] <= pos.to(torch.int64)[:, None]))
+    return torch.where(alloc, bt, 0), live
+
+
+def decode_attention_paged_plain(q: Tensor, k_pool: Tensor, v_pool: Tensor,
+                                 block_tables: Tensor, pos: Tensor) -> Tensor:
+    """q (B, H, D) one query per sequence; k_pool / v_pool (NB, bs, Hkv, D)
+    block pools; block_tables (B, nb) pool block ids (-1 unallocated); pos
+    (B,) the newest position of each sequence.  Sequence b attends the
+    positions p <= pos[b] whose block ``block_tables[b, p // bs]`` is
+    allocated, at row p % bs of that block; GQA as
+    :func:`flash_attention_plain`.  Unallocated blocks are skipped, as the
+    TPU kernel skips them (decode_attention.py:119), not read as block 0,
+    as its oracle reads them (:213).  Returns (B, H, D) in q.dtype, 0 for a
+    sequence with no live position."""
+    B, H, D = q.shape
+    NB, bs, Hkv = k_pool.shape[:3]
+    nb = block_tables.shape[1]
+    idx, live = _paged_live(block_tables, torch.as_tensor(pos,
+                            device=q.device), NB, bs)
+    kc = k_pool[idx].reshape(B, nb * bs, Hkv, D)
+    # dead rows may hold anything, NaN included: they add exact zeros
+    vc = torch.where(live[:, :, None, None], v_pool[idx].reshape(
+        B, nb * bs, Hkv, D), torch.zeros((), dtype=v_pool.dtype,
+                                         device=q.device))
+    qg = q.reshape(B, Hkv, H // Hkv, D).to(torch.float32)
+    s = torch.einsum("bgrd,bsgd->bgrs", qg, kc.to(torch.float32)) * (
+        1.0 / math.sqrt(D))
+    s = torch.where(live[:, None, None, :], s, float("-inf"))
+    o, _, l = partial_softmax(s, vc, "bgrs,bsgd->bgrd")
+    return _normalise(o, l).reshape(B, H, D).to(q.dtype)
+
+
+def decode_attention_paged_cuda(q: Tensor, k_pool: Tensor, v_pool: Tensor,
+                                block_tables: Tensor, pos: Tensor) -> Tensor:
+    """CUDA kernels for :func:`decode_attention_paged_plain` (bf16, head
+    dim 128, contiguous q and pools, int32 tables and ``pos`` on the card,
+    H / Hkv in ``DECODE_REPS``).  ``pos`` stays on the device, so every
+    chunk of table columns launches and finds its live positions itself."""
+    name = "decode_attention_paged"
+    if (q.dim() != 3 or k_pool.dim() != 4 or v_pool.shape != k_pool.shape
+            or k_pool.shape[3] != q.shape[2]):
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)}, pools k "
+                         f"{tuple(k_pool.shape)}, v {tuple(v_pool.shape)}")
+    B, H, D = q.shape
+    NB, bs, Hkv, _ = k_pool.shape
+    if D != HEAD_DIM:
+        raise ValueError(f"{name}: the CUDA kernel takes head dim {HEAD_DIM}, "
+                         f"got {D}")
+    if Hkv == 0 or H % Hkv or H // Hkv not in DECODE_REPS:
+        raise ValueError(f"{name}: {H} heads over {Hkv} kv heads; the "
+                         f"kernel takes {DECODE_REPS} query heads a kv head")
+    if block_tables.dim() != 2 or block_tables.shape[0] != B:
+        raise ValueError(f"{name}: block tables {tuple(block_tables.shape)} "
+                         f"for {B} sequences")
+    for k, t in (("block_tables", block_tables), ("pos", pos)):
+        if t.dtype != torch.int32:
+            raise ValueError(f"{name}: {k} must be int32, got {t.dtype}")
+    if tuple(pos.shape) != (B,):
+        raise ValueError(f"{name}: pos {tuple(pos.shape)} for {B} sequences")
+    for k, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"{name}: {k} must be bfloat16, got {t.dtype}")
+    _check_cuda(name, q=q, k_pool=k_pool, v_pool=v_pool,
+                block_tables=block_tables, pos=pos)
+    if any(t.device != q.device for t in (k_pool, v_pool, block_tables, pos)):
+        raise ValueError(f"{name}: inputs on more than one device")
+    nb = block_tables.shape[1]
+    cols = max(1, DECODE_CHUNK // bs)     # table columns a block takes
+    ns = max(1, -(-nb // cols))
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    part_o = torch.empty((B, H, ns, D), dtype=torch.float32, device=q.device)
+    part_ml = torch.empty((2, B, H, ns), dtype=torch.float32, device=q.device)
+    lib = build.library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.decode_attention_paged_launch(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            block_tables.data_ptr(), pos.data_ptr(), part_o.data_ptr(),
+            part_ml[0].data_ptr(), part_ml[1].data_ptr(), out.data_ptr(),
+            B, H, Hkv, NB, bs, nb, cols, ns, stream)
+    build.check(err, name)
+    decode_attention_paged_cuda.launches += 1
+    return out
+
+
+decode_attention_paged_cuda.launches = 0

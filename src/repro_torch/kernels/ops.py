@@ -16,8 +16,11 @@ let the gradients to it vanish.
 """
 from __future__ import annotations
 
+import os
+
 import torch
 
+from repro_torch.kernels import combine_reduce as _cr
 from repro_torch.kernels import grouped_matmul as _gm
 from repro_torch.kernels import mamba_scan as _ms
 from repro_torch.kernels import norm_attention as _na
@@ -26,7 +29,10 @@ from repro_torch.kernels import quantize_pack as _qp
 # the kernels by name: (CUDA wrapper, plain); the scan's CUDA wrapper is
 # differentiable, and its backward kernel is registered beside it
 KERNELS = {
+    "grouped_matmul": (_gm.grouped_matmul_cuda, _gm.grouped_matmul_plain),
     "grouped_swiglu": (_gm.grouped_swiglu_cuda, _gm.grouped_swiglu_plain),
+    "grouped_swiglu_db": (_gm.grouped_swiglu_db_cuda,
+                          _gm.grouped_swiglu_db_plain),
     "gather_swiglu_scatter": (_gm.gather_swiglu_scatter_cuda,
                               _gm.gather_swiglu_scatter_plain),
     "gather_quantize": (_qp.gather_quantize_cuda, _qp.gather_quantize_plain),
@@ -37,6 +43,9 @@ KERNELS = {
     "flash_attention": (_na.flash_attention_cuda, _na.flash_attention_plain),
     "decode_attention": (_na.decode_attention_cuda,
                          _na.decode_attention_plain),
+    "decode_attention_paged": (_na.decode_attention_paged_cuda,
+                               _na.decode_attention_paged_plain),
+    "combine_reduce": (_cr.combine_reduce_cuda, _cr.combine_reduce_plain),
 }
 # kernels whose CUDA wrapper is differentiable on the card
 WITH_BACKWARD = frozenset({"mamba_scan"})
@@ -61,11 +70,25 @@ def _pick(name: str, *tensors):
     raise ValueError(f"{name}: no kernel for device {t.device}")
 
 
+def grouped_matmul(x, w, counts=None):
+    """Per-group GEMM x (G, M, K) @ w (G, K, N) -> (G, M, N) in x.dtype,
+    fp32 sums; rows at or past flat (G,) ``counts`` are zero."""
+    return _pick("grouped_matmul", x, w)(x, w, counts)
+
+
 def grouped_swiglu(x, w_gate, w_up, w_down, counts=None):
     """Grouped expert SwiGLU over x (E, C, D) with per-expert (E,) or
-    per-sub-bucket (E, B) occupied counts; rows beyond occupancy are zero."""
-    return _pick("grouped_swiglu", x, w_gate, w_up, w_down)(
-        x, w_gate, w_up, w_down, counts)
+    per-sub-bucket (E, B) occupied counts; rows beyond occupancy are zero.
+
+    ``REPRO_SWIGLU_DB=1``, read at each call as the reference reads it,
+    selects the double-buffered kernel for flat (or no) counts; bucketed
+    counts keep the grouped kernel."""
+    flat = counts is None or counts.dim() == 1
+    name = ("grouped_swiglu_db"
+            if os.environ.get("REPRO_SWIGLU_DB") == "1" and flat
+            else "grouped_swiglu")
+    return _pick(name, x, w_gate, w_up, w_down)(x, w_gate, w_up, w_down,
+                                                counts)
 
 
 def gather_swiglu_scatter(x_ext, src_of_slot, w_slot, w_gate, w_up, w_down,
@@ -117,3 +140,17 @@ def decode_attention(q, k, v, pos: int, *, start: int = 0):
     Hkv, D) of positions [start, start + S), live up to ``pos`` (a host
     int) -> normalised (B, H, D)."""
     return _pick("decode_attention", q, k, v)(q, k, v, pos, start=start)
+
+
+def decode_attention_paged(q, k_pool, v_pool, block_tables, pos):
+    """One query a sequence, q (B, H, D), through block pools k/v_pool
+    (NB, bs, Hkv, D) and tables (B, nb) (-1 unallocated), positions
+    0..pos[b] with ``pos`` (B,) on the device -> normalised (B, H, D)."""
+    return _pick("decode_attention_paged", q, k_pool, v_pool)(
+        q, k_pool, v_pool, block_tables, pos)
+
+
+def combine_reduce(parts, weights):
+    """``out[t] = sum_k weights[t, k] * parts[t, k, :]``: parts (T, K, D),
+    weights (T, K) -> (T, D) in parts.dtype, fp32 sums."""
+    return _pick("combine_reduce", parts, weights)(parts, weights)

@@ -9,11 +9,13 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import combine_reduce as cr  # noqa: E402
 from repro_torch.kernels import grouped_matmul as gm  # noqa: E402
 from repro_torch.kernels import mamba_scan as ms  # noqa: E402
 from repro_torch.kernels import norm_attention as na  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import quantize_pack as qp  # noqa: E402
+from repro_torch.serving.kv_cache import KVBlockPool  # noqa: E402
 
 
 def _w(rng, E, D, F, s=0.2):
@@ -401,3 +403,233 @@ def test_cuda_serve_cli_reduced_qwen3(cuda_device, capsys):
     # a prefill and 3 decode steps, each 2 layers of 4 norms and the final
     # one; 2 prefill attentions, 2 x 3 decode attentions
     assert [a - b for a, b in zip(after, before)] == [4 * 9, 2, 6]
+
+
+def _range_close(got, ref, tol=1e-2):
+    """max |got - ref| within tol of max |ref| (chip_smoke.py's limit for
+    the grouped kernels): h and y round to bf16 after fp32 sums taken in
+    another order, so an element may move by an ulp of the typical value,
+    not of its own."""
+    assert torch.isfinite(got).all()
+    err = float((got - ref).abs().max())
+    assert err <= tol * float(ref.abs().max()), (err, float(ref.abs().max()))
+
+
+def _poisoned_allocation(shape, dtype, device):
+    """Leave a NaN-filled block of this size in the caching allocator, so
+    that the next allocation of the same size (a wrapper's output) starts
+    as NaN rather than as whatever the card held: rows a kernel must write
+    as zeros then show if it skips them."""
+    t = torch.full(shape, float("nan"), dtype=dtype, device=device)
+    del t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("counts_kind", ["none", "flat"])
+def test_cuda_grouped_matmul_matches_plain(cuda_device, counts_kind):
+    rng = np.random.default_rng(11)
+    G, M, K, N = 5, 70, 136, 200     # ragged against the 64 x 64 x 32 tiles
+    x = _bf16(rng, (G, M, K), cuda_device)
+    w = _bf16(rng, (G, K, N), cuda_device, 0.1)
+    counts = (None if counts_kind == "none" else torch.tensor(
+        [0, 1, 70, 64, 33], dtype=torch.int32, device=cuda_device))
+    before = gm.grouped_matmul_cuda.launches
+    _poisoned_allocation((G, M, N), torch.bfloat16, cuda_device)
+    got = ops.grouped_matmul(x, w, counts).float()
+    ref = gm.grouped_matmul_plain(x, w, counts).float()
+    assert gm.grouped_matmul_cuda.launches == before + 1
+    # fp32 sums in another order, then one bf16 rounding on each side
+    _range_close(got, ref)
+    if counts is not None:
+        dead = ~gm.occupancy_mask(counts, G, M)
+        assert (got[dead] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,counts", [
+    (67, (0, 1, 67, 64, 65, 30)),     # C with no divisor >= 8, ragged tiles
+    (128, (128, 0, 0, 5, 127, 64)),   # the served HT buffer's C
+    (40, None)])
+def test_cuda_grouped_swiglu_db_matches_plain(cuda_device, C, counts):
+    rng = np.random.default_rng(C)
+    E, D, F = 6, 136, 200
+    x = _bf16(rng, (E, C, D), cuda_device)
+    ws = [torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+          for a in _w(rng, E, D, F)]
+    cnt = (None if counts is None else
+           torch.tensor(counts, dtype=torch.int32, device=cuda_device))
+    before = gm.grouped_swiglu_db_cuda.launches
+    _poisoned_allocation((E, C, D), torch.bfloat16, cuda_device)
+    got = gm.grouped_swiglu_db_cuda(x, *ws, cnt).float()
+    ref = gm.grouped_swiglu_db_plain(x, *ws, cnt).float()
+    assert gm.grouped_swiglu_db_cuda.launches == before + 1
+    _range_close(got, ref)
+    if cnt is not None:
+        dead = ~gm.occupancy_mask(cnt, E, C)
+        assert (got[dead] == 0).all()
+    with pytest.raises(ValueError, match="bucketed"):
+        gm.grouped_swiglu_db_cuda(x, *ws, torch.ones(
+            (E, 2), dtype=torch.int32, device=cuda_device))
+    assert gm.grouped_swiglu_db_cuda.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_cuda_swiglu_db_env_routing(cuda_device, monkeypatch):
+    """Under REPRO_SWIGLU_DB=1 flat counts launch the double-buffered
+    kernel and bucketed counts the grouped one; without it, the grouped
+    one always."""
+    rng = np.random.default_rng(12)
+    E, C, D, F = 4, 32, 64, 96
+    x = _bf16(rng, (E, C, D), cuda_device)
+    ws = [torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+          for a in _w(rng, E, D, F)]
+    flat = torch.tensor([3, 0, 32, 17], dtype=torch.int32, device=cuda_device)
+    bucketed = torch.full((E, 2), 5, dtype=torch.int32, device=cuda_device)
+    counters = (gm.grouped_swiglu_db_cuda, gm.grouped_swiglu_cuda)
+    for env, cnt, moved in (("1", flat, 0), ("1", bucketed, 1),
+                            ("0", flat, 1), (None, flat, 1)):
+        if env is None:
+            monkeypatch.delenv("REPRO_SWIGLU_DB", raising=False)
+        else:
+            monkeypatch.setenv("REPRO_SWIGLU_DB", env)
+        before = [c.launches for c in counters]
+        with torch.no_grad():
+            ops.grouped_swiglu(x, *ws, cnt)
+        assert [c.launches - b for c, b in zip(counters, before)] == [
+            int(moved == 0), int(moved == 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("parts_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,K,D", [(1024, 4, 2048), (37, 3, 200),
+                                   (9, 2, 7)])
+def test_cuda_combine_reduce_matches_plain(cuda_device, parts_dtype, w_dtype,
+                                           T, K, D):
+    """Bit for bit: both sum in fp32 in k order, rounding each product and
+    each sum, and round once to the parts' dtype (D = 7: the scalar path)."""
+    rng = np.random.default_rng(T + D)
+    parts = torch.from_numpy(rng.standard_normal((T, K, D)).astype(
+        np.float32)).to(cuda_device, parts_dtype)
+    w = torch.from_numpy(rng.random((T, K)).astype(np.float32)).to(
+        cuda_device, w_dtype)
+    before = cr.combine_reduce_cuda.launches
+    got = ops.combine_reduce(parts, w)
+    assert cr.combine_reduce_cuda.launches == before + 1
+    assert got.dtype == parts_dtype and got.shape == (T, D)
+    assert torch.equal(got, cr.combine_reduce_plain(parts, w))
+
+
+def _paged_case(rng, device, pos, B=4, H=32, Hkv=8, bs=16, extra_cols=3):
+    """qwen3-4b's decode heads over pools whose tables a KVBlockPool makes:
+    sequences grown round-robin a block at a time (their blocks
+    interleave), sequence 1 released and grown again (LIFO reuse), -1 past
+    each table; every pool block no live position reads, and the rows past
+    pos in each last block, are NaN."""
+    n_live = [p + 1 for p in pos]
+    nb = max(-(-n // bs) for n in n_live) + extra_cols
+    pool = KVBlockPool(n_blocks=sum(-(-n // bs) for n in n_live) + 8,
+                       block_size=bs)
+    for step in range(max(n_live)):
+        for b in range(B):
+            if step * bs < n_live[b]:
+                pool.grow(b, min((step + 1) * bs, n_live[b]))
+    pool.release(1)
+    pool.grow(1, n_live[1])
+    pool.assert_consistent()
+    tables = pool.block_tables(range(B), width=nb, device=device)
+    shape = (pool.n_blocks, bs, Hkv, 128)
+    k = torch.full(shape, float("nan"), device=device, dtype=torch.bfloat16)
+    v = torch.full(shape, float("nan"), device=device, dtype=torch.bfloat16)
+    for b in range(B):
+        for j, blk in enumerate(pool.block_table(b)):
+            rows = min(bs, n_live[b] - j * bs)
+            k[blk, :rows] = _bf16(rng, (rows, Hkv, 128), device)
+            v[blk, :rows] = _bf16(rng, (rows, Hkv, 128), device)
+    q = _bf16(rng, (B, H, 128), device)
+    return q, k, v, tables, torch.tensor(pos, dtype=torch.int32,
+                                         device=device)
+
+
+def _row_close(got, ref, tol=2e-2):
+    """Each output row (a query head) within tol of its largest value."""
+    err = (got.float() - ref.float()).abs().amax(-1)
+    scale = ref.float().abs().amax(-1).clamp_min(1e-30)
+    assert torch.isfinite(got.float()).all()
+    assert (err <= tol * scale).all(), float((err / scale).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pos", [(2078, 2047, 1031, 17), (0, 15, 16, 300),
+                                 (255, 256, 511, 512)])
+def test_cuda_decode_attention_paged_matches_plain(cuda_device, pos):
+    rng = np.random.default_rng(sum(pos))
+    q, k, v, tables, posv = _paged_case(rng, cuda_device, pos)
+    before = na.decode_attention_paged_cuda.launches
+    got = ops.decode_attention_paged(q, k, v, tables, posv)
+    ref = na.decode_attention_paged_plain(q, k, v, tables, posv)
+    assert na.decode_attention_paged_cuda.launches == before + 1
+    _row_close(got, ref)
+    # a -1 inside sequence 0's live prefix is skipped, as by the plain version
+    tables[0, 1] = -1
+    _row_close(ops.decode_attention_paged(q, k, v, tables, posv),
+               na.decode_attention_paged_plain(q, k, v, tables, posv))
+    # nothing live: pos -1, or a table of -1 only
+    posv[2] = -1
+    tables[3] = -1
+    out = ops.decode_attention_paged(q, k, v, tables, posv)
+    assert (out[2:] == 0).all() and torch.isfinite(out.float()).all()
+
+
+@pytest.mark.cuda
+def test_cuda_decode_attention_paged_equals_contiguous(cuda_device):
+    """One pos for every sequence and the pool's rows gathered back into a
+    contiguous cache: the paged kernel does the contiguous kernel's
+    arithmetic in its order (256-position chunks, 8 positions a warp), so
+    the two agree bit for bit."""
+    rng = np.random.default_rng(7)
+    pos = (2078,) * 4
+    q, k, v, tables, posv = _paged_case(rng, cuda_device, pos)
+    S = tables.shape[1] * 16
+    idx = tables.clamp_min(0).long()
+    kc = k[idx].reshape(4, S, 8, 128).contiguous()
+    vc = v[idx].reshape(4, S, 8, 128).contiguous()
+    paged = ops.decode_attention_paged(q, k, v, tables, posv)
+    cont = na.decode_attention_cuda(q, kc, vc, pos[0])
+    assert torch.equal(paged, cont)
+
+
+@pytest.mark.cuda
+def test_cuda_new_kernels_refuse_grad_and_bad_inputs(cuda_device):
+    """No backward kernels: an input that requires a gradient raises under
+    grad mode; and each wrapper raises on inputs its kernel does not
+    take, launching nothing."""
+    rng = np.random.default_rng(8)
+    x = _bf16(rng, (2, 8, 16), cuda_device).requires_grad_(True)
+    w = _bf16(rng, (2, 16, 16), cuda_device)
+    counters = (gm.grouped_matmul_cuda, gm.grouped_swiglu_db_cuda,
+                cr.combine_reduce_cuda, na.decode_attention_paged_cuda)
+    before = [c.launches for c in counters]
+    with pytest.raises(NotImplementedError, match="no backward kernel"):
+        ops.grouped_matmul(x, w)
+    with pytest.raises(NotImplementedError, match="no backward kernel"):
+        ops.combine_reduce(x, torch.ones((2, 8), device=cuda_device))
+    x = x.detach()
+    with pytest.raises(ValueError, match="multiples of 8"):
+        gm.grouped_matmul_cuda(x[..., :12].contiguous(), w[:, :12].contiguous())
+    with pytest.raises(ValueError, match="bucketed"):
+        gm.grouped_matmul_cuda(x, w, torch.ones((2, 2), dtype=torch.int32,
+                                                device=cuda_device))
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        cr.combine_reduce_cuda(x.half(), torch.ones((2, 8), device=cuda_device))
+    q, k, v, tables, posv = _paged_case(rng, cuda_device, (40, 3, 17, 0))
+    with pytest.raises(ValueError, match="int32"):
+        na.decode_attention_paged_cuda(q, k, v, tables.long(), posv)
+    with pytest.raises(ValueError, match="head dim"):
+        na.decode_attention_paged_cuda(q[..., :64].contiguous(),
+                                       k[..., :64].contiguous(),
+                                       v[..., :64].contiguous(), tables, posv)
+    with pytest.raises(ValueError, match="query heads a kv head"):
+        na.decode_attention_paged_cuda(q[:, :24].contiguous(), k, v, tables,
+                                       posv)
+    assert [c.launches for c in counters] == before

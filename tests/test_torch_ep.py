@@ -6,7 +6,9 @@ P = 1 runs in process on a (1,) mesh; every P > 1 case — one-level P in
 wires, plus skewed tables that drop — runs in ONE subprocess with fake
 CPU devices, whose results the parametrized tests below compare.  Both
 sides run the real expert function of their ``moe`` module (the jnp refs
-on the JAX side, the plain versions here)."""
+on the JAX side, the plain versions here); the ``PLAIN`` cases hand HT a
+plain ``fn(tokens, counts)`` without ``.fused`` on both sides, so that HT
+gathers an expert buffer and scatters the outputs itself."""
 import dataclasses
 import textwrap
 
@@ -51,6 +53,14 @@ CASES["2x2-ht-skew-drops"] = ((2, 2), ("pod", "model"), "ht", "int8", 1.0, 1,
                               32, 3, True)
 CASES["2-ht-chunks2-fp8"] = ((2,), ("model",), "ht", "fp8", 2.0, 2, 16, 2,
                              False)
+# HT through a plain expert_fn (no ``.fused``): one- and two-level
+CASES["2-ht-plain-fp32"] = ((2,), ("model",), "ht", "fp32", 2.0, 1, 8, 2,
+                            False)
+CASES["2x2-ht-plain-fp8"] = ((2, 2), ("pod", "model"), "ht", "fp8", 2.0, 1,
+                             8, 2, False)
+CASES["2x2-ht-plain-skew-drops"] = ((2, 2), ("pod", "model"), "ht", "fp32",
+                                    1.0, 1, 32, 3, True)
+PLAIN = frozenset(n for n in CASES if "-plain" in n)
 
 
 def _inputs(seed, R, T, K, skew):
@@ -74,16 +84,21 @@ def _weights(seed=100):
             for s in ((E, D, F), (E, D, F), (E, F, D))]
 
 
-def _port(sizes, axes, mode, wire, cf, chunks, K, x, ti, tw, w):
+def _plain(fn):
+    """The expert_fn ``fn`` without its ``.fused``."""
+    return lambda tokens, counts: fn(tokens, counts)
+
+
+def _port(sizes, axes, mode, wire, cf, chunks, K, x, ti, tw, w, plain=False):
     R = int(np.prod(sizes))
     spec = EPSpec(axes=axes, sizes=sizes, n_experts=E, top_k=K,
                   capacity_factor=cf, chunks=chunks, dtype=torch.float32,
                   mode=mode, wire_dtype=wire)
     t = [torch.from_numpy(a) for a in (x, ti, tw)]
+    fn = tmoe._expert_fn(*[torch.from_numpy(a) for a in w])
     res = get_backend("torch_collectives").dispatch_combine(
         spec, t[0].reshape(R, -1, D), t[1].reshape(R, -1, K),
-        t[2].reshape(R, -1, K),
-        tmoe._expert_fn(*[torch.from_numpy(a) for a in w]))
+        t[2].reshape(R, -1, K), _plain(fn) if plain else fn)
     return {"out": res.out.reshape(-1, D).numpy(),
             "dropped": res.aux["dropped"].numpy(),
             "occupancy": res.aux["occupancy"].numpy(),
@@ -140,6 +155,82 @@ def test_ep_p1_matches_jax_collectives(mode, wire):
                                    atol=ATOL)
 
 
+@pytest.mark.parametrize("wire", ["fp32", "int8"])
+def test_ep_p1_ht_plain_expert_fn_matches_jax_collectives(wire):
+    """HT with a plain ``fn(tokens, counts)`` (no ``.fused``) gathers an
+    expert buffer, calls it with flat counts and scatters the weighted
+    outputs, as the reference's unfused branch (ep.py:359-366)."""
+    K, T = 3, 24
+    x, ti, tw = _inputs(11, 1, T, K, skew=False)
+    w = _weights()
+    jspec = JSpec(axes=("model",), sizes=(1,), n_experts=E, top_k=K,
+                  dtype=jnp.float32, mode="ht", wire_dtype=wire)
+    jb = jget_backend("jax_collectives")
+    mesh = jax.make_mesh((1,), ("model",), axis_types=(AxisType.Auto,),
+                         devices=jax.devices()[:1])
+    seen = []
+
+    def island(x, ti, tw, wg, wu, wd):
+        jfn = jmoe._expert_fn(wg, wu, wd)
+
+        def fn(tokens, counts):
+            seen.append((tokens.shape, counts.shape))
+            return jfn(tokens, counts)
+        r = jb.dispatch_combine(jspec, x, ti, tw, fn)
+        return (r.out, r.aux["dropped"], r.aux["occupancy"],
+                r.aux["load_phys"])
+
+    out = jax.jit(jax.shard_map(island, mesh=mesh, in_specs=(P(),) * 6,
+                                out_specs=(P(),) * 4, check_vma=False))(
+        x, ti, tw, *w)
+    ref = dict(zip(("out", "dropped", "occupancy", "load_phys"),
+                   (np.asarray(o) for o in out)))
+    got = _port((1,), ("model",), "ht", wire, 2.0, 1, K, x, ti, tw, w,
+                plain=True)
+    _compare(got, ref)
+    # the reference's fn saw an (eps, Ce, D) buffer and flat counts
+    assert len(seen) == 1 and len(seen[0][0]) == 3 and len(seen[0][1]) == 1
+    fused = _port((1,), ("model",), "ht", wire, 2.0, 1, K, x, ti, tw, w)
+    _compare(got, fused)
+
+
+@pytest.mark.parametrize("sizes,axes,cf,skew", [
+    ((1,), ("model",), 2.0, False), ((4,), ("model",), 2.0, False),
+    ((2, 2), ("pod", "model"), 2.0, False),
+    ((2, 2), ("pod", "model"), 1.0, True)])
+def test_ep_ht_plain_expert_fn_matches_fused(sizes, axes, cf, skew):
+    """The port's HT through a plain expert_fn against its fused path on
+    the same inputs: outputs within rtol 3e-4 (the plain fn's output is a
+    separate fp32 tensor, summed into the entries in another order), drops
+    and occupancy equal; the plain fn gets (R * eps, Ce, D) and flat
+    counts."""
+    R, K, T = int(np.prod(sizes)), 3, 32
+    x, ti, tw = _inputs(5, R, T, K, skew)
+    w = _weights()
+    calls = []
+    fn = tmoe._expert_fn(*[torch.from_numpy(a) for a in w])
+
+    def plain(tokens, counts):
+        calls.append((tuple(tokens.shape), tuple(counts.shape)))
+        return fn(tokens, counts)
+    spec = EPSpec(axes=axes, sizes=sizes, n_experts=E, top_k=K,
+                  capacity_factor=cf, dtype=torch.float32, mode="ht")
+    t = [torch.from_numpy(a) for a in (x, ti, tw)]
+    args = (spec, t[0].reshape(R, T, D), t[1].reshape(R, T, K),
+            t[2].reshape(R, T, K))
+    be = get_backend("torch_collectives")
+    got, ref = be.dispatch_combine(*args, plain), be.dispatch_combine(*args,
+                                                                       fn)
+    np.testing.assert_allclose(got.out.numpy(), ref.out.numpy(), rtol=RTOL,
+                               atol=ATOL)
+    for k in ("dropped", "occupancy"):
+        np.testing.assert_array_equal(got.aux[k].numpy(), ref.aux[k].numpy())
+    assert (got.aux["dropped"] > 0).any() == skew
+    eps = E // R
+    assert len(calls) == 1 and calls[0][0][0] == R * eps
+    assert calls[0][0][2] == D and calls[0][1] == (R * eps,)
+
+
 _JAX_SCRIPT = textwrap.dedent("""
     import sys
     import numpy as np
@@ -150,6 +241,7 @@ _JAX_SCRIPT = textwrap.dedent("""
     from repro.core.ep import EPSpec
     data = np.load(sys.argv[1], allow_pickle=True)
     cases = data["cases"].item()
+    plain = set(data["plain"].tolist())
     w = [data["wg"], data["wu"], data["wd"]]
     jb = get_backend("jax_collectives")
     out = {}
@@ -161,8 +253,11 @@ _JAX_SCRIPT = textwrap.dedent("""
                       capacity_factor=cf, chunks=chunks, dtype=jnp.float32,
                       mode=mode, wire_dtype=wire)
         ep_p = axes if len(axes) > 1 else axes[0]
-        def island(x, ti, tw, wg, wu, wd):
-            r = jb.dispatch_combine(spec, x, ti, tw, jmoe._expert_fn(wg, wu, wd))
+        def island(x, ti, tw, wg, wu, wd, name=name):
+            fn = jmoe._expert_fn(wg, wu, wd)
+            if name in plain:            # no .fused: HT's unfused branch
+                fn = (lambda f: lambda tokens, counts: f(tokens, counts))(fn)
+            r = jb.dispatch_combine(spec, x, ti, tw, fn)
             return (r.out, r.aux["dropped"].reshape(1),
                     jnp.float32(r.aux["occupancy"]).reshape(1),
                     r.aux["load_phys"])
@@ -183,8 +278,9 @@ def jax_multi_rank(tmp_path_factory, dist_runner):
     ``run_distributed`` subprocess with 8 fake CPU devices."""
     d = tmp_path_factory.mktemp("ep")
     w = _weights()
-    arrays = {"cases": np.array(CASES, dtype=object), "wg": w[0],
-              "wu": w[1], "wd": w[2]}
+    arrays = {"cases": np.array(CASES, dtype=object),
+              "plain": np.array(sorted(PLAIN)), "wg": w[0], "wu": w[1],
+              "wd": w[2]}
     inputs = {}
     for i, (name, c) in enumerate(CASES.items()):
         R = int(np.prod(c[0]))
@@ -204,7 +300,8 @@ def jax_multi_rank(tmp_path_factory, dist_runner):
 def test_ep_multi_rank_matches_jax_collectives(jax_multi_rank, name):
     inputs, w, jres = jax_multi_rank
     sizes, axes, mode, wire, cf, chunks, T, K, skew = CASES[name]
-    got = _port(sizes, axes, mode, wire, cf, chunks, K, *inputs[name], w)
+    got = _port(sizes, axes, mode, wire, cf, chunks, K, *inputs[name], w,
+                plain=name in PLAIN)
     ref = {k: jres[f"{name}/{k}"] for k in ("out", "dropped", "occupancy",
                                             "load_phys")}
     _compare(got, ref)

@@ -124,15 +124,19 @@ def test_ops_dispatch_cpu_takes_plain_version():
     np.testing.assert_array_equal(
         ops.dequantize_tokens(q, s).numpy(),
         qp.dequantize_plain(q, s).numpy())
-    assert set(ops.KERNELS) == {"grouped_swiglu", "gather_swiglu_scatter",
+    assert set(ops.KERNELS) == {"grouped_matmul", "grouped_swiglu",
+                                "grouped_swiglu_db", "gather_swiglu_scatter",
                                 "gather_quantize", "dequantize",
                                 "mamba_scan", "mamba_scan_bwd", "rmsnorm",
-                                "flash_attention", "decode_attention"}
+                                "flash_attention", "decode_attention",
+                                "decode_attention_paged", "combine_reduce"}
 
 
 @pytest.mark.parametrize("name", ["grouped_swiglu", "gather_swiglu_scatter",
                                   "gather_quantize", "dequantize", "rmsnorm",
-                                  "flash_attention", "decode_attention"])
+                                  "flash_attention", "decode_attention",
+                                  "grouped_matmul", "grouped_swiglu_db",
+                                  "combine_reduce", "decode_attention_paged"])
 def test_cuda_wrapper_refuses_cpu_tensors(name):
     """A CUDA wrapper launches its kernel or raises: on CPU tensors it
     raises before touching the kernel library and counts no launch."""
@@ -154,6 +158,14 @@ def test_cuda_wrapper_refuses_cpu_tensors(name):
         "decode_attention": lambda: cuda(torch.zeros(
             (1, 2, 128), dtype=torch.bfloat16), *[torch.zeros(
                 (1, 8, 2, 128), dtype=torch.bfloat16)] * 2, 3),
+        "grouped_matmul": lambda: cuda(x, wg),
+        "grouped_swiglu_db": lambda: cuda(x, wg, wu, wd),
+        "combine_reduce": lambda: cuda(x, torch.ones((2, 8))),
+        "decode_attention_paged": lambda: cuda(torch.zeros(
+            (1, 4, 128), dtype=torch.bfloat16), *[torch.zeros(
+                (4, 16, 2, 128), dtype=torch.bfloat16)] * 2,
+            torch.zeros((1, 2), dtype=torch.int32),
+            torch.zeros(1, dtype=torch.int32)),
     }[name]
     with pytest.raises(ValueError):
         args()
