@@ -12,17 +12,29 @@ Phases, each printed as one JSON line:
    layers; random weights from a seed) served through
    ``repro_torch.launch.serve.generate`` over a rank-stacked EP world of 4:
    batch 4, prompt 256, 16 generated tokens on the fp32 wire, then a
-   shorter run (4 tokens) on the fp8 wire.  Batched HT prefill and LL
-   decode go through the four EP kernels, and their norms and attention
+   shorter run (4 tokens) on the fp8 wire.  Batched HT prefill
+   (``batched_prefill=True``) and LL decode go through the four EP
+   kernels, and their norms and attention
    (MHA, 16 heads) through the RMSNorm, flash attention and flash decoding
    kernels; the launch counts of all seven are set to 0 just before and
    read just after, and must be > 0;
-4. profile: the fp32 serve once more (run-to-run spread), then one
-   prefill and one decode step under torch.profiler (device busy share,
-   the device activities and host operators that take the most time);
+4. profile: the fp32 serve once more (run-to-run spread); then
+   serve_local_per_token: ``generate`` by the reference's rule over the
+   EP world (a model axis), so the prompt runs through LL decode steps, as
+   the reference's ``serve --mesh local`` does: batch 4, prompt 16, 4
+   generated, the kernels' launches counted; the logits at the last prompt
+   position against the batched HT prefill's with every capacity lifted,
+   within ``SERVE_PLAIN_TOL`` of their largest; then one prefill and one
+   decode step under torch.profiler (device busy share, the device
+   activities and host operators that take the most time);
 5. moe_served: HT at the served shape (1024 tokens), on the MoE inputs
-   one prefill recorded: per-layer drops, and layer 0 and the layer that
-   drops most against the dense oracle with no choice dropped; then
+   one prefill recorded: per-layer drops, and for layer 0 and the layer
+   that drops most, the output at the configured capacity against the
+   dense oracle restricted to the choices the plan keeps
+   (``restricted_check``: a dropped (token, rank) entry weighs 0 for all
+   its choices, a choice past its expert's capacity alone; the plan's
+   dropped count must be HT's), and with every capacity lifted against the
+   dense oracle with no choice dropped; then
    ht_unfused: layer 0's input through ``dispatch_combine_ht`` with a
    plain ``fn(tokens, counts)`` (no ``.fused``), once under
    ``REPRO_SWIGLU_DB=1`` (``grouped_swiglu_db`` launches) and once without
@@ -78,7 +90,8 @@ Phases, each printed as one JSON line:
    profiler;
 12. kernel (norm and attention): ``rmsnorm`` on each kind of call the path
    made (d_model and head-dim rows, prefill and decode), ``flash_attention``
-   on the prefill's, ``decode_attention`` on the first decode step's (pos
+   on the prefill's and at serve-fp32's prefill shape (batch 4 x 256, 16
+   MHA heads), ``decode_attention`` on the first decode step's (pos
    2048), the last's (pos 2078) and the last's cache at pos 0, against
    their plain versions row by row (each output row within its tolerance
    of that row's largest plain value), timed beside their bound, the plain
@@ -212,6 +225,9 @@ QWEN3_BATCH, QWEN3_PROMPT, QWEN3_GEN = 4, 2048, 32
 # adds in a varying order); twice that, where a typical |logit| is a sixth
 # of the largest
 SERVE_PLAIN_TOL = 0.04
+# serving qwen2-moe as the reference's ``serve --mesh local`` does: the
+# prompt through decode steps over the EP world
+SERVE_LOCAL_PROMPT, SERVE_LOCAL_GEN = 16, 4
 # paged decoding at qwen3-4b's decode shape: ragged per-sequence positions
 # and 16-token blocks
 PAGED_POS, PAGED_BLOCK = (2078, 2047, 1031, 17), 16
@@ -622,16 +638,92 @@ def profile_serve(cfg, params, prompts, dist) -> list:
     return out
 
 
+def ht_kept_choices(cfg, dist, p, x):
+    """Which routed choices of ``x``'s tokens one-level HT keeps at the
+    configured capacity, from the plan's keep masks: a (token, rank group)
+    entry the source's dedup'd dispatch drops loses all its choices, and a
+    choice that arrives at its expert past the expert's capacity is lost
+    alone.  Returns the ranks' tokens (R, T, D), their routing (top_idx,
+    top_w) and the (R, T, K) keep mask, and the dropped count per rank as
+    ``dispatch_combine_ht`` counts it (entries plus choices)."""
+    import torch
+
+    from repro_torch.core import ep
+    from repro_torch.core import plan as planlib
+    from repro_torch.core.moe import make_ep_spec, to_ranks
+    from repro_torch.core.routing import RouterParams, route
+    spec = make_ep_spec(cfg, dist, mode="ht", dtype=x.dtype)
+    if spec.two_level or spec.chunks != 1:
+        raise NotImplementedError("the restricted oracle follows one-level "
+                                  "HT in one chunk")
+    t = to_ranks(dist, x)
+    rout = route(cfg.moe, RouterParams(p["router_w"], p.get("router_b")), t,
+                 cfg.moe.n_experts)
+    R, T, K = rout.top_idx.shape
+    P, eps, cf = spec.degree, spec.experts_per_shard, spec.capacity_factor
+    valid = rout.top_idx >= 0
+    group = torch.where(valid, rout.top_idx // eps, -1).long()
+    C = ep._cap(T * (1.0 - (1.0 - 1.0 / P) ** K), cf, hard_max=T)
+    _, entry, rank_tg, keep_tg, d1 = planlib.dedup_entry_table(group, valid,
+                                                              P, C)
+    g = group.clamp(min=0)
+    keep1 = valid & torch.gather(keep_tg, 2, g)
+    # the receiving rank's entries: source p's slot c is row p * C + c, and
+    # choice k of a token rides in column k of its entry for that group
+    src = torch.arange(R, device=x.device)[:, None, None].expand(R, T, K)
+    row = src * C + torch.gather(rank_tg, 2, g).long()
+    recv = torch.full((P, P * C, K), -1, dtype=torch.int64, device=x.device)
+    kk = torch.arange(K, device=x.device).expand(R, T, K)
+    recv[g[keep1], row[keep1], kk[keep1]] = (rout.top_idx.long() % eps)[keep1]
+    N = P * C
+    pl = planlib.make_world_plan(recv, eps, ep._cap(T * K / eps, cf,
+                                                    hard_max=N * K))
+    keep = keep1.clone()
+    keep[keep1] = pl.keep[g[keep1], row[keep1], kk[keep1]]
+    return t, rout.top_idx, rout.top_w, keep, d1 + pl.n_dropped
+
+
+def restricted_oracle(cfg, dist, p, x):
+    """The dense oracle ``moe_ref`` over the choices HT keeps at the
+    configured capacity (``ht_kept_choices``: a dropped choice weighs 0),
+    laid back out as x (B, S, D); and the HT dropped fraction the same plan
+    gives."""
+    import torch
+
+    from repro_torch.core.ep import moe_ref
+    from repro_torch.core.moe import from_ranks
+    t, top_idx, top_w, keep, dropped = ht_kept_choices(cfg, dist, p, x)
+    R, T, K = top_idx.shape
+    w = torch.where(keep, top_w.float(), 0.0)
+    y = torch.stack([moe_ref(t[r], top_idx[r], w[r], p["w_gate"],
+                             p["w_up"], p["w_down"]) for r in range(R)])
+    frac = float((dropped / max(T * K, 1)).float().mean())
+    return from_ranks(dist, y, x.shape[0], x.shape[1]), frac
+
+
+def restricted_check(cfg, dist, p, x) -> dict:
+    """HT at the configured capacity (the routed part of ``moe_apply``)
+    against :func:`restricted_oracle`: max error over max |oracle|, and
+    both dropped fractions, which must agree."""
+    from repro_torch.core.moe import moe_apply
+    y, aux = moe_apply(cfg, dist, p, x, mode="ht")
+    ref, frac = restricted_oracle(cfg, dist, p, x)
+    err = float((y.float() - ref.float()).abs().max()) / float(
+        ref.float().abs().max())
+    return {"rel_err": err, "dropped": float(aux["dropped"]),
+            "dropped_by_plan": frac}
+
+
 def moe_served(cfg, params, prompts, dist) -> tuple[dict, "torch.Tensor"]:
     """HT at the served shape.  One fp32 prefill records every MoE layer's
     input (batch x prompt tokens), its dropped fraction and its routing
-    imbalance; returns the phase line and layer 0's recorded input.  Then, for layer 0 and the layer that dropped most, the
-    routed part of ``moe_apply`` (HT) runs again on that input: at the
-    configured capacity factor it must drop what the prefill dropped, and
+    imbalance; returns the phase line and layer 0's recorded input.  Then,
+    for layer 0 and the layer that dropped most, the routed part of
+    ``moe_apply`` (HT) runs again on that input: at the configured capacity
+    factor it must drop what the prefill dropped and match the dense oracle
+    restricted to the choices the plan keeps (``restricted_check``), and
     with the capacity factor raised until no choice can drop it must match
     the dense oracle ``moe_ref``."""
-    import torch
-
     from repro_torch.core.moe import moe_apply
     from repro_torch.models import blocks
     from repro_torch.models import model_zoo as Z
@@ -667,17 +759,24 @@ def moe_served(cfg, params, prompts, dist) -> tuple[dict, "torch.Tensor"]:
         p = {k: v for k, v in params["blocks"][layer]["moe"].items()
              if k != "shared"}
         y_ref, _ = moe_apply(cfg, None, p, x, mode="ref")
-        _, aux = moe_apply(cfg, dist, p, x, mode="ht")
+        at_cf = restricted_check(cfg, dist, p, x)
         y, aux_all = moe_apply(cfg_all, dist, p, x, mode="ht")
         scale = float(y_ref.float().abs().max())
         err = float((y.float() - y_ref.float()).abs().max()) / scale
-        checks.append({"layer": layer, "dropped_at_cf": float(aux["dropped"]),
+        checks.append({"layer": layer, "dropped_at_cf": at_cf["dropped"],
                        "dropped_in_prefill": drops[layer],
+                       "dropped_by_plan": at_cf["dropped_by_plan"],
+                       "rel_err_at_cf_restricted": at_cf["rel_err"],
                        "dropped_at_cf_all": float(aux_all["dropped"]),
                        "rel_err_at_cf_all": err, "tol": MOE_TOL["fp32"]})
-        if float(aux["dropped"]) != drops[layer]:
-            raise AssertionError(f"layer {layer}: HT dropped {aux['dropped']}"
-                                 f" on replay, {drops[layer]} in prefill")
+        if at_cf["dropped"] != drops[layer]:
+            raise AssertionError(f"layer {layer}: HT dropped "
+                                 f"{at_cf['dropped']} on replay, "
+                                 f"{drops[layer]} in prefill")
+        if (abs(at_cf["dropped_by_plan"] - at_cf["dropped"]) > 1e-6
+                or not at_cf["rel_err"] <= MOE_TOL["fp32"]):
+            raise AssertionError(f"layer {layer} at the configured capacity:"
+                                 f" {at_cf} against the restricted oracle")
         if float(aux_all["dropped"]) != 0.0 or not err <= MOE_TOL["fp32"]:
             raise AssertionError(f"layer {layer} at the served shape: rel "
                                  f"err {err}, dropped {aux_all['dropped']}")
@@ -688,6 +787,134 @@ def moe_served(cfg, params, prompts, dist) -> tuple[dict, "torch.Tensor"]:
             "dropped_per_layer": drops,
             "imbalance_per_layer": [i for _, _, i in seen],
             "checks": checks}, seen[0][0]
+
+
+def last_prefill_logits(cfg, params, prompts, dist):
+    """The logits at the last prompt position two ways over the EP world:
+    through one decode step a position (the per-token prefill) and through
+    one batched HT prefill with every capacity lifted, so that neither can
+    drop a choice; with both ``aux``."""
+    import torch
+
+    from repro_torch.models import model_zoo as Z
+    B, S = prompts.shape
+    cf_all = float(params["blocks"][0]["moe"]["w_gate"].shape[0]
+                   / cfg.moe.top_k)
+    cfg_all = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cf_all))
+    with torch.inference_mode():
+        cache = Z.init_cache(cfg, B, S, dtype=Z.compute_dtype(cfg),
+                             device=prompts.device)
+        for t in range(S):
+            step, cache, aux = Z.decode_step(cfg, params, cache,
+                                             prompts[:, t:t + 1], t,
+                                             dist=dist)
+        cache = Z.init_cache(cfg, B, S, dtype=Z.compute_dtype(cfg),
+                             device=prompts.device)
+        batched, _, aux_b = Z.prefill(cfg_all, params, cache, prompts,
+                                      dist=dist, moe_mode="ht")
+    return step, batched, aux, aux_b
+
+
+def rel_err(got, ref) -> float:
+    return float((got - ref).abs().max()) / float(ref.abs().max())
+
+
+def serve_local_per_token(cfg, params, prompts, dist) -> dict:
+    """``generate`` with its default rule over the EP world (a model axis):
+    the prompt runs through decode steps (LL), as the reference serves
+    ``--mesh local``; batch 4, prompt 16, 4 generated, the kernels' launch
+    counts set to 0 just before and read just after.  The logits at the
+    last prompt position against the batched HT prefill's with every
+    capacity lifted are reported; in bf16 the two paths round apart (LL
+    and HT expert kernels, decode and flash attention), and over 24 layers
+    of top-4 routing a rounding can flip a choice, so they are held to
+    ``SERVE_PLAIN_TOL`` in fp32 instead (:func:`per_token_fp32`)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
+
+    B, S, n_gen = prompts.shape[0], SERVE_LOCAL_PROMPT, SERVE_LOCAL_GEN
+    short = prompts[:, :S]
+    cudas = {n: c for n, (c, _) in ops.KERNELS.items()}
+    res, launches = counted(cudas, lambda: generate(cfg, params, short, n_gen,
+                                                    dist=dist))
+    for n in ("grouped_swiglu", "rmsnorm", "decode_attention"):
+        if launches[n] <= 0:
+            raise AssertionError(f"kernel {n} was not launched on the "
+                                 "per-token prefill path")
+    if res["ttft_s"] is not None or res["batched_prefill"]:
+        raise AssertionError("generate took the batched prefill over a "
+                             "world with a model axis")
+    if (res["tokens"].shape != (B, n_gen)
+            or not torch.isfinite(res["logits"]).all()):
+        raise AssertionError("serve_local_per_token: wrong shape or "
+                             "non-finite logits")
+    step, batched, aux, aux_b = last_prefill_logits(cfg, params, short, dist)
+    return {"phase": "serve_local_per_token", "model": "qwen2_moe_a2_7b",
+            "width": "full", "layers": cfg.n_layers, "ep_world": "model=4",
+            "batch": B, "prompt": S, "generated": n_gen,
+            "total_s": res["total_s"], "tokens_per_s": res["tokens_per_s"],
+            "decode_tokens_per_s": res["decode_tokens_per_s"],
+            "ttft_s": res["ttft_s"], "prefill_dropped": res["prefill_dropped"],
+            "decode_dropped": res["decode_dropped"], "launches": launches,
+            "first_tokens": res["tokens"][0].tolist(),
+            "bf16_last_prefill_rel_err": rel_err(step, batched),
+            "bf16_argmax_agree": float((step.argmax(-1) == batched.argmax(-1))
+                                       .float().mean()),
+            "last_step_dropped": float(aux["dropped"]),
+            "batched_dropped_at_cf_all": float(aux_b["dropped"])}
+
+
+def fp32_in_place(tree) -> None:
+    """Every floating tensor of a parameter tree to fp32, a leaf at a time,
+    handing each level's freed memory back, so that the fp32 model (57 GB
+    for qwen2-moe) fits where the bf16 one (28.6 GB) was."""
+    import torch
+    for k in list(tree.keys() if isinstance(tree, dict)
+                  else range(len(tree))):
+        v = tree[k]
+        if isinstance(v, torch.Tensor):
+            if v.is_floating_point() and v.dtype != torch.float32:
+                tree[k] = v.float()
+        else:
+            fp32_in_place(v)
+        del v
+    torch.cuda.empty_cache()
+
+
+def per_token_fp32(cfg, params, prompts, dist) -> dict:
+    """The per-token prefill's last logits against the batched HT
+    prefill's with every capacity lifted, at full width and depth in fp32
+    through the plain versions (the kernels take bf16 only): the two paths
+    compute the same function, so they agree to fp32 roundings, within
+    ``SERVE_PLAIN_TOL`` of their largest.  Turns ``params`` into fp32 in
+    place: the serving model is not used after it."""
+    from repro_torch.kernels import ops
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    fp32_in_place(params)
+    originals = dict(ops.KERNELS)
+    ops.KERNELS.update({n: (p, p) for n, (_, p) in originals.items()})
+    try:
+        step, batched, aux, aux_b = last_prefill_logits(
+            cfg32, params, prompts[:, :SERVE_LOCAL_PROMPT], dist)
+    finally:
+        ops.KERNELS.update(originals)
+    line = {"phase": "serve_local_per_token_fp32", "dtype": "float32",
+            "through": "plain versions", "layers": cfg.n_layers,
+            "prompt": SERVE_LOCAL_PROMPT,
+            "last_prefill_rel_err": rel_err(step, batched),
+            "tol": SERVE_PLAIN_TOL,
+            "argmax_agree": float((step.argmax(-1) == batched.argmax(-1))
+                                  .float().mean()),
+            "last_step_dropped": float(aux["dropped"]),
+            "batched_dropped_at_cf_all": float(aux_b["dropped"])}
+    if (not line["last_prefill_rel_err"] <= SERVE_PLAIN_TOL
+            or line["batched_dropped_at_cf_all"] != 0.0
+            or line["last_step_dropped"] != 0.0):
+        raise AssertionError(f"per-token prefill against batched: {line}")
+    return line
 
 
 def counted(cudas: dict, fn):
@@ -1290,6 +1517,12 @@ def serve_qwen3(dev) -> list:
             if n == "decode_attention":      # the last step, then pos 0
                 (q, k, v, pos), kw = last_decode[0]
                 extra = (((q, k, v, pos), kw), ((q, k, v, 0), kw))
+            if n == "flash_attention":       # and serve-fp32's prefill shape
+                g = torch.Generator(device=dev).manual_seed(2)
+                extra = ((tuple(torch.randn(
+                    (4, 256, 16, 128), generator=g, device=dev,
+                    dtype=torch.bfloat16) for _ in range(3)),
+                    {"causal": True}),)
             kernels.append(check_kernel(n, recorders[n], launches, extra))
             emit({"phase": "kernel", **kernels[-1]})
         (q, k, v, _), _ = last_decode[0]
@@ -1374,8 +1607,9 @@ def serve_phases(dev) -> list:
     B, S, N_GEN, N_GEN_FP8 = 4, 256, 16, 4
     prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen).to(dev)
     # warm-up: first launches, library loads, allocator growth
-    generate(cfg, params, prompts[:, :32], 2, dist=dist)
-    generate(cfg_fp8, params, prompts[:, :32], 2, dist=dist)
+    generate(cfg, params, prompts[:, :32], 2, dist=dist, batched_prefill=True)
+    generate(cfg_fp8, params, prompts[:, :32], 2, dist=dist,
+             batched_prefill=True)
     torch.cuda.synchronize()
 
     # the EP kernels, and the norm and attention kernels the serving blocks
@@ -1389,9 +1623,11 @@ def serve_phases(dev) -> list:
         c.launches = 0
     torch.cuda.reset_peak_memory_stats()
     try:
-        res = generate(cfg, params, prompts, N_GEN, dist=dist)
+        res = generate(cfg, params, prompts, N_GEN, dist=dist,
+                       batched_prefill=True)
         after_fp32 = {n: c.launches for n, c in cudas.items()}
-        res8 = generate(cfg_fp8, params, prompts, N_GEN_FP8, dist=dist)
+        res8 = generate(cfg_fp8, params, prompts, N_GEN_FP8, dist=dist,
+                        batched_prefill=True)
         launches = {n: c.launches for n, c in cudas.items()}
     finally:
         ops.KERNELS.update(originals)
@@ -1424,11 +1660,13 @@ def serve_phases(dev) -> list:
 
     # the same fp32 serve once more, outside the counted window: its
     # tokens/s beside the first run's shows the run-to-run spread
-    rep = generate(cfg, params, prompts, N_GEN, dist=dist)
+    rep = generate(cfg, params, prompts, N_GEN, dist=dist,
+                   batched_prefill=True)
     emit({"phase": "serve_repeat", "wire": "fp32",
           "tokens_per_s": rep["tokens_per_s"],
           "decode_tokens_per_s": rep["decode_tokens_per_s"],
           "ttft_s": rep["ttft_s"]})
+    emit(serve_local_per_token(cfg, params, prompts, dist))
     for prof in profile_serve(cfg, params, prompts, dist):
         emit(prof)
     served, x0 = moe_served(cfg, params, prompts, dist)
@@ -1482,6 +1720,8 @@ def serve_phases(dev) -> list:
           "oracle_ms": cuda_ms(lambda: moe_apply(cfg, None, p, x,
                                                  mode="ref"), n=5, warmup=1),
           "cases": cases})
+    del p, x, y_ref
+    emit(per_token_fp32(cfg, params, prompts, dist))
     return kernels
 
 

@@ -2,11 +2,12 @@
 plus the always-on shared expert that bypasses dispatch (qwen2-moe style):
 the port of ``repro.core.moe``.
 
-With an EP world (``dist.ep_axes``) the layer splits its ``B*S`` tokens
-row-major into P equal rank slices and runs the backend over the
-rank-stacked world; without one (``dist=None`` or ``mode="ref"``) it runs
-the dense oracle :func:`~repro_torch.core.ep.moe_ref`, as the JAX package
-does without a mesh.
+With an EP world (``dist.ep_axes``) the layer lays its ``(B, S)`` tokens
+out over the ranks as the reference's ``x_spec = P(bd, sq, None)`` does
+(:func:`token_layout`) and runs the backend over the rank-stacked world;
+without one (``dist=None`` or ``mode="ref"``) it runs the dense oracle
+:func:`~repro_torch.core.ep.moe_ref`, as the JAX package does without a
+mesh.
 """
 from __future__ import annotations
 
@@ -110,27 +111,59 @@ def moe_apply(cfg: ModelConfig, dist: Optional[DistCtx], p: dict, x: Tensor,
     return y, aux
 
 
+def token_layout(dist: DistCtx, B: int, S: int) -> tuple[int, int]:
+    """(batch groups, sequence slices) of a (B, S) token batch over the EP
+    world, as the reference shards it (``x_spec = P(bd, sq, None)``,
+    repro/core/moe.py): the batch splits over the "pod" axis when the pod
+    count divides B (else every pod holds the whole batch), the sequence
+    over the "model" axis when S > 1 and the model count divides S (else,
+    decode included, every model rank holds the same tokens).  Rank (p, m)
+    holds batch group p (or all), sequence slice m (or all), its tokens
+    flattened row-major."""
+    pods, models = dist.axis_size("pod"), dist.axis_size("model")
+    groups = pods if B % pods == 0 else 1
+    slices = models if S > 1 and S % models == 0 else 1
+    return groups, slices
+
+
+def to_ranks(dist: DistCtx, x: Tensor) -> Tensor:
+    """x (B, S, D) -> the (R, T, D) tokens each rank holds
+    (:func:`token_layout`); replicated ranks hold copies."""
+    B, S, D = x.shape
+    nb, ns = token_layout(dist, B, S)
+    pods, models = dist.axis_size("pod"), dist.axis_size("model")
+    t = x.reshape(nb, B // nb, ns, S // ns, D).transpose(1, 2)
+    return t.expand(pods, models, B // nb, S // ns, D).reshape(
+        pods * models, (B // nb) * (S // ns), D)
+
+
+def from_ranks(dist: DistCtx, y: Tensor, B: int, S: int) -> Tensor:
+    """The inverse of :func:`to_ranks`: y (R, T, D) -> (B, S, D), read from
+    the first of each set of replicated ranks (they compute the same
+    values), so gradients flow through that one."""
+    nb, ns = token_layout(dist, B, S)
+    pods, models = dist.axis_size("pod"), dist.axis_size("model")
+    D = y.shape[-1]
+    y = y.reshape(pods, models, B // nb, S // ns, D)[:nb, :ns]
+    return y.transpose(1, 2).reshape(B, S, D)
+
+
 def _moe_dist(cfg: ModelConfig, dist: DistCtx, rparams: RouterParams,
               p: dict, x: Tensor, mode: str, chunks: int,
               ep_backend) -> tuple[Tensor, dict]:
     B, S, D = x.shape
     mcfg = cfg.moe
     spec = make_ep_spec(cfg, dist, mode=mode, chunks=chunks, dtype=x.dtype)
-    R = spec.degree
-    if (B * S) % R:
-        raise ValueError(f"{B * S} tokens do not split over {R} EP ranks")
-    # the B*S tokens split row-major into R equal rank slices.  The JAX
-    # decode mesh instead replicates the batch on every model-axis rank;
-    # per token the result is the same, because LL capacity is floored at
-    # min(T*K, 32) (ep.py _cap), so neither layout drops a decode token.
-    t = x.reshape(R, (B * S) // R, D)
+    t = to_ranks(dist, x)
     rout = route(mcfg, rparams, t, mcfg.n_experts)
     fn = _expert_fn(p["w_gate"], p["w_up"], p["w_down"])
     res = ep_backend.dispatch_combine(spec, t, rout.top_idx, rout.top_w, fn)
+    # means over every rank, replicas included, as the reference's psums
+    # over the mesh divided by its size
     load = planlib.expert_load(rout.top_idx, spec.n_experts)
     aux = {"aux_loss": rout.aux_loss.mean(),
            "dropped": res.aux["dropped"].mean(),
            "occupancy": res.aux["occupancy"].to(torch.float32).mean(),
            "load": load,
            "imbalance": planlib.load_imbalance(load[:mcfg.n_experts])}
-    return res.out.reshape(B, S, D), aux
+    return from_ranks(dist, res.out, B, S), aux

@@ -13,6 +13,8 @@ independently in one pass, by offsetting group ids per rank.
 """
 from __future__ import annotations
 
+import inspect
+import weakref
 from typing import NamedTuple
 
 import torch
@@ -20,10 +22,40 @@ import torch
 Tensor = torch.Tensor
 
 
+_ACCEPTS_COUNTS_CACHE = weakref.WeakKeyDictionary()
+
+
+def _accepts_counts(fn) -> bool:
+    """Counts-aware iff the callable takes *args, or its second positional
+    parameter is named ``counts`` (or the ``c`` shorthand).  Neither arity
+    nor a None default is enough: a one-argument fn with an unrelated
+    second parameter (``def fn(tokens, scale=1.0)``) must never receive the
+    counts as that argument."""
+    try:
+        params = list(inspect.signature(fn).parameters.values())
+    except (TypeError, ValueError):      # no introspectable signature
+        return True                      # assume the current contract
+    if any(p.kind == inspect.Parameter.VAR_POSITIONAL for p in params):
+        return True
+    pos = [p for p in params
+           if p.kind in (inspect.Parameter.POSITIONAL_ONLY,
+                         inspect.Parameter.POSITIONAL_OR_KEYWORD)]
+    return len(pos) >= 2 and pos[1].name in ("counts", "c")
+
+
 def call_expert_fn(fn, tokens: Tensor, counts: Tensor):
-    """Invoke an expert_fn with the occupancy-carrying contract
-    ``fn(tokens, counts)``, the only form the port's expert_fns take."""
-    return fn(tokens, counts)
+    """Invoke an expert_fn: ``fn(tokens, counts)`` for a counts-aware fn,
+    ``fn(tokens)`` over the full buckets for a one-argument one.  The two
+    are told apart by signature (never by catching TypeError, which would
+    hide a TypeError raised inside a counts-aware fn), memoized per
+    callable."""
+    try:
+        accepts = _ACCEPTS_COUNTS_CACHE.get(fn)
+        if accepts is None:
+            accepts = _ACCEPTS_COUNTS_CACHE[fn] = _accepts_counts(fn)
+    except TypeError:                    # not weakref-able / not hashable
+        accepts = _accepts_counts(fn)
+    return fn(tokens, counts) if accepts else fn(tokens)
 
 
 def occupancy_mask(counts: Tensor, n_groups: int, width: int) -> Tensor:

@@ -11,20 +11,55 @@
 // Bound on an H100: at the prefill's shape (2048 positions, 32 heads) the
 // causal product takes 2 * B * H * Sq * Skv * D FLOPs (the QK^T and PV
 // products over the half of the score matrix the mask keeps), about 2.7x
-// what its bytes take at 3.35 TB/s, so the bf16 tensor-core rate bounds it.
-// Design, FlashAttention-2's shape: a block per (64-query tile, head,
-// batch), four warps of 16 query rows each; K and V tiles of 64 keys are
-// staged in shared memory (rows padded by 16 bytes: conflict-free
-// fragment loads); QK^T and PV run as bf16 mma.sync.m16n8k16 with fp32
-// accumulation, the score fragments turning directly into PV's A operand.
-// The running max, sum and output stay in fp32 registers.  Kept from the
-// TPU kernel: P rounds to bf16 before the PV product (:52-54) while the
-// sum takes it in fp32; kv tiles strictly above the diagonal are never
-// loaded (:33); rows whose max is still -inf use m = 0 (:46); l == 0
-// gives 1 (:61-62).  Ragged Sq / Skv load zeros past the end and mask
-// those keys.  Query tiles run longest first, so the causal tail is short.
-// A first version: loads are not overlapped with the MMAs (no cp.async or
-// TMA pipeline, no wgmma); its time stands in PERF.md.
+// what its bytes take at 3.35 TB/s, so the bf16 tensor-core rate bounds it;
+// the exponentials (one per kept score, 16 a clock on an SM's special
+// function units) take half as long as the products, and only
+// overlapping them with the products keeps the tensor cores busy.
+//
+// Design (FlashAttention-3's shape): a block of three warpgroups per
+// 128-query tile of one (head, batch).  Warpgroup 0 is the producer: one
+// thread loads the q tile once and then streams 128-key K and V tiles into
+// a ring of kStages shared-memory stages with TMA (cp.async.bulk.tensor
+// over 4-D tensor maps of the strided q/k/v views, 128-byte swizzle,
+// completion on mbarriers), waiting on each stage's "empty" barrier before
+// it refills it, so that later tiles load while earlier ones multiply.
+// Warpgroups 1 and 2 are consumers of 64 query rows each: S = Q K^T runs
+// as eight wgmma.m64n128k16 with both operands read from shared memory by
+// descriptor (K-major, 128-byte swizzle); the online softmax runs on the
+// fp32 accumulator in registers; P, rounded to bf16 pairs, is laid out as
+// wgmma's register A fragment, and O += P V runs as eight register-A
+// wgmma.m64n128k16 with V read from shared memory in MN-major (transposed)
+// form.  Two overlaps keep the tensor cores busy while the exponentials
+// run: within a consumer, tile j's scores are issued together with tile
+// j - 1's PV product, and tile j's softmax runs while that product does
+// (O is rescaled after it); and the two consumers' products and softmaxes
+// interleave on the SM.  setmaxnreg moves registers from the
+// producer (24) to the consumers (240: S and O accumulators of 64 fp32
+// each, P's 32 registers).  The output is staged through the consumer's
+// own q rows in shared memory and written with coalesced 16-byte stores.
+// Query tiles run longest first over the whole grid (the causal tail is
+// short).  About half the bound at the qwen3 prefill; neither a
+// persistent grid (the q load under the previous tile's epilogue) nor
+// consumers taking turns to issue (named barriers) was faster, and
+// neither the exponentials nor the K/V feed bounds it (timing variants
+// without either ran barely faster): each query tile's first QK and last
+// PV overlap nothing, and on the diagonal tile the first consumer
+// multiplies a half that is all masked.
+//
+// TMA rather than cp.async: the hardware writes the 128-byte swizzle that
+// wgmma's descriptors read, and the loads cost the consumers no registers
+// or instructions.  The tensor maps come from cuTensorMapEncodeTiled, got
+// from the driver through cudaGetDriverEntryPoint, so the library needs no
+// link against libcuda.  Each view's outer dims (s, h, b) enter the map in
+// ascending stride order (an extent-1 dim last), and the kernel permutes
+// its coordinates to match.
+//
+// Kept from the TPU kernel: P rounds to bf16 before the PV product (:52-54)
+// while the sum l takes it in fp32; kv tiles strictly above the diagonal
+// are never loaded (:33); a row whose max is still -inf uses m = 0 (:46);
+// l == 0 gives 1 (:61-62).  Ragged Sq / Skv: TMA fills rows past the end
+// with zeros, and the keys past Skv are masked.
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -33,42 +68,217 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
-constexpr int kD = 128;             // head dim (the wrapper refuses others)
-constexpr int kBQ = 64;             // query rows a block
-constexpr int kBK = 64;             // keys a tile
-constexpr int kThreads = 128;       // 4 warps x 16 rows
-constexpr int kStride = kD + 8;     // shared row stride in elements (272 bytes)
+constexpr int kD = 128;              // head dim (the wrapper refuses others)
+constexpr int kBQ = 128;             // query rows a block: two consumers of 64
+constexpr int kBK = 128;             // keys a tile
+constexpr int kStages = 3;           // K/V ring depth
+constexpr int kThreads = 384;        // producer + two consumer warpgroups
+constexpr int kRowBytes = 128;       // one swizzle row: 64 head-dim columns
+constexpr int kHalfBytes = kBK * kRowBytes;       // 16 KB: a 64-column half
+constexpr int kTileBytes = 2 * kHalfBytes;        // 32 KB: a K or V tile
+constexpr int kQBytes = kBQ * kD * 2;             // 32 KB
+constexpr int kOffK = kQBytes;
+constexpr int kOffV = kOffK + kStages * kTileBytes;
+constexpr int kOffBar = kOffV + kStages * kTileBytes;
+constexpr int kNumBars = 1 + 3 * kStages;         // q, full K, full V, empty
+constexpr int kSmemBytes = kOffBar + 8 * kNumBars + 1024;  // + alignment
 constexpr float kLog2e = 1.4426950408889634f;
+static_assert(kQBytes == kTileBytes, "q and kv tiles share the half stride");
 
 struct Params {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
   bf16* out;
-  long long qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh;  // strides (elements)
-  int Sq, Skv, H, rep, causal;
-  float scale_log2;  // log2(e) / sqrt(D): scores in the base-2 domain
+  int B, Sq, Skv, H, rep, causal, n_qt;
+  int qperm[3], kperm[3], vperm[3];  // map dim 1 + i is (s, h, b)[perm[i]]
+  float scale_log2;                  // log2(e) / sqrt(D)
 };
 
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// spin until the phase of parity ``parity`` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
 }
 
-// four 8x8 b16 matrices, transposed: lanes 8i..8i+7 give matrix i's rows
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
+// one box of a 4-D tensor map into shared memory, completing on ``bar``
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// shared-memory matrix descriptor, 128-byte swizzle (layout type 1); byte
+// offsets: lbo between 64-column chunks along MN (MN-major only), sbo
+// between 8-row groups
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// pins accumulator registers at this point: no read or write of them moves
+// across a wgmma issue or wait
+__device__ __forceinline__ void fence_regs(float (&r)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// the same for P's registers: the PV product reads them asynchronously, so
+// the next tile's P must not be written into them before the wait
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[8][4]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// d (64 x 128 fp32) (+)= A (64 x 16, shared, K-major) B (16 x 128, shared,
+// K-major); scale_d 0 overwrites d
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 128 fp32) += A (64 x 16 bf16, registers) B (16 x 128, shared,
+// MN-major: transposed)
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// One tile's online softmax on the S accumulator, in place: masks (when
+// ``masked``) keys past Skv and, causal, past each row; updates the
+// running max m (base-2 domain, scaled) of this thread's rows row0 and
+// row0 + 8; leaves P = 2^(s * scale - m) in s (fp32), the factor that
+// rescales the older sums in corr, and P's row sums over this thread's
+// columns in sum.
+__device__ __forceinline__ void online_softmax(float (&s)[64], float (&m)[2], float (&corr)[2],
+                                               float (&sum)[2], float scale_log2, bool masked,
+                                               int k0, int row0, int Skv, int causal, int t) {
+  if (masked) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + 8 * i + 2 * t + (e & 1);
+        const int row = row0 + 8 * (e >> 1);
+        if (key >= Skv || (causal && key > row)) s[4 * i + e] = -INFINITY;
+      }
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    mx[0] = fmaxf(mx[0], fmaxf(s[4 * i], s[4 * i + 1]));
+    mx[1] = fmaxf(mx[1], fmaxf(s[4 * i + 2], s[4 * i + 3]));
+  }
+  float ms[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float n = fmaxf(m[r], mx[r] * scale_log2);
+    ms[r] = (n == -INFINITY) ? 0.f : n;  // a row with no live key yet: m = 0
+    corr[r] = ex2(m[r] - ms[r]);
+    m[r] = n;
+    sum[r] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float pe = ex2(fmaf(s[4 * i + e], scale_log2, -ms[e >> 1]));
+      s[4 * i + e] = pe;
+      sum[e >> 1] += pe;
+    }
 }
 
 // (lo, hi) -> one register of two bf16, lo in the low half
@@ -77,171 +287,297 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// rows row0 .. row0+63 of one head into dst; rows at or past n_rows are zeros
-__device__ __forceinline__ void load_tile(bf16 (*dst)[kStride], const bf16* src,
-                                          long long row_stride, int row0, int n_rows) {
-  for (int i = threadIdx.x; i < kBK * (kD / 8); i += kThreads) {
-    const int r = i >> 4, c = (i & 15) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (row0 + r < n_rows)
-      v = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * row_stride + c);
-    *reinterpret_cast<uint4*>(&dst[r][c]) = v;
+__device__ __forceinline__ int pick(int which, int s, int h, int b) {
+  return which == 0 ? s : (which == 1 ? h : b);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv, const Params p) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms want 1024-byte alignment
+  uint8_t* const smem = smem_raw + (base - raw);
+  const uint32_t q_bar = base + kOffBar;
+  const uint32_t full_k = q_bar + 8, full_v = full_k + 8 * kStages,
+                 empty = full_v + 8 * kStages;
+
+  // longest causal tiles first over the whole grid
+  const int hb = blockIdx.x % (p.H * p.B);
+  const int qt = p.n_qt - 1 - blockIdx.x / (p.H * p.B);
+  const int h = hb % p.H, b = hb / p.H, kh = h / p.rep;
+  const int q0 = qt * kBQ;
+  int n_tiles = (p.Skv + kBK - 1) / kBK;
+  if (p.causal) n_tiles = min(n_tiles, q0 / kBK + 1);  // none above the diagonal
+
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_k + 8 * s, 1);
+      mbar_init(full_v + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ------------------------------------------------------- producer --
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_bar, kQBytes);
+      for (int half = 0; half < 2; ++half)
+        tma_load_4d(base + half * kHalfBytes, &tq, q_bar, half * 64,
+                    pick(p.qperm[0], q0, h, b), pick(p.qperm[1], q0, h, b),
+                    pick(p.qperm[2], q0, h, b));
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % kStages;
+        if (j >= kStages) mbar_wait(empty + 8 * st, ((j / kStages) - 1) & 1);
+        const int k0 = j * kBK;
+        const uint32_t kd = base + kOffK + st * kTileBytes, vd = base + kOffV + st * kTileBytes;
+        mbar_expect_tx(full_k + 8 * st, kTileBytes);
+        for (int half = 0; half < 2; ++half)
+          tma_load_4d(kd + half * kHalfBytes, &tk, full_k + 8 * st, half * 64,
+                      pick(p.kperm[0], k0, kh, b), pick(p.kperm[1], k0, kh, b),
+                      pick(p.kperm[2], k0, kh, b));
+        mbar_expect_tx(full_v + 8 * st, kTileBytes);
+        for (int half = 0; half < 2; ++half)
+          tma_load_4d(vd + half * kHalfBytes, &tv, full_v + 8 * st, half * 64,
+                      pick(p.vperm[0], k0, kh, b), pick(p.vperm[1], k0, kh, b),
+                      pick(p.vperm[2], k0, kh, b));
+      }
+    }
+    return;
+  }
+
+  // ---------------------------------------------------------- consumers --
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int c = wg - 1;                       // consumer 0 / 1: rows 64c..64c+63
+  const int tid = threadIdx.x % 128;
+  const int w4 = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;       // accumulator row group, column pair
+  const int rl = 16 * w4 + g;                 // this thread's first row in the 64
+  const int row0 = q0 + 64 * c + rl;
+  const uint32_t q_base = base + c * 64 * kRowBytes;
+
+  float o[64], s[64];
+  uint32_t pa[8][4];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) o[i] = s[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, corr[2], sum[2];
+
+  // S = Q K^T of tile j over the head dim: 8 steps of 16, 4 in each half
+  auto issue_qk = [&](int j) {
+    const uint32_t kb = base + kOffK + (j % kStages) * kTileBytes;
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const uint32_t off = (kk >> 2) * kHalfBytes + (kk & 3) * 32;
+      wgmma_ss(s, desc_sw128(q_base + off, 16, 1024), desc_sw128(kb + off, 16, 1024), kk > 0);
+    }
+    wg_commit();
+  };
+  // O += bf16(P) V of tile j: 8 steps of 16 keys
+  auto issue_pv = [&](int j) {
+    const uint32_t vb = base + kOffV + (j % kStages) * kTileBytes;
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      wgmma_rs(o, pa[kk], desc_sw128(vb + kk * 16 * kRowBytes, kHalfBytes, 1024));
+    wg_commit();
+  };
+  auto softmax = [&](int j) {
+    const int k0 = j * kBK;
+    online_softmax(s, m, corr, sum, p.scale_log2,
+                   k0 + kBK > p.Skv || (p.causal && k0 + kBK - 1 > q0 + 64 * c), k0, row0,
+                   p.Skv, p.causal, t);
+  };
+  auto pack_p = [&]() {
+    // score chunks 2kk, 2kk+1 are the A fragment of key step kk
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+  };
+  auto full = [&](uint32_t bars, int j) {
+    mbar_wait(bars + 8 * (j % kStages), (j / kStages) & 1);
+  };
+
+  mbar_wait(q_bar, 0);
+  if (n_tiles > 0) {
+    full(full_k, 0);
+    wg_fence();
+    issue_qk(0);
+    wg_wait<0>();
+    fence_regs(s);
+    softmax(0);
+    l[0] = sum[0];
+    l[1] = sum[1];
+    pack_p();
+    // tile j's scores and softmax overlap tile j - 1's PV product
+    for (int j = 1; j < n_tiles; ++j) {
+      full(full_k, j);
+      fence_regs(s);
+      fence_regs(o);
+      wg_fence();
+      issue_qk(j);
+      full(full_v, j - 1);
+      issue_pv(j - 1);
+      wg_wait<1>();  // the scores; the PV product may still run
+      fence_regs(s);
+      softmax(j);
+      wg_wait<0>();
+      fence_regs(o);
+      fence_regs(pa);
+      if (lane == 0) mbar_arrive(empty + 8 * ((j - 1) % kStages));
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        o[4 * i] *= corr[0];
+        o[4 * i + 1] *= corr[0];
+        o[4 * i + 2] *= corr[1];
+        o[4 * i + 3] *= corr[1];
+      }
+      l[0] = l[0] * corr[0] + sum[0];
+      l[1] = l[1] * corr[1] + sum[1];
+      pack_p();
+    }
+    full(full_v, n_tiles - 1);
+    fence_regs(o);
+    wg_fence();
+    issue_pv(n_tiles - 1);
+    wg_wait<0>();
+    fence_regs(o);
+    if (lane == 0) mbar_arrive(empty + 8 * ((n_tiles - 1) % kStages));
+  }
+  float l0 = l[0], l1 = l[1];
+
+  // ---------------------------------------------------------- epilogue --
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float i0 = 1.f / (l0 == 0.f ? 1.f : l0), i1 = 1.f / (l1 == 0.f ? 1.f : l1);
+  // stage O (bf16) in this consumer's own q rows, in q's swizzled layout
+  uint8_t* const stage = smem + c * 64 * kRowBytes;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    uint8_t* const at = stage + (i / 8) * kHalfBytes + rl * kRowBytes + (((i % 8) ^ g) * 16) + 4 * t;
+    *reinterpret_cast<uint32_t*>(at) = pack_bf16(o[4 * i] * i0, o[4 * i + 1] * i0);
+    *reinterpret_cast<uint32_t*>(at + 8 * kRowBytes) =
+        pack_bf16(o[4 * i + 2] * i1, o[4 * i + 3] * i1);
+  }
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
+  bf16* const out = p.out + ((long long)b * p.Sq * p.H + h) * kD;
+  const long long oss = (long long)p.H * kD;
+#pragma unroll
+  for (int it = 0; it < 8; ++it) {
+    const int chunk = tid + 128 * it;        // 64 rows x 16 chunks of 16 bytes
+    const int r = chunk / 16, c16 = chunk % 16;
+    const int row = q0 + 64 * c + r;
+    if (row < p.Sq) {
+      const uint4 v = *reinterpret_cast<const uint4*>(
+          stage + (c16 / 8) * kHalfBytes + r * kRowBytes + (((c16 % 8) ^ (r % 8)) * 16));
+      *reinterpret_cast<uint4*>(out + row * oss + c16 * 8) = v;
+    }
   }
 }
 
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
-  __shared__ __align__(16) bf16 Ks[kBK][kStride];
-  __shared__ __align__(16) bf16 Vs[kBK][kStride];
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;  // longest causal tiles first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kh = h / p.rep;
-  const bf16* qp = p.q + b * p.qsb + h * p.qsh;
-  const bf16* kp = p.k + b * p.ksb + kh * p.ksh;
-  const bf16* vp = p.v + b * p.vsb + kh * p.vsh;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;  // mma fragment row group, column pair
-  const int wr = warp * 16;
-
-  // the warp's 16 query rows as mma A fragments, staged through Ks
-  load_tile(Ks, qp, p.qss, q0, p.Sq);
-  __syncthreads();
-  uint32_t qf[kD / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    qf[kk][0] = ld32(&Ks[wr + g][c]);
-    qf[kk][1] = ld32(&Ks[wr + g + 8][c]);
-    qf[kk][2] = ld32(&Ks[wr + g][c + 8]);
-    qf[kk][3] = ld32(&Ks[wr + g + 8][c + 8]);
+EncodeTiledFn encoder() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(ptr);
   }
-  __syncthreads();
+  return fn;
+}
 
-  // this thread's two rows (g and g + 8 of the warp): running max, sum
-  // (a partial over its columns, summed over the quad at the end), output
-  float o[kD / 8][4];
-#pragma unroll
-  for (int n = 0; n < kD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  const int rows[2] = {q0 + wr + g, q0 + wr + g + 8};
-
-  int n_tiles = (p.Skv + kBK - 1) / kBK;
-  if (p.causal) n_tiles = min(n_tiles, q0 / kBK + 1);  // none above the diagonal
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * kBK;
-    load_tile(Ks, kp, p.kss, k0, p.Skv);
-    load_tile(Vs, vp, p.vss, k0, p.Skv);
-    __syncthreads();
-
-    float s[kBK / 8][4];
-#pragma unroll
-    for (int n = 0; n < kBK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) {
-      const int c = kk * 16 + 2 * t;
-#pragma unroll
-      for (int n = 0; n < kBK / 8; ++n)
-        mma16816(s[n], qf[kk], ld32(&Ks[n * 8 + g][c]), ld32(&Ks[n * 8 + g][c + 8]));
-    }
-
-    // mask, then the new running max of each row over the quad's columns
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int n = 0; n < kBK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + n * 8 + 2 * t + (e & 1);
-        const bool live = key < p.Skv && (!p.causal || key <= rows[e >> 1]);
-        const float v = live ? s[n][e] * p.scale_log2 : -INFINITY;
-        s[n][e] = v;
-        mx[e >> 1] = fmaxf(mx[e >> 1], v);
+// 4-D map (d, then s, h, b in ascending stride order) over one bf16 view
+// with unit last stride; boxes of 64 columns x 128 rows of s.  ``perm``
+// receives the order.  Returns the encoder's CUresult (0 on success).
+int encode_view(CUtensorMap* map, const void* ptr, long long S, long long heads, long long B,
+                long long ss, long long sh, long long sb, int (&perm)[3]) {
+  EncodeTiledFn fn = encoder();
+  if (fn == nullptr) return CUDA_ERROR_NOT_FOUND;
+  const long long ext[3] = {S, heads, B}, str[3] = {2 * ss, 2 * sh, 2 * sb};
+  int ord[3] = {0, 1, 2};
+  // an extent-1 dim's stride is never used: it sorts last
+  auto key = [&](int i) { return ext[i] == 1 ? (1ll << 62) : str[i]; };
+  for (int i = 0; i < 3; ++i)
+    for (int j = i + 1; j < 3; ++j)
+      if (key(ord[j]) < key(ord[i])) {
+        const int tmp = ord[i];
+        ord[i] = ord[j];
+        ord[j] = tmp;
       }
-    float ms[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      ms[i] = (mx[i] == -INFINITY) ? 0.f : mx[i];
-      const float corr = exp2f(m[i] - ms[i]);
-      l[i] *= corr;
-#pragma unroll
-      for (int n = 0; n < kD / 8; ++n) {
-        o[n][2 * i] *= corr;
-        o[n][2 * i + 1] *= corr;
-      }
-      m[i] = mx[i];
-    }
-#pragma unroll
-    for (int n = 0; n < kBK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float pe = exp2f(s[n][e] - ms[e >> 1]);
-        s[n][e] = pe;
-        l[e >> 1] += pe;
-      }
-
-    // o += bf16(P) V: score n-tiles 2kk, 2kk+1 are the A fragment of key step kk
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int nd = 0; nd < kD / 8; nd += 2) {
-        uint32_t bv[4];
-        ldmatrix_x4_trans(bv, &Vs[kk * 16 + (lane & 15)][nd * 8 + (lane >> 4) * 8]);
-        mma16816(o[nd], a, bv[0], bv[1]);
-        mma16816(o[nd + 1], a, bv[2], bv[3]);
-      }
-    }
-    __syncthreads();
+  cuuint64_t dims[4] = {(cuuint64_t)kD, 0, 0, 0}, strides[3];
+  cuuint32_t box[4] = {64, 1, 1, 1}, estr[4] = {1, 1, 1, 1};
+  long long span = 2 * kD;  // bytes up to the previous dim
+  for (int i = 0; i < 3; ++i) {
+    const int d = ord[i];
+    perm[i] = d;
+    dims[1 + i] = (cuuint64_t)ext[d];
+    const long long st = ext[d] == 1 ? span : str[d];
+    strides[i] = (cuuint64_t)st;
+    span = st * ext[d];
+    if (d == 0) box[1 + i] = kBK;
   }
-
-  bf16* op = p.out + ((long long)b * p.Sq * p.H + h) * kD;
-  const long long oss = (long long)p.H * kD;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    const float li = (l[i] == 0.f) ? 1.f : l[i];
-    if (rows[i] >= p.Sq) continue;
-    bf16* orow = op + rows[i] * oss + 2 * t;
-#pragma unroll
-    for (int n = 0; n < kD / 8; ++n) {
-      const __nv_bfloat162 v = __floats2bfloat162_rn(o[n][2 * i] / li, o[n][2 * i + 1] / li);
-      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8) = v;
-    }
-  }
+  return (int)fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                 box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 }  // namespace
 
 // q (B, Sq, H, 128), k / v (B, Skv, Hkv, 128) bf16 with unit last stride
-// and the other strides (in elements) given; out (B, Sq, H, 128)
-// contiguous.  Every row start must be 16-byte aligned (the wrapper checks).
+// and the other strides (in elements, multiples of 8) given; out (B, Sq,
+// H, 128) contiguous.  Every row start must be 16-byte aligned (the
+// wrapper checks).  Returns cudaGetLastError() after the launch, or the
+// tensor-map encoder's CUresult negated if a map could not be made.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
                                       int B, int Sq, int Skv, int H, int Hkv, int causal,
                                       long long qsb, long long qss, long long qsh,
                                       long long ksb, long long kss, long long ksh,
                                       long long vsb, long long vss, long long vsh,
                                       void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (Skv == 0) {  // no key: every row is 0 (l == 0 gives 1)
+    cudaMemsetAsync(out, 0, (size_t)B * Sq * H * kD * sizeof(bf16), st);
+    return static_cast<int>(cudaGetLastError());
+  }
   Params p;
-  p.q = static_cast<const bf16*>(q);
-  p.k = static_cast<const bf16*>(k);
-  p.v = static_cast<const bf16*>(v);
   p.out = static_cast<bf16*>(out);
-  p.qsb = qsb; p.qss = qss; p.qsh = qsh;
-  p.ksb = ksb; p.kss = kss; p.ksh = ksh;
-  p.vsb = vsb; p.vss = vss; p.vsh = vsh;
+  p.B = B;
   p.Sq = Sq;
   p.Skv = Skv;
   p.H = H;
   p.rep = H / Hkv;
   p.causal = causal;
+  p.n_qt = (Sq + kBQ - 1) / kBQ;
   p.scale_log2 = kLog2e / sqrtf((float)kD);
-  const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  flash_fwd_kernel<<<grid, kThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(p);
+  CUtensorMap tq, tk, tv;
+  int r = encode_view(&tq, q, Sq, H, B, qss, qsh, qsb, p.qperm);
+  if (r == 0) r = encode_view(&tk, k, Skv, Hkv, B, kss, ksh, ksb, p.kperm);
+  if (r == 0) r = encode_view(&tv, v, Skv, Hkv, B, vss, vsh, vsb, p.vperm);
+  if (r != 0) return -r;
+  cudaFuncSetAttribute(flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       kSmemBytes);
+  const long long blocks = (long long)p.n_qt * H * B;
+  flash_fwd_kernel<<<(unsigned)blocks, kThreads, kSmemBytes, st>>>(tq, tk, tv, p);
   return static_cast<int>(cudaGetLastError());
 }

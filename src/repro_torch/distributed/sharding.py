@@ -11,24 +11,44 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import Optional
 
 from repro_torch.configs.base import ModelConfig
 
 
 @dataclass(frozen=True)
 class DistCtx:
+    """The world's axes and sizes (``axes``/``sizes``: ("model",) or
+    ("pod", "model")) and the EP world over them (``ep_axes``/``ep_sizes``:
+    the same, or empty for a model without MoE).  As on the reference's
+    mesh, "pod" is a batch axis and "model" the sequence axis (the
+    reference's "data" axis has size 1 here): a MoE layer lays its tokens
+    out over the world by them (:func:`repro_torch.core.moe.token_layout`),
+    and serving prefills through decode steps when there is a model axis
+    (:func:`repro_torch.launch.serve.generate`)."""
+
     ep_axes: tuple[str, ...]
     ep_sizes: tuple[int, ...]
+    axes: tuple[str, ...] = ()
+    sizes: tuple[int, ...] = ()
+
+    def axis_size(self, name: str) -> int:
+        return dict(zip(self.axes, self.sizes)).get(name, 1)
+
+    @property
+    def model_axis(self) -> Optional[str]:
+        return "model" if "model" in self.axes else None
 
 
 def make_dist_ctx(cfg: ModelConfig, *, model: int, pod: int = 1) -> DistCtx:
-    """EP world of ``pod * model`` ranks: over ("pod", "model") when there
-    is a pod level, else over ("model",); none for a model without MoE."""
+    """A world of ``pod * model`` ranks over ("pod", "model") when there is
+    a pod level, else over ("model",); its EP world spans it, or is empty
+    for a model without MoE."""
+    axes, sizes = ((("pod", "model"), (pod, model)) if pod > 1
+                   else (("model",), (model,)))
     if not cfg.moe.enabled:
-        return DistCtx((), ())
-    if pod > 1:
-        return DistCtx(("pod", "model"), (pod, model))
-    return DistCtx(("model",), (model,))
+        return DistCtx((), (), axes, sizes)
+    return DistCtx(axes, sizes, axes, sizes)
 
 
 def scan_period(cfg: ModelConfig) -> tuple[int, int]:

@@ -10,25 +10,37 @@ Runs on ``cuda`` unless ``--device cpu``.  Prefill and decode run their
 norms and attention through the RMSNorm, flash attention and flash
 decoding kernels, under ``torch.inference_mode()``.  With ``--mesh
 local`` the MoE layers run expert parallel over a rank-stacked world of
-``--local-model-axis`` ranks on the one device; the KV cache is local, so
-prefill is one batched pass through the HT dispatch and decode goes token
-by token through LL.  ``--mesh none`` runs the dense MoE oracle.
+``--local-model-axis`` ranks on the one device, and, as in the reference,
+whose cache is then sharded over the model axis, the prompt runs through
+decode steps (LL) and no TTFT is reported; ``--mesh none`` prefills in one
+batched pass (the MoE layers through the dense oracle).  Decode goes token
+by token through LL.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import time
+from typing import Optional
 
 
-def generate(cfg, params, prompts, n_gen: int, *, dist=None) -> dict:
-    """Prefill ``prompts`` (B, S) in one pass, then decode greedily until
-    ``n_gen`` tokens per sequence exist.  Times on the host clock around
-    work that ends in a device synchronise."""
+def generate(cfg, params, prompts, n_gen: int, *, dist=None,
+             batched_prefill: Optional[bool] = None) -> dict:
+    """Prefill ``prompts`` (B, S), then decode greedily until ``n_gen``
+    tokens per sequence exist.  ``batched_prefill`` None takes the
+    reference's rule (repro/launch/serve.py): one batched HT prefill unless
+    the model has Mamba layers or ``dist`` has a model axis; otherwise the
+    prompt runs through S - 1 LL decode steps, as the reference prefills
+    its model-sharded cache, and there is no TTFT (``ttft_s`` None).
+    True forces the batched prefill.  Times on the host clock around work
+    that ends in a device synchronise."""
     import torch
 
     from repro_torch.models import model_zoo as Z
 
+    if batched_prefill is None:
+        batched_prefill = not cfg.mamba.enabled and (
+            dist is None or dist.model_axis is None)
     dev = prompts.device
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     B, S = prompts.shape
@@ -39,14 +51,24 @@ def generate(cfg, params, prompts, n_gen: int, *, dist=None) -> dict:
     t0 = time.perf_counter()
     # no gradients: the norm and attention kernels have no backward
     with torch.inference_mode():
-        logits, cache, aux = Z.prefill(cfg, params, cache, prompts,
-                                       dist=dist, moe_mode="ht")
-        tok = torch.argmax(logits[:, :cfg.vocab_size], dim=-1)[:, None]
+        if batched_prefill:
+            logits, cache, aux = Z.prefill(cfg, params, cache, prompts,
+                                           dist=dist, moe_mode="ht")
+            tok = torch.argmax(logits[:, :cfg.vocab_size], dim=-1)[:, None]
+            out, prefill = [tok], [aux]
+            t_start = S
+        else:
+            tok, prefill = prompts[:, :1], []
+            for t in range(S - 1):
+                logits, cache, aux = Z.decode_step(cfg, params, cache, tok, t,
+                                                   dist=dist, moe_mode="ll")
+                tok = prompts[:, t + 1:t + 2]
+                prefill.append(aux)
+            out, t_start = [], S - 1
         sync()
-        t_first = time.perf_counter() - t0
-        out, dropped = [tok], [aux["dropped"]]
-        prefill_per_layer = aux["dropped_per_layer"]
-        for t in range(S, max_len - 1):
+        t_prompt = time.perf_counter() - t0
+        dropped = []                 # the decode steps'
+        for t in range(t_start, max_len - 1):
             logits, cache, aux = Z.decode_step(cfg, params, cache, tok, t,
                                                dist=dist, moe_mode="ll")
             tok = torch.argmax(logits[:, :cfg.vocab_size], dim=-1)[:, None]
@@ -55,14 +77,19 @@ def generate(cfg, params, prompts, n_gen: int, *, dist=None) -> dict:
         sync()
     dt = time.perf_counter() - t0
     total = B * len(out)
+    per_layer = (torch.stack([a["dropped_per_layer"] for a in prefill])
+                 .mean(0).tolist() if prefill else [])
     return {"tokens": torch.cat(out, dim=1), "logits": logits,
-            "ttft_s": t_first, "total_s": dt, "tokens_per_s": total / dt,
-            "decode_tokens_per_s": (B * (len(out) - 1) / (dt - t_first)
-                                    if len(out) > 1 else None),
-            "prefill_dropped": float(dropped[0]),
-            "prefill_dropped_per_layer": prefill_per_layer.tolist(),
-            "decode_dropped": (float(torch.stack(dropped[1:]).mean())
-                               if len(dropped) > 1 else 0.0)}
+            "ttft_s": t_prompt if batched_prefill else None,
+            "total_s": dt, "tokens_per_s": total / dt,
+            "decode_tokens_per_s": (B * len(dropped) / (dt - t_prompt)
+                                    if dropped else None),
+            "batched_prefill": batched_prefill,
+            "prefill_dropped": (float(torch.stack(
+                [a["dropped"] for a in prefill]).mean()) if prefill else 0.0),
+            "prefill_dropped_per_layer": per_layer,
+            "decode_dropped": (float(torch.stack(dropped).mean())
+                               if dropped else 0.0)}
 
 
 def main(argv=None):
@@ -114,10 +141,11 @@ def main(argv=None):
                             generator=gen).to(device)
     res = generate(cfg, params, prompts, args.gen, dist=dist)
     n = res["tokens"].numel()
+    ttft = (f", ttft {res['ttft_s'] * 1e3:.0f}ms"
+            if res["ttft_s"] is not None else "")
     print(f"[serve] generated {n} tokens in {res['total_s']:.2f}s "
-          f"({res['tokens_per_s']:.1f} tok/s, ttft "
-          f"{res['ttft_s'] * 1e3:.0f}ms) on {device}, first sequence: "
-          f"{res['tokens'][0, :8].tolist()}")
+          f"({res['tokens_per_s']:.1f} tok/s{ttft}) on {device}, first "
+          f"sequence: {res['tokens'][0, :8].tolist()}")
     return 0
 
 

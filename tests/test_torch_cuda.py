@@ -275,6 +275,17 @@ def test_cuda_rmsnorm_matches_plain(cuda_device, rows, D):
     (1, 70, 150, 4, 2, False),      # Sq != Skv
     (1, 150, 70, 4, 2, True),       # rows past Skv see every key
     (1, 2048, 2048, 32, 8, True),   # the qwen3-4b prefill's shape at batch 1
+    # edges of the 128-query and 128-key tiles
+    (1, 127, 127, 4, 2, True),
+    (1, 128, 128, 4, 2, True),
+    (1, 129, 129, 4, 2, True),
+    (1, 257, 257, 4, 2, True),
+    (1, 127, 257, 4, 1, False),
+    (1, 257, 129, 8, 4, False),
+    (1, 129, 257, 4, 2, True),      # Skv > Sq: keys past the last row unseen
+    (2, 257, 129, 8, 4, True),      # Skv < Sq
+    (1, 2048, 2048, 16, 2, True),   # GQA rep 8 at the qwen3 prefill length
+    (4, 256, 256, 16, 16, True),    # the qwen2-moe (serve-fp32) prefill
 ])
 def test_cuda_flash_attention_matches_plain(cuda_device, B, Sq, Skv, H, Hkv,
                                             causal):

@@ -6,9 +6,11 @@ P = 1 runs in process on a (1,) mesh; every P > 1 case — one-level P in
 wires, plus skewed tables that drop — runs in ONE subprocess with fake
 CPU devices, whose results the parametrized tests below compare.  Both
 sides run the real expert function of their ``moe`` module (the jnp refs
-on the JAX side, the plain versions here); the ``PLAIN`` cases hand HT a
+on the JAX side, the plain versions here); the ``-plain`` cases hand HT a
 plain ``fn(tokens, counts)`` without ``.fused`` on both sides, so that HT
-gathers an expert buffer and scatters the outputs itself."""
+gathers an expert buffer and scatters the outputs itself, and the
+``-onearg`` and ``-scale`` cases hand both sides an expert_fn of an older
+form, ``fn(tokens)`` or ``fn(tokens, scale=1.0)`` (``FORMS``)."""
 import dataclasses
 import textwrap
 
@@ -60,7 +62,18 @@ CASES["2x2-ht-plain-fp8"] = ((2, 2), ("pod", "model"), "ht", "fp8", 2.0, 1,
                              8, 2, False)
 CASES["2x2-ht-plain-skew-drops"] = ((2, 2), ("pod", "model"), "ht", "fp32",
                                     1.0, 1, 32, 3, True)
-PLAIN = frozenset(n for n in CASES if "-plain" in n)
+# expert_fns of the older one-argument forms, told apart by signature
+# (``fn(tokens)``, and ``fn(tokens, scale=1.0)`` whose second parameter is
+# not the counts): both compute over the full buckets
+CASES["4-ll-onearg"] = ((4,), ("model",), "ll", "fp32", 2.0, 1, 8, 2, False)
+CASES["4-ht-onearg-skew-drops"] = ((4,), ("model",), "ht", "fp32", 1.0, 1,
+                                   32, 3, True)
+CASES["4-ll-scale-skew-drops"] = ((4,), ("model",), "ll", "fp32", 1.0, 1, 32,
+                                  3, True)
+CASES["4-ht-scale"] = ((4,), ("model",), "ht", "fp32", 2.0, 1, 8, 2, False)
+# name -> the form of expert_fn both sides hand the backend
+FORMS = {n: next((f for f in ("plain", "onearg", "scale") if f"-{f}" in n),
+                 "fused") for n in CASES}
 
 
 def _inputs(seed, R, T, K, skew):
@@ -84,12 +97,22 @@ def _weights(seed=100):
             for s in ((E, D, F), (E, D, F), (E, F, D))]
 
 
-def _plain(fn):
-    """The expert_fn ``fn`` without its ``.fused``."""
-    return lambda tokens, counts: fn(tokens, counts)
+def _as_form(fn, form):
+    """The expert_fn ``fn`` in one of the forms a caller may pass: as it is
+    (``fused``), without its ``.fused`` (``plain``), as a one-argument fn
+    (``onearg``), or as ``fn(tokens, scale=1.0)`` (``scale``)."""
+    if form == "plain":
+        return lambda tokens, counts: fn(tokens, counts)
+    if form == "onearg":
+        return lambda tokens: fn(tokens)
+
+    def scaled(tokens, scale=1.0):
+        return fn(tokens) * scale
+    return scaled if form == "scale" else fn
 
 
-def _port(sizes, axes, mode, wire, cf, chunks, K, x, ti, tw, w, plain=False):
+def _port(sizes, axes, mode, wire, cf, chunks, K, x, ti, tw, w,
+          form="fused"):
     R = int(np.prod(sizes))
     spec = EPSpec(axes=axes, sizes=sizes, n_experts=E, top_k=K,
                   capacity_factor=cf, chunks=chunks, dtype=torch.float32,
@@ -98,7 +121,7 @@ def _port(sizes, axes, mode, wire, cf, chunks, K, x, ti, tw, w, plain=False):
     fn = tmoe._expert_fn(*[torch.from_numpy(a) for a in w])
     res = get_backend("torch_collectives").dispatch_combine(
         spec, t[0].reshape(R, -1, D), t[1].reshape(R, -1, K),
-        t[2].reshape(R, -1, K), _plain(fn) if plain else fn)
+        t[2].reshape(R, -1, K), _as_form(fn, form))
     return {"out": res.out.reshape(-1, D).numpy(),
             "dropped": res.aux["dropped"].numpy(),
             "occupancy": res.aux["occupancy"].numpy(),
@@ -186,7 +209,7 @@ def test_ep_p1_ht_plain_expert_fn_matches_jax_collectives(wire):
     ref = dict(zip(("out", "dropped", "occupancy", "load_phys"),
                    (np.asarray(o) for o in out)))
     got = _port((1,), ("model",), "ht", wire, 2.0, 1, K, x, ti, tw, w,
-                plain=True)
+                form="plain")
     _compare(got, ref)
     # the reference's fn saw an (eps, Ce, D) buffer and flat counts
     assert len(seen) == 1 and len(seen[0][0]) == 3 and len(seen[0][1]) == 1
@@ -241,7 +264,7 @@ _JAX_SCRIPT = textwrap.dedent("""
     from repro.core.ep import EPSpec
     data = np.load(sys.argv[1], allow_pickle=True)
     cases = data["cases"].item()
-    plain = set(data["plain"].tolist())
+    forms = data["forms"].item()
     w = [data["wg"], data["wu"], data["wd"]]
     jb = get_backend("jax_collectives")
     out = {}
@@ -254,9 +277,17 @@ _JAX_SCRIPT = textwrap.dedent("""
                       mode=mode, wire_dtype=wire)
         ep_p = axes if len(axes) > 1 else axes[0]
         def island(x, ti, tw, wg, wu, wd, name=name):
-            fn = jmoe._expert_fn(wg, wu, wd)
-            if name in plain:            # no .fused: HT's unfused branch
-                fn = (lambda f: lambda tokens, counts: f(tokens, counts))(fn)
+            f = jmoe._expert_fn(wg, wu, wd)
+            form = forms[name]
+            if form == "plain":          # no .fused: HT's unfused branch
+                fn = lambda tokens, counts: f(tokens, counts)
+            elif form == "onearg":
+                fn = lambda tokens: f(tokens)
+            elif form == "scale":
+                def fn(tokens, scale=1.0):
+                    return f(tokens) * scale
+            else:
+                fn = f
             r = jb.dispatch_combine(spec, x, ti, tw, fn)
             return (r.out, r.aux["dropped"].reshape(1),
                     jnp.float32(r.aux["occupancy"]).reshape(1),
@@ -279,7 +310,7 @@ def jax_multi_rank(tmp_path_factory, dist_runner):
     d = tmp_path_factory.mktemp("ep")
     w = _weights()
     arrays = {"cases": np.array(CASES, dtype=object),
-              "plain": np.array(sorted(PLAIN)), "wg": w[0], "wu": w[1],
+              "forms": np.array(FORMS, dtype=object), "wg": w[0], "wu": w[1],
               "wd": w[2]}
     inputs = {}
     for i, (name, c) in enumerate(CASES.items()):
@@ -301,7 +332,7 @@ def test_ep_multi_rank_matches_jax_collectives(jax_multi_rank, name):
     inputs, w, jres = jax_multi_rank
     sizes, axes, mode, wire, cf, chunks, T, K, skew = CASES[name]
     got = _port(sizes, axes, mode, wire, cf, chunks, K, *inputs[name], w,
-                plain=name in PLAIN)
+                form=FORMS[name])
     ref = {k: jres[f"{name}/{k}"] for k in ("out", "dropped", "occupancy",
                                             "load_phys")}
     _compare(got, ref)

@@ -1,0 +1,73 @@
+"""The checks ``chip_smoke.py`` makes on the card, run on the CPU at a
+reduced size, so that the checks themselves are tested: HT at its
+configured capacity (with drops) against the dense oracle restricted to
+the choices the plan keeps."""
+import dataclasses
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+import chip_smoke  # noqa: E402
+from repro_torch.configs import get_config, reduced_config  # noqa: E402
+from repro_torch.core.moe import moe_apply  # noqa: E402
+from repro_torch.distributed.sharding import make_dist_ctx  # noqa: E402
+from repro_torch.models import model_zoo as Z  # noqa: E402
+
+
+def _layer(cf: float, skew: float):
+    cfg = dataclasses.replace(reduced_config(
+        get_config("qwen2_moe_a2_7b"), n_layers=1, d_model=64, n_experts=8),
+        dtype="float32")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cf))
+    params = Z.init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
+    p = {k: v for k, v in params["blocks"][0]["moe"].items() if k != "shared"}
+    p["router_b"] = p["router_b"].clone()
+    p["router_b"][0] += skew          # expert 0 takes most tokens: it drops
+    return cfg, p
+
+
+@pytest.mark.parametrize("model,S", [(4, 64), (2, 64), (4, 63)])
+def test_restricted_oracle_holds_ht_at_its_capacity(model, S):
+    """fp32 on the CPU: the HT output at the configured capacity equals the
+    restricted oracle up to summation order, and the plan's dropped count
+    is HT's; the unrestricted oracle misses by more than the card's
+    tolerance, so a check that ignored the drops would fail.  S = 63 does
+    not split over the model ranks: the tokens are replicated."""
+    cfg, p = _layer(cf=1.0, skew=2.0)
+    x = torch.randn((2, S, cfg.d_model),
+                    generator=torch.Generator().manual_seed(S))
+    dist = make_dist_ctx(cfg, model=model)
+    res = chip_smoke.restricted_check(cfg, dist, p, x)
+    assert res["dropped"] > 0.05
+    assert res["dropped_by_plan"] == pytest.approx(res["dropped"], abs=1e-6)
+    assert res["rel_err"] <= 1e-5
+    y, _ = moe_apply(cfg, dist, p, x, mode="ht")
+    full, _ = moe_apply(cfg, None, p, x, mode="ref")
+    miss = float((y - full).abs().max() / full.abs().max())
+    assert miss > chip_smoke.MOE_TOL["fp32"]
+
+
+def test_restricted_oracle_catches_a_lost_choice(monkeypatch):
+    """A fault the check must see: HT losing the weight of one kept choice
+    per rank (its combine weights zeroed for token 0's first choice)."""
+    from repro_torch.core import ep
+    cfg, p = _layer(cf=1.0, skew=2.0)
+    x = torch.randn((2, 64, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    dist = make_dist_ctx(cfg, model=4)
+    real = ep.dispatch_combine_ht
+
+    def faulty(spec, x_, top_idx, top_w, fn):
+        top_w = top_w.clone()
+        top_w[:, 0, 0] = 0.0
+        return real(spec, x_, top_idx, top_w, fn)
+    # the backend imports it from ep at each call
+    monkeypatch.setattr(ep, "dispatch_combine_ht", faulty)
+    res = chip_smoke.restricted_check(cfg, dist, p, x)
+    assert res["rel_err"] > chip_smoke.MOE_TOL["fp32"]
