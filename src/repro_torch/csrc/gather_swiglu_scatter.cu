@@ -11,13 +11,16 @@
 // reads all E experts' weights (3 * D * F * 2 bytes each, 1.1 GB for 64
 // experts at D = 2048, F = 1408) against 6 * D * F flops per occupied slot;
 // at 1024 prefill tokens the bytes set the bound.  Design: pass (a) of
-// swiglu_tiles.cuh gathers token rows through src inside the tile load (no
-// (E, C, D) gather buffer), and pass (b) adds w_slot * y into the output
-// with fp32 atomicAdd in its epilogue (no (E*C, D) expert-output buffer).
-// The TPU kernel keeps the whole (T+1, D) accumulator in VMEM and so gates
-// on its size (ops.py:68,84); the atomics need no such gate and this kernel
-// launches at every size.  Atomics add in a different order on every run,
-// so results are compared with a tolerance, not bitwise.
+// swiglu_tiles.cuh gathers token rows through src inside the tile load
+// (cp.async from the producer warp into the swizzled tile, since TMA cannot
+// gather; no (E, C, D) gather buffer), and pass (b) reads h by TMA and adds
+// w_slot * y into the output with fp32 atomicAdd (two columns an atomic)
+// straight from its accumulators (no (E*C, D) expert-output buffer).  A
+// 128-row tile covers the served capacity, so each expert's weights stream
+// once.  The TPU kernel keeps the whole (T+1, D) accumulator in VMEM and so
+// gates on its size (ops.py:68,84); the atomics need no such gate and this
+// kernel launches at every size.  Atomics add in a different order on
+// every run, so results are compared with a tolerance, not bitwise.
 #include "swiglu_tiles.cuh"
 
 using namespace swiglu_tiles;
@@ -33,30 +36,26 @@ extern "C" int gather_swiglu_scatter_launch(const void* x_ext, const void* src,
   up.a_rows = static_cast<const int*>(src);
   up.a_nrows = Tp1;
   up.cnt = static_cast<const int*>(cnt);
-  up.w0 = static_cast<const bf16*>(wg);
-  up.w1 = static_cast<const bf16*>(wu);
-  up.Cg = C;
+  up.C = C;
   up.B = 1;
+  up.Cg = C;
   up.K = D;
   up.N = F;
   up.out_bf16 = static_cast<bf16*>(h);
-  tile_kernel<kUp><<<grid_for(F, C, E), THREADS, 0, s>>>(up);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const int err = launch<kUp, true>(up, E, static_cast<const bf16*>(wg),
+                              static_cast<const bf16*>(wu), s);
+  if (err != 0) return err;
 
-  Args dn{};
+  Args dn = up;
   dn.a = static_cast<const bf16*>(h);
+  dn.a_rows = nullptr;
   dn.a_nrows = E * C;
-  dn.cnt = static_cast<const int*>(cnt);
-  dn.w0 = static_cast<const bf16*>(wd);
-  dn.Cg = C;
-  dn.B = 1;
   dn.K = F;
   dn.N = D;
+  dn.out_bf16 = nullptr;
   dn.out_f32 = static_cast<float*>(out);
   dn.s_rows = static_cast<const int*>(src);
   dn.s_w = static_cast<const float*>(w_slot);
   dn.s_nrows = Tp1;
-  tile_kernel<kDownScatter><<<grid_for(D, C, E), THREADS, 0, s>>>(dn);
-  return static_cast<int>(cudaGetLastError());
+  return launch<kDownScatter>(dn, E, static_cast<const bf16*>(wd), nullptr, s);
 }

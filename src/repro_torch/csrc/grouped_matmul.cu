@@ -11,13 +11,14 @@
 // K = 2048 and N = 1408 (qwen2-moe's x @ w_gate at the HT prefill shape)
 // the 369 MB of weights set the bound (0.11 ms at 3.35 TB/s) against
 // 2.4e10 flops (0.024 ms at 989 TF/s).  Design: the kDownStore pass of
-// swiglu_tiles.cuh is this function exactly: one block per (group, row
-// tile, column tile) looping over K in 32-wide steps, bf16 WMMA (mma.sync)
-// with fp32 accumulators, the next step's loads in flight during the MMAs;
-// unoccupied row tiles load nothing and store zeros, rows past the count
-// inside a tile load as zeros, and ragged M, N and K tiles are masked (K
-// and N in 8-element steps: the loads are 16 bytes, so the wrapper
-// requires K and N to be multiples of 8).
+// swiglu_tiles.cuh is this function exactly: one block per (group, 128-row
+// tile, 256-column tile), the weights and rows fed by TMA into a 4-stage
+// ring, two consumer warpgroups of 64 rows on wgmma with fp32 accumulators,
+// so that a 128-row group reads each weight tile once; a consumer whose
+// rows are all past the count issues nothing, unoccupied tiles load nothing
+// and store zeros, and TMA's zero fill masks ragged M, N and K (the tensor
+// maps' strides must be 16-byte multiples, so the wrapper requires K and N
+// to be multiples of 8).
 #include "swiglu_tiles.cuh"
 
 using namespace swiglu_tiles;
@@ -28,13 +29,12 @@ extern "C" int grouped_matmul_launch(const void* x, const void* cnt, const void*
   a.a = static_cast<const bf16*>(x);
   a.a_nrows = G * M;
   a.cnt = static_cast<const int*>(cnt);
-  a.w0 = static_cast<const bf16*>(w);
-  a.Cg = M;
+  a.C = M;
   a.B = 1;
+  a.Cg = M;
   a.K = K;
   a.N = N;
   a.out_bf16 = static_cast<bf16*>(y);
-  tile_kernel<kDownStore><<<grid_for(N, M, G), THREADS, 0,
-                            reinterpret_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  return launch<kDownStore>(a, G, static_cast<const bf16*>(w), nullptr,
+                            reinterpret_cast<cudaStream_t>(stream));
 }

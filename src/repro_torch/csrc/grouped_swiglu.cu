@@ -5,14 +5,16 @@
 // grouped_swiglu_pallas (body _swiglu_kernel :154, _swiglu_block :138),
 // the LL decode expert compute (ep.py:239 via moe.py:68).
 //
-// Bound on an H100: LL decode at batch 4 occupies at most 16 (expert,
-// source) buckets of a few rows each, so the call is bound by reading each
+// Bound on an H100: LL decode at batch 4 fills 64 rows of (expert, source)
+// sub-buckets over about 15 experts, so the call is bound by reading each
 // occupied expert's three D x F weight matrices once, ~17.3 MB an expert at
 // D = 2048, F = 1408 (memory, 3.35 TB/s).  Design: the two passes of
 // swiglu_tiles.cuh over a (G*Cg, F) bf16 scratch h that the wrapper
-// allocates; unoccupied row tiles skip every weight read, so only occupied
-// buckets cost bandwidth.  The TPU's 1 MB VMEM accumulator has no place in
-// 227 KB of shared memory, hence the split.
+// allocates.  The G = E * B groups are walked as E experts of B * Cg rows:
+// one block tile gathers the occupied prefixes of all B sub-buckets of an
+// expert, so the expert's weights stream once, not once per source; tiles
+// with no occupied row read no weights.  The TPU's 1 MB VMEM accumulator
+// has no place in 227 KB of shared memory, hence the split.
 #include "swiglu_tiles.cuh"
 
 using namespace swiglu_tiles;
@@ -21,31 +23,25 @@ extern "C" int grouped_swiglu_launch(const void* x, const void* cnt, const void*
                                      const void* wu, const void* wd, void* h, void* y,
                                      int G, int Cg, int B, int D, int F, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const int E = B > 0 ? G / B : 0;
   Args up{};
   up.a = static_cast<const bf16*>(x);
   up.a_nrows = G * Cg;
   up.cnt = static_cast<const int*>(cnt);
-  up.w0 = static_cast<const bf16*>(wg);
-  up.w1 = static_cast<const bf16*>(wu);
-  up.Cg = Cg;
+  up.C = B * Cg;
   up.B = B;
+  up.Cg = Cg;
   up.K = D;
   up.N = F;
   up.out_bf16 = static_cast<bf16*>(h);
-  tile_kernel<kUp><<<grid_for(F, Cg, G), THREADS, 0, s>>>(up);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const int err = launch<kUp>(up, E, static_cast<const bf16*>(wg),
+                              static_cast<const bf16*>(wu), s);
+  if (err != 0) return err;
 
-  Args dn{};
+  Args dn = up;
   dn.a = static_cast<const bf16*>(h);
-  dn.a_nrows = G * Cg;
-  dn.cnt = static_cast<const int*>(cnt);
-  dn.w0 = static_cast<const bf16*>(wd);
-  dn.Cg = Cg;
-  dn.B = B;
   dn.K = F;
   dn.N = D;
   dn.out_bf16 = static_cast<bf16*>(y);
-  tile_kernel<kDownStore><<<grid_for(D, Cg, G), THREADS, 0, s>>>(dn);
-  return static_cast<int>(cudaGetLastError());
+  return launch<kDownStore>(dn, E, static_cast<const bf16*>(wd), nullptr, s);
 }

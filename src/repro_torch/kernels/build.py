@@ -6,9 +6,10 @@ library with a plain C interface that :func:`library` loads with
 ``ctypes``.  The build runs at first use, into ``build/repro_torch/<hash>``
 at the repository root, keyed on a hash of the sources and flags, so a
 fresh checkout builds everything on its first kernel launch.  Nothing here
-runs at import.  The library links no driver library: flash attention
-takes ``cuTensorMapEncodeTiled`` (its TMA tensor maps) from the driver at
-run time through ``cudaGetDriverEntryPoint``.
+runs at import.  The library links no driver library: the kernels fed by
+TMA (flash attention, the grouped-expert tile loop) take
+``cuTensorMapEncodeTiled`` (their tensor maps) from the driver at run
+time through ``cudaGetDriverEntryPoint`` (``csrc/hopper_common.cuh``).
 """
 from __future__ import annotations
 

@@ -150,7 +150,7 @@ def grouped_matmul_plain(x: Tensor, w: Tensor,
 def grouped_matmul_cuda(x: Tensor, w: Tensor,
                         counts: Tensor | None = None) -> Tensor:
     """CUDA kernel for :func:`grouped_matmul_plain` (bf16 in and out; K
-    and N multiples of 8 for the 16-byte loads)."""
+    and N multiples of 8 for the tensor maps' 16-byte strides)."""
     name = "grouped_matmul"
     if (x.dim() != 3 or w.dim() != 3 or w.shape[0] != x.shape[0]
             or w.shape[1] != x.shape[2]):

@@ -34,7 +34,7 @@ def cuda_device():
 @pytest.mark.parametrize("counts_kind", ["none", "flat", "bucketed"])
 def test_cuda_grouped_swiglu_matches_plain(cuda_device, counts_kind):
     rng = np.random.default_rng(1)
-    E, C, D, F = 6, 48, 136, 200        # ragged against the 64-wide tiles
+    E, C, D, F = 6, 48, 136, 200        # ragged against the 128-wide tiles
     x = torch.from_numpy(rng.standard_normal((E, C, D)).astype(np.float32))
     ws = [torch.from_numpy(w) for w in _w(rng, E, D, F)]
     x, wg, wu, wd = [t.to(cuda_device, torch.bfloat16) for t in [x, *ws]]
@@ -439,7 +439,7 @@ def _poisoned_allocation(shape, dtype, device):
 @pytest.mark.parametrize("counts_kind", ["none", "flat"])
 def test_cuda_grouped_matmul_matches_plain(cuda_device, counts_kind):
     rng = np.random.default_rng(11)
-    G, M, K, N = 5, 70, 136, 200     # ragged against the 64 x 64 x 32 tiles
+    G, M, K, N = 5, 70, 136, 200     # ragged against the 128 x 128 x 64 tiles
     x = _bf16(rng, (G, M, K), cuda_device)
     w = _bf16(rng, (G, K, N), cuda_device, 0.1)
     counts = (None if counts_kind == "none" else torch.tensor(
@@ -453,6 +453,100 @@ def test_cuda_grouped_matmul_matches_plain(cuda_device, counts_kind):
     _range_close(got, ref)
     if counts is not None:
         dead = ~gm.occupancy_mask(counts, G, M)
+        assert (got[dead] == 0).all()
+
+
+# The tile loop of swiglu_tiles.cuh: 128-row tiles of two 64-row consumer
+# warpgroups, 128 columns (256 in the down pass), K in steps of 64 through
+# a ring of 4 stages.  D 200 and F 136 make every pass ragged in K (not a
+# multiple of 64) and in N (not of 128); D 1000 and F 520 also wrap the
+# ring (16 and 9 steps), and qwen2-moe's D 2048 and F 1408 wrap it 8 and 5
+# times, so that a stage refilled before its products are done can show.
+# Counts sit on either side of the consumers' and the tile's edges; C 129
+# and 192 give a second, partly filled row tile.
+TILE_DIMS = {"ragged": (200, 136), "deep": (1000, 520),
+             "served": (2048, 1408)}
+TILE_FLAT = [(128, (63, 64, 65, 127, 128)),
+             (129, (128, 129, 0, 65, 64)),
+             (192, (127, 192, 63, 0, 129)),
+             (128, (0, 0, 0, 0, 0))]                 # every group empty
+# bucketed (E, 4) counts: several sub-buckets of one expert occupied,
+# others empty; at C 192 a sub-bucket of 48 straddles the two consumers
+TILE_BUCKETED = [(64, ((16, 0, 5, 1), (0, 0, 0, 0), (0, 16, 16, 0),
+                       (3, 0, 0, 0), (16, 16, 16, 16))),
+                 (192, ((48, 0, 0, 1), (0, 0, 33, 0), (0, 0, 0, 0),
+                        (17, 48, 0, 2), (0, 0, 0, 48)))]
+TILE_KERNELS = ("grouped_matmul", "grouped_swiglu", "gather_swiglu_scatter")
+TILE_CASES = ([(k, C, c, "ragged") for k in TILE_KERNELS
+               for C, c in TILE_FLAT]
+              + [("grouped_swiglu", C, c, "ragged") for C, c in TILE_BUCKETED]
+              + [(k, 128, (128, 127, 65, 64, 0), "deep")
+                 for k in TILE_KERNELS]
+              + [("grouped_swiglu", *TILE_BUCKETED[1], "deep")]
+              + [(k, 128, (128, 127, 65, 64, 0), "served")
+                 for k in TILE_KERNELS]
+              + [("grouped_swiglu", *TILE_BUCKETED[1], "served")])
+
+
+def _tile_case(kernel, C, counts, dims, device):
+    """(args, plain args, output shape or None, dead rows or None) of one
+    tile-loop kernel: 5 experts of C rows, seeded bf16 inputs."""
+    rng = np.random.default_rng(C + 7 * len(counts))
+    E, (D, F) = len(counts), TILE_DIMS[dims]
+    cnt = torch.tensor(counts, dtype=torch.int32, device=device)
+    if kernel == "grouped_matmul":
+        args = (_bf16(rng, (E, C, D), device),
+                _bf16(rng, (E, D, F), device, 0.1), cnt)
+        return args, args, (E, C, F), ~gm.occupancy_mask(cnt, E, C)
+    ws = [torch.from_numpy(a).to(device, torch.bfloat16)
+          for a in _w(rng, E, D, F)]
+    if kernel == "grouped_swiglu":
+        args = (_bf16(rng, (E, C, D), device), *ws, cnt)
+        return args, args, (E, C, D), ~gm.occupancy_mask(cnt, E, C)
+    T = 300
+    x_ext = _bf16(rng, (T + 1, D), device)
+    x_ext[T] = 0
+    src = torch.from_numpy(rng.integers(0, T, E * C).astype(np.int32))
+    src[:40] = 7                                    # duplicate tokens add
+    # out-of-range rows: the gather clamps them, the scatter skips them,
+    # as the plain version does for a slot on the scratch row T
+    oob = torch.zeros(E * C, dtype=torch.bool)
+    oob[1::C] = True
+    src[1::C] = torch.tensor([-3, T + 1, 10 ** 6, -1, T + 5][:E],
+                             dtype=torch.int32)
+    w = torch.from_numpy(rng.random(E * C).astype(np.float32))
+    src, w, oob = (t.to(device) for t in (src, w, oob))
+    args = (x_ext, src, w, *ws, cnt)
+    plain = (x_ext, torch.where(oob, T, src), w, *ws, cnt)
+    return args, plain, None, None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,C,counts,dims", TILE_CASES)
+def test_cuda_tile_loop_geometry(cuda_device, kernel, C, counts, dims):
+    args, plain_args, out_shape, dead = _tile_case(kernel, C, counts, dims,
+                                                   cuda_device)
+    E = len(counts)
+    # NaN-poisoned output and h (as _poisoned_allocation, both held at once
+    # so that the wrapper's two allocations land in the poisoned span): a
+    # skipped zero row, or an unwritten h row read into a written one, shows
+    F = TILE_DIMS[dims][1]
+    shapes = [s for s in (out_shape, (E * C, F)
+                          if kernel != "grouped_matmul" else None) if s]
+    poison = [torch.full(s, float("nan"), dtype=torch.bfloat16,
+                         device=cuda_device) for s in shapes]
+    del poison
+    cuda = getattr(gm, kernel + "_cuda")
+    before = cuda.launches
+    got = cuda(*args).float()
+    ref = getattr(gm, kernel + "_plain")(*plain_args).float()
+    torch.cuda.synchronize()
+    assert cuda.launches == before + 1
+    if ref.abs().max() == 0:            # every group empty
+        assert (got == 0).all()
+    else:
+        _range_close(got, ref)
+    if dead is not None:
         assert (got[dead] == 0).all()
 
 
