@@ -16,17 +16,25 @@ Phases, each printed as one JSON line:
    (``batched_prefill=True``) and LL decode go through the four EP
    kernels, and their norms and attention
    (MHA, 16 heads) through the RMSNorm, flash attention and flash decoding
-   kernels; the launch counts of all seven are set to 0 just before and
-   read just after, and must be > 0;
+   kernels; ``generate`` captures the decode step in a CUDA graph and
+   replays it.  The launch counts of all seven are set to 0 just before and
+   read just after, a captured kernel's counted at capture times the
+   replays, and must be > 0;
 4. profile: the fp32 serve once more (run-to-run spread); then
+   serve_eager_vs_graph: the fp32 and fp8 serves through the eager step
+   (``cuda_graph=False``; decode tokens/s beside the graph's), and their
+   tokens decoded from one prefill through the eager step and through the
+   graph, which must agree bit for bit; then
    serve_local_per_token: ``generate`` by the reference's rule over the
    EP world (a model axis), so the prompt runs through LL decode steps, as
    the reference's ``serve --mesh local`` does: batch 4, prompt 16, 4
-   generated, the kernels' launches counted; the logits at the last prompt
+   generated, the kernels' launches counted, eager and graph tokens bit
+   for bit; the logits at the last prompt
    position against the batched HT prefill's with every capacity lifted,
-   within ``SERVE_PLAIN_TOL`` of their largest; then one prefill and one
-   decode step under torch.profiler (device busy share, the device
-   activities and host operators that take the most time);
+   within ``SERVE_PLAIN_TOL`` of their largest; then one prefill, one
+   decode step, and one decode step replayed from its CUDA graph under
+   torch.profiler (device busy share, the device activities and host
+   operators that take the most time);
 5. moe_served: HT at the served shape (1024 tokens), on the MoE inputs
    one prefill recorded: per-layer drops, and for layer 0 and the layer
    that drops most, the output at the configured capacity against the
@@ -82,21 +90,28 @@ Phases, each printed as one JSON line:
    ``generate``: batch 4, prompts of 2048 random tokens, 32 greedy tokens.
    Prefill and decode run their norms and attention through the RMSNorm,
    flash attention and flash decoding kernels, whose launch counts are set
-   to 0 just before and read just after (all > 0); TTFT, decode tokens/s,
-   peak memory.  Then serve_qwen3_plain: one prefill and one decode step
+   to 0 just before and read just after (all > 0); TTFT, decode tokens/s
+   (the step replayed from a CUDA graph), peak memory.  Then
+   serve_qwen3_eager_vs_graph: decode tokens/s through the eager step, and
+   the tokens of both paths from one prefill, bit for bit.  Then
+   serve_qwen3_plain: one prefill and one decode step
    of 4 x 256 tokens through the kernels against the same through their
    plain versions (logits within ``SERVE_PLAIN_TOL`` of their largest), and
-   serve_qwen3_profile: one prefill and one decode step under the
-   profiler;
+   serve_qwen3_profile: one prefill, one decode step and one replayed
+   decode step under the profiler;
 12. kernel (norm and attention): ``rmsnorm`` on each kind of call the path
    made (d_model and head-dim rows, prefill and decode), ``flash_attention``
    on the prefill's and at serve-fp32's prefill shape (batch 4 x 256, 16
-   MHA heads), ``decode_attention`` on the first decode step's (pos
-   2048), the last's (pos 2078) and the last's cache at pos 0, against
+   MHA heads), ``decode_attention`` on the first decode call's, the last
+   step's (pos 2078), and the last step's inputs at pos 0 and S - 1
+   (``pos`` a 0-d int32 on the card), against
    their plain versions row by row (each output row within its tolerance
    of that row's largest plain value), timed beside their bound, the plain
    version and one PyTorch library call computing the same function
-   (``library_ms``); then paged_decode: the last decode step's query and
+   (``library_ms``, and its device time); then decode_graph: the
+   ``decode_attention`` kernel captured once in a CUDA graph and replayed
+   at pos 0, the last step's and S - 1, against the plain version; then
+   paged_decode: the last decode step's query and
    last layer's cache copied into block pools whose tables a
    ``KVBlockPool`` makes (ragged positions 2078, 2047, 1031, 17; 16-token
    blocks; unread rows NaN), through ``ops.decode_attention_paged``
@@ -128,6 +143,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 FP32_FLOP_PER_S = 67e12
+# caches a cold decode_attention timing cycles through (decode_cold)
+COLD_CACHES = 8
 
 KERNEL_INFO = {  # name: (source, the TPU kernel it replaces)
     "grouped_swiglu": ("src/repro_torch/csrc/grouped_swiglu.cu",
@@ -290,23 +307,30 @@ def cuda_ms(fn, n: int = 20, warmup: int = 3) -> float:
     return t[n // 2]
 
 
-def device_ms(fn, n: int = 10) -> float:
+def device_ms(fn, n: int = 10, tries: int = 3):
     """Device time of one ``fn()``: the summed time of the device
     activities of ``n`` calls under torch.profiler, over ``n``.  Where the
     host takes longer to issue a call than the card to run it, CUDA events
-    around the call (``cuda_ms``) read the host; this reads the card."""
+    around the call (``cuda_ms``) read the host; this reads the card.  A
+    trace that holds no device activity (the profiler lost its records) is
+    taken again, up to ``tries`` times, then reported as None: not
+    measured."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3 / n
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA)
+        if total > 0:
+            return total / 1e3 / n
+    return None
 
 
 def bound(name: str, args, kwargs) -> tuple[float, str, dict]:
@@ -382,8 +406,9 @@ def bound(name: str, args, kwargs) -> tuple[float, str, dict]:
 
 
 def decode_live(args, kwargs) -> int:
-    """Cache positions a decode_attention call attends: start..pos."""
-    k, pos = args[1], args[3]
+    """Cache positions a decode_attention call attends: start..pos (an int
+    or a 0-d tensor, read here on the host)."""
+    k, pos = args[1], int(args[3])
     return min(max(pos - kwargs.get("start", 0) + 1, 0), k.shape[1])
 
 
@@ -520,29 +545,67 @@ def check_case(name, args, kwargs) -> dict:
     bound_ms, bound_by, work = bound(name, args, kwargs)
     ms = cuda_ms(lambda: cuda(*args, **kwargs))
     lib = library_call(name, args, kwargs)
-    return {"shapes": [list(a.shape) for a in args if hasattr(a, "shape")],
+    case = {"shapes": [list(a.shape) for a in args if hasattr(a, "shape")],
             "max_abs_err": err, "max_rel_err": rel, "ms": ms,
             "device_ms": device_ms(lambda: cuda(*args, **kwargs)),
             "plain_ms": cuda_ms(lambda: plain(*args, **kwargs)),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "bound_share": bound_ms / ms,
             "library_ms": cuda_ms(lib) if lib is not None else None,
+            "library_device_ms": device_ms(lib) if lib is not None else None,
             "work": work}
+    if name == "decode_attention":
+        case.update(decode_cold(args, kwargs))
+    return case
 
 
-def check_kernel(name, rec, launches, extra=()) -> dict:
+def decode_cold(args, kwargs) -> dict:
+    """decode_attention and SDPA on the device, cold: each call on the next
+    of ``COLD_CACHES`` caches of the call's shape (seeded N(0, 1)), whose
+    sum at qwen3's shape (272 MB) does not fit the card's 50 MB L2, as a
+    decode step's 36 layers do not.  Repeated calls on one cache, as
+    ``device_ms`` makes them, find part of it in L2."""
+    import torch
+
+    from repro_torch.kernels import ops
+    cuda = ops.KERNELS["decode_attention"][0]
+    q, k, v, pos = args
+    g = torch.Generator(device=q.device).manual_seed(3)
+    caches = [tuple(torch.randn(k.shape, generator=g, device=q.device,
+                                dtype=k.dtype) for _ in range(2))
+              for _ in range(COLD_CACHES)]
+    libs = [library_call("decode_attention", (q, kk, vv, pos), kwargs)
+            for kk, vv in caches]
+    kernel = device_ms(lambda: [cuda(q, kk, vv, pos, **kwargs)
+                                for kk, vv in caches], n=5)
+    library = (device_ms(lambda: [f() for f in libs], n=5)
+               if libs[0] is not None else None)
+    return {"cold_device_ms": kernel and kernel / COLD_CACHES,
+            "library_cold_device_ms": library and library / COLD_CACHES}
+
+
+def check_kernel(name, rec, launches, extra=(), lead=0) -> dict:
     """Every kind of call the main path made to kernel ``name`` (and the
-    ``extra`` (args, kwargs) cases); the first kind's numbers stand for the
-    kernel in the kernels line."""
+    ``extra`` (args, kwargs) cases).  Case ``lead`` stands for the kernel
+    in the kernels line, with its device times (warm, and for
+    decode_attention cold) beside them: an index into the recorded cases,
+    then the extra ones (by default the first recorded call), or a key on
+    a recorded case's arguments, whose largest case leads."""
     if not rec.cases:
         raise RuntimeError(f"{name}: the main path never called it")
-    cases = [check_case(name, a, kw)
-             for a, kw in [*rec.cases.values(), *extra]]
+    recorded = list(rec.cases.values())
+    cases = [check_case(name, a, kw) for a, kw in [*recorded, *extra]]
+    if callable(lead):
+        lead = max(range(len(recorded)), key=lambda i: lead(recorded[i][0]))
     src, replaces = KERNEL_INFO[name]
     return {"name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[name],
-            **{k: cases[0][k] for k in ("ms", "plain_ms", "bound_ms",
-                                        "bound_by", "library_ms")},
+            **{k: cases[lead][k] for k in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms",
+                                           "device_ms", "library_device_ms",
+                                           "cold_device_ms",
+                                           "library_cold_device_ms")
+               if k in cases[lead]},
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "max_rel_err": max(c["max_rel_err"] for c in cases),
             "tolerance": KERNEL_TOL[name], "cases": cases}
@@ -551,7 +614,7 @@ def check_kernel(name, rec, launches, extra=()) -> dict:
 # device activities by kind, from their names: (kind, name fragments)
 DEVICE_KINDS = (("scan kernels", ("scan_fwd_kernel", "scan_bwd_kernel")),
                 ("attention and norm kernels", (
-                    "flash_fwd_kernel", "decode_split_kernel",
+                    "flash_fwd_kernel", "decode_kernel", "paged_split_kernel",
                     "decode_merge_kernel", "rmsnorm_kernel")),
                 ("EP kernels", ("swiglu_tiles", "gather_quantize",
                                 "dequantize_kernel")),
@@ -622,19 +685,26 @@ def profile_step(what: str, step) -> dict:
 
 
 def profile_serve(cfg, params, prompts, dist) -> list:
-    """Profiles of one batched HT prefill and one LL decode step."""
+    """Profiles of one batched HT prefill, one LL decode step, and one LL
+    decode step replayed from its CUDA graph."""
     import torch
 
+    from repro_torch.launch.serve import capture_decode_step
     from repro_torch.models import model_zoo as Z
     B, S = prompts.shape
     cache = Z.init_cache(cfg, B, S + 3, dtype=Z.compute_dtype(cfg),
                          device=prompts.device)
+    with torch.inference_mode():
+        replay, _ = capture_decode_step(cfg, params, cache, prompts[:, :1],
+                                        dist=dist)
     out = [profile_step("one HT prefill (batch 4 x 256)", lambda: Z.prefill(
         cfg, params, cache, prompts, dist=dist))]
     tok = prompts[:, -1:]
     out.append(profile_step("one LL decode step (batch 4)",
                             lambda: Z.decode_step(cfg, params, cache, tok, S,
                                                   dist=dist)))
+    out.append(profile_step("one LL decode step replayed from its CUDA graph "
+                            "(batch 4)", lambda: replay(tok, S)))
     return out
 
 
@@ -840,6 +910,7 @@ def serve_local_per_token(cfg, params, prompts, dist) -> dict:
     cudas = {n: c for n, (c, _) in ops.KERNELS.items()}
     res, launches = counted(cudas, lambda: generate(cfg, params, short, n_gen,
                                                     dist=dist))
+    launches = graph_launches(launches, res)
     for n in ("grouped_swiglu", "rmsnorm", "decode_attention"):
         if launches[n] <= 0:
             raise AssertionError(f"kernel {n} was not launched on the "
@@ -852,6 +923,8 @@ def serve_local_per_token(cfg, params, prompts, dist) -> dict:
         raise AssertionError("serve_local_per_token: wrong shape or "
                              "non-finite logits")
     step, batched, aux, aux_b = last_prefill_logits(cfg, params, short, dist)
+    both = eager_vs_graph(cfg, params, short, n_gen, dist,
+                          batched_prefill=False)
     return {"phase": "serve_local_per_token", "model": "qwen2_moe_a2_7b",
             "width": "full", "layers": cfg.n_layers, "ep_world": "model=4",
             "batch": B, "prompt": S, "generated": n_gen,
@@ -859,6 +932,8 @@ def serve_local_per_token(cfg, params, prompts, dist) -> dict:
             "decode_tokens_per_s": res["decode_tokens_per_s"],
             "ttft_s": res["ttft_s"], "prefill_dropped": res["prefill_dropped"],
             "decode_dropped": res["decode_dropped"], "launches": launches,
+            "cuda_graph": res["cuda_graph"], "capture_s": res["capture_s"],
+            "graph_replays": res["graph_replays"], "eager_vs_graph": both,
             "first_tokens": res["tokens"][0].tolist(),
             "bf16_last_prefill_rel_err": rel_err(step, batched),
             "bf16_argmax_agree": float((step.argmax(-1) == batched.argmax(-1))
@@ -925,6 +1000,155 @@ def counted(cudas: dict, fn):
         c.launches = 0
     out = fn()
     return out, {n: c.launches for n, c in cudas.items()}
+
+
+def record_last_decode(rec, plain) -> list:
+    """Stands ``rec``, decode_attention's Recorder, behind a hook that also
+    keeps the arguments of the last call, not copied: a list that holds
+    ``((q, k, v, pos), kwargs)``.  Under a captured decode step the last
+    call Python sees is the capture, whose arguments are the graph's
+    buffers: after the last replay they hold the last step's query, the
+    last layer's cache and the position.  Nothing writes the cache rows
+    that call read after it."""
+    from repro_torch.kernels import ops
+    last = []
+
+    def hook(*args, **kwargs):
+        last[:] = [(args, kwargs)]
+        return rec(*args, **kwargs)
+    ops.KERNELS["decode_attention"] = (hook, plain)
+    return last
+
+
+def prefill_ln1(B: int, S: int, d_model: int):
+    """A ``check_kernel`` lead for rmsnorm: the prefill's (B, S, d_model)
+    norms (ln1 first) over the decode step's, which the capture made
+    first, and over the (B, S, heads, 128) q/k norms."""
+    return lambda a: (tuple(a[0].shape) == (B, S, d_model)) * a[0].numel()
+
+
+def decode_cases(last, first: int) -> tuple:
+    """decode_attention's cases beyond its recorded ones (the capture's
+    warm-up at pos 0, on a cache the prefill had not filled): the last
+    decode call's inputs at its position, at ``first`` (the first decode
+    step's position, the prompt's length: the prefill filled the rows
+    before it), at 0 and at S - 1, each position a new 0-d int32 on the
+    card."""
+    import torch
+    (q, k, v, pos), kw = last[0]
+    return tuple(((q, k, v, torch.full((), p, dtype=torch.int32,
+                                       device=q.device)), kw)
+                 for p in (int(pos), first, 0, k.shape[1] - 1))
+
+
+def graph_launches(launches: dict, *results) -> dict:
+    """The launches of a counted window that ran ``generate`` (``results``:
+    its returns): each wrapper counts its launch once, where Python calls
+    it, so a captured decode step's kernels were counted once at capture;
+    every replay launched them again."""
+    out = dict(launches)
+    for r in results:
+        for n, k in (r.get("captured_launches") or {}).items():
+            if n in out:
+                out[n] += k * (r["graph_replays"] - 1)
+    return out
+
+
+def eager_vs_graph(cfg, params, prompts, n_gen, dist=None,
+                   batched_prefill: bool = True) -> dict:
+    """The greedy tokens of ``prompts`` through the eager decode step and
+    through its captured graph (``serve.capture_decode_step``), which must
+    agree bit for bit.  With a batched prefill both decode from one
+    prefill, each on its own copy of the cache (the HT prefill's fp32
+    atomics add in any order, so two prefills may differ in their last
+    bits); without, each path runs the prompt through its own steps, as
+    ``generate`` does under a model axis."""
+    import torch
+
+    from repro_torch.launch.serve import capture_decode_step
+    from repro_torch.models import model_zoo as Z
+
+    B, S = prompts.shape
+    max_len = S + n_gen
+    dt = Z.compute_dtype(cfg)
+    with torch.inference_mode():
+        cache_e, cache_g = (Z.init_cache(cfg, B, max_len, dtype=dt,
+                                         device=prompts.device)
+                            for _ in range(2))
+        graph_step, captured = capture_decode_step(cfg, params, cache_g,
+                                                   prompts[:, :1], dist=dist)
+
+        def eager_step(tok, t):
+            logits, _, aux = Z.decode_step(cfg, params, cache_e, tok, t,
+                                           dist=dist)
+            return logits, aux
+        if batched_prefill:
+            logits, _, _ = Z.prefill(cfg, params, cache_e, prompts,
+                                     dist=dist, moe_mode="ht")
+            for ce, cg in zip(cache_e, cache_g):
+                cg["k"].copy_(ce["k"])
+                cg["v"].copy_(ce["v"])
+            first = torch.argmax(logits[:, :cfg.vocab_size], -1)[:, None]
+        tokens, last = {}, {}
+        for name, step in (("eager", eager_step), ("graph", graph_step)):
+            if batched_prefill:
+                tok, out, t_start = first, [first], S
+            else:
+                tok, out, t_start = prompts[:, :1], [], S - 1
+                for t in range(S - 1):
+                    step(tok, t)
+                    tok = prompts[:, t + 1:t + 2]
+            for t in range(t_start, max_len - 1):
+                logits, _ = step(tok, t)
+                tok = torch.argmax(logits[:, :cfg.vocab_size], -1)[:, None]
+                out.append(tok)
+            tokens[name], last[name] = torch.cat(out, 1), logits
+    torch.cuda.synchronize()
+    line = {"tokens": list(tokens["eager"].shape),
+            "batched_prefill": batched_prefill,
+            "replays": graph_step.replays,
+            "captured_launches": {n: k for n, k in captured.items() if k},
+            "bit_identical": torch.equal(tokens["eager"], tokens["graph"]),
+            "last_logits_bit_identical": torch.equal(last["eager"],
+                                                     last["graph"]),
+            "first_tokens": tokens["graph"][0].tolist()}
+    if not line["bit_identical"]:
+        raise AssertionError(f"eager and graph decode differ: "
+                             f"{tokens['eager'][0].tolist()} against "
+                             f"{tokens['graph'][0].tolist()}")
+    return line
+
+
+def decode_graph_check(q, k, v, positions) -> dict:
+    """``decode_attention_cuda`` captured once in a CUDA graph with ``pos``
+    in a static buffer and replayed at each of ``positions``, each replay's
+    output against the plain version at that position, row by row within
+    ``KERNEL_TOL``.  A kernel that left its arrival counters set would not
+    merge on the second replay."""
+    import torch
+
+    from repro_torch.kernels import norm_attention as na
+    pos_s = torch.zeros((), dtype=torch.int32, device=q.device)
+    na.decode_attention_cuda(q, k, v, pos_s)          # first launch
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out_s = na.decode_attention_cuda(q, k, v, pos_s)
+    tol = KERNEL_TOL["decode_attention"]
+    errs = []
+    for p in positions:
+        pos_s.fill_(p)
+        graph.replay()
+        torch.cuda.synchronize()
+        ref = na.decode_attention_plain(q, k, v, p).float()
+        e_row = (out_s.float() - ref).abs().amax(-1)
+        rel = float((e_row / ref.abs().amax(-1).clamp_min(1e-30)).max())
+        errs.append(rel)
+        if not torch.isfinite(out_s.float()).all() or not rel <= tol:
+            raise AssertionError(f"decode_attention replayed at pos {p}: "
+                                 f"row rel err {rel} > {tol}")
+    return {"positions": list(positions), "max_row_rel_err": errs,
+            "tol": tol}
 
 
 def recording(names):
@@ -1372,7 +1596,8 @@ def paged_decode(q, k, v) -> tuple[dict, dict]:
     same = (q, *paged_pools(k, v, (pos_all,) * len(PAGED_POS),
                             PAGED_BLOCK)[:4])
     got = na.decode_attention_paged_cuda(*same)
-    cont = na.decode_attention_cuda(q, k, v, pos_all)
+    cont = na.decode_attention_cuda(q, k, v, torch.full(
+        (), pos_all, dtype=torch.int32, device=q.device))
     torch.cuda.synchronize()
     e_row = (got.float() - cont.float()).abs().amax(-1)
     rel = float((e_row / cont.float().abs().amax(-1).clamp_min(1e-30)).max())
@@ -1399,7 +1624,7 @@ def serve_qwen3(dev) -> list:
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
-    from repro_torch.launch.serve import generate
+    from repro_torch.launch.serve import capture_decode_step, generate
     from repro_torch.models import model_zoo as Z
     from repro_torch.optim.adamw import tree_leaves
 
@@ -1423,22 +1648,16 @@ def serve_qwen3(dev) -> list:
     recorders = {n: Recorder(c) for n, (c, _) in originals.items()}
     for n, (_, p) in originals.items():
         ops.KERNELS[n] = (recorders[n], p)
-    # decode_attention also on the last decode step's inputs, not copied:
-    # nothing writes the cache rows it reads after it
-    last_decode = []
-
-    def decode_last(*args, **kwargs):
-        last_decode[:] = [(args, kwargs)]
-        return recorders["decode_attention"](*args, **kwargs)
-    ops.KERNELS["decode_attention"] = (decode_last,
-                                       originals["decode_attention"][1])
+    last_decode = record_last_decode(recorders["decode_attention"],
+                                     originals["decode_attention"][1])
     cudas = {n: c for n, (c, _) in originals.items()}
     for c in cudas.values():
         c.launches = 0
     torch.cuda.reset_peak_memory_stats()
     try:
         res = generate(cfg, params, prompts, N_GEN)
-        launches = {n: c.launches for n, c in cudas.items()}
+        launches = graph_launches({n: c.launches for n, c in cudas.items()},
+                                  res)
     finally:
         ops.KERNELS.update(originals)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1459,8 +1678,18 @@ def serve_qwen3(dev) -> list:
           "ttft_s": res["ttft_s"], "total_s": res["total_s"],
           "tokens_per_s": res["tokens_per_s"],
           "decode_tokens_per_s": res["decode_tokens_per_s"],
+          "cuda_graph": res["cuda_graph"], "capture_s": res["capture_s"],
+          "graph_replays": res["graph_replays"],
           "launches": launches, "first_tokens": res["tokens"][0].tolist(),
           "init_params_s": init_s, "peak_mem_gb": peak_gb})
+    eager = generate(cfg, params, prompts, N_GEN, cuda_graph=False)
+    emit({"phase": "serve_qwen3_eager_vs_graph",
+          "eager_decode_tokens_per_s": eager["decode_tokens_per_s"],
+          "eager_ttft_s": eager["ttft_s"],
+          "graph_decode_tokens_per_s": res["decode_tokens_per_s"],
+          "generate_tokens_equal": torch.equal(eager["tokens"],
+                                               res["tokens"]),
+          **eager_vs_graph(cfg, params, prompts, N_GEN)})
 
     # the same path through the plain versions, on 4 x 256 tokens: a
     # prefill and one decode step of the token the kernels' run chose
@@ -1495,6 +1724,8 @@ def serve_qwen3(dev) -> list:
 
     cache = Z.init_cache(cfg, B, S + 1, dtype=Z.compute_dtype(cfg),
                          device=dev)
+    with torch.inference_mode():
+        replay, _ = capture_decode_step(cfg, params, cache, prompts[:, :1])
 
     def prefill():
         with torch.inference_mode():
@@ -1504,28 +1735,36 @@ def serve_qwen3(dev) -> list:
         with torch.inference_mode():
             Z.decode_step(cfg, params, cache, prompts[:, -1:], S)
     for what, step in ((f"one prefill (batch {B} x {S})", prefill),
-                       ("one decode step (batch 4, pos 2048)", decode)):
+                       ("one decode step (batch 4, pos 2048)", decode),
+                       ("one decode step replayed from its CUDA graph "
+                        "(batch 4, pos 2048)",
+                        lambda: replay(prompts[:, -1:], S))):
         prof = profile_step(what, step)
         prof["phase"] = "serve_qwen3_profile"
         emit(prof)
-    del cache
+    del cache, replay
 
     kernels = []
     with torch.inference_mode():
         for n in NORM_ATTN_KERNELS:
-            extra = ()
-            if n == "decode_attention":      # the last step, then pos 0
-                (q, k, v, pos), kw = last_decode[0]
-                extra = (((q, k, v, pos), kw), ((q, k, v, 0), kw))
+            extra, lead = (), 0
+            if n == "decode_attention":  # the last step (leading), S, 0, S-1
+                extra = decode_cases(last_decode, S)
+                lead = len(recorders[n].cases)
+            if n == "rmsnorm":               # the prefill's ln1 leads
+                lead = prefill_ln1(B, S, cfg.d_model)
             if n == "flash_attention":       # and serve-fp32's prefill shape
                 g = torch.Generator(device=dev).manual_seed(2)
                 extra = ((tuple(torch.randn(
                     (4, 256, 16, 128), generator=g, device=dev,
                     dtype=torch.bfloat16) for _ in range(3)),
                     {"causal": True}),)
-            kernels.append(check_kernel(n, recorders[n], launches, extra))
+            kernels.append(check_kernel(n, recorders[n], launches, extra,
+                                        lead))
             emit({"phase": "kernel", **kernels[-1]})
-        (q, k, v, _), _ = last_decode[0]
+        (q, k, v, pos), _ = last_decode[0]
+        emit({"phase": "decode_graph", "path": "qwen3_4b",
+              **decode_graph_check(q, k, v, (0, int(pos), k.shape[1] - 1))})
         line, paged = paged_decode(q, k, v)
         emit(line)
         emit({"phase": "kernel", **paged})
@@ -1618,6 +1857,8 @@ def serve_phases(dev) -> list:
     recorders = {n: Recorder(c) for n, (c, _) in originals.items()}
     for n, (c, p) in originals.items():
         ops.KERNELS[n] = (recorders[n], p)
+    last_decode = record_last_decode(recorders["decode_attention"],
+                                     originals["decode_attention"][1])
     cudas = {n: c for n, (c, _) in originals.items()}
     for c in cudas.values():
         c.launches = 0
@@ -1625,10 +1866,12 @@ def serve_phases(dev) -> list:
     try:
         res = generate(cfg, params, prompts, N_GEN, dist=dist,
                        batched_prefill=True)
-        after_fp32 = {n: c.launches for n, c in cudas.items()}
+        after_fp32 = graph_launches({n: c.launches for n, c in cudas.items()},
+                                    res)
         res8 = generate(cfg_fp8, params, prompts, N_GEN_FP8, dist=dist,
                         batched_prefill=True)
-        launches = {n: c.launches for n, c in cudas.items()}
+        launches = graph_launches({n: c.launches for n, c in cudas.items()},
+                                  res, res8)
     finally:
         ops.KERNELS.update(originals)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1655,6 +1898,8 @@ def serve_phases(dev) -> list:
               "prefill_dropped": r["prefill_dropped"],
               "prefill_dropped_per_layer": r["prefill_dropped_per_layer"],
               "decode_dropped": r["decode_dropped"],
+              "cuda_graph": r["cuda_graph"], "capture_s": r["capture_s"],
+              "graph_replays": r["graph_replays"],
               "launches": counts, "first_tokens": r["tokens"][0].tolist(),
               "init_params_s": init_s, "peak_mem_gb": peak_gb})
 
@@ -1665,7 +1910,17 @@ def serve_phases(dev) -> list:
     emit({"phase": "serve_repeat", "wire": "fp32",
           "tokens_per_s": rep["tokens_per_s"],
           "decode_tokens_per_s": rep["decode_tokens_per_s"],
-          "ttft_s": rep["ttft_s"]})
+          "ttft_s": rep["ttft_s"], "capture_s": rep["capture_s"]})
+    # the eager step beside the captured one: tokens/s, and the tokens
+    for c, wire, n_gen in ((cfg, "fp32", N_GEN), (cfg_fp8, "fp8", N_GEN_FP8)):
+        eager = generate(c, params, prompts, n_gen, dist=dist,
+                         batched_prefill=True, cuda_graph=False)
+        emit({"phase": "serve_eager_vs_graph", "wire": wire,
+              "eager_decode_tokens_per_s": eager["decode_tokens_per_s"],
+              "eager_ttft_s": eager["ttft_s"],
+              "graph_decode_tokens_per_s": (res if wire == "fp32" else res8)[
+                  "decode_tokens_per_s"],
+              **eager_vs_graph(c, params, prompts, n_gen, dist)})
     emit(serve_local_per_token(cfg, params, prompts, dist))
     for prof in profile_serve(cfg, params, prompts, dist):
         emit(prof)
@@ -1679,7 +1934,10 @@ def serve_phases(dev) -> list:
     del x0
 
     # ------------------------------------------- EP kernels vs plain -----
-    kernels = [check_kernel(n, recorders[n], launches) for n in EP_KERNELS]
+    # the prefill's HT call leads where the path makes one (the largest
+    # first argument); the capture's LL calls came first
+    kernels = [check_kernel(n, recorders[n], launches,
+                            lead=lambda a: a[0].numel()) for n in EP_KERNELS]
     kernels += new_kernels
     for k in kernels:
         emit({"phase": "kernel", **k})
@@ -1687,8 +1945,15 @@ def serve_phases(dev) -> list:
     # line carries their entries from the qwen3 path
     with torch.inference_mode():
         for n in NORM_ATTN_KERNELS:
+            extra, lead = (), 0
+            if n == "decode_attention":   # the last step leads
+                extra = decode_cases(last_decode, S)
+                lead = len(recorders[n].cases)
             emit({"phase": "kernel", "path": "qwen2_moe_a2_7b",
-                  **check_kernel(n, recorders[n], launches)})
+                  **check_kernel(n, recorders[n], launches, extra, lead)})
+        (q, k, v, pos), _ = last_decode[0]
+        emit({"phase": "decode_graph", "path": "qwen2_moe_a2_7b",
+              **decode_graph_check(q, k, v, (0, int(pos), k.shape[1] - 1))})
 
     # ---------------------------------------------- MoE layer vs oracle --
     p = {k: v for k, v in params["blocks"][0]["moe"].items()

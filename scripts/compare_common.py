@@ -1,13 +1,15 @@
 """What the kernel comparison scripts (``flash_compare.py``,
-``tiles_compare.py``) share: building an earlier version of a kernel's
-sources out of tree and binding its C entry points, ptxas's and
-cuobjdump's report on the current sources, and timing versions in turns.
+``tiles_compare.py``, ``decode_compare.py``) share: building an earlier
+version of a kernel's sources out of tree and binding its C entry points,
+ptxas's and cuobjdump's report on the current sources, and timing versions
+in turns.
 
 An earlier source is compiled with the package's nvcc flags into a
 temporary directory outside the repository and loaded through ctypes under
 the same C entry points (``kernels/build.py::SIGNATURES``), so the
 package's own wrappers can launch it: :func:`using_library` swaps it in
-for the package's library during a call.
+for the package's library during a call.  An entry point whose signature
+has changed since is bound with its own and launched by the script.
 """
 from __future__ import annotations
 
@@ -38,9 +40,11 @@ def device_line() -> dict:
 
 
 def load_other(sources: list[Path], tmp: Path, name: str,
-               entries: list[str]) -> ctypes.CDLL:
+               entries: list[str], signatures: dict = None) -> ctypes.CDLL:
     """Compile ``sources`` (headers found beside the first) into one shared
-    library under ``tmp`` and bind ``entries``."""
+    library under ``tmp`` and bind ``entries``, with their argument types
+    from ``signatures`` where it names them (an entry point whose C
+    signature has since changed), else from the package's."""
     from repro_torch.kernels import build
     so = tmp / f"lib{name}.so"
     cmd = [build._nvcc(), *build.NVCC_FLAGS, "-shared", "-I",
@@ -51,7 +55,7 @@ def load_other(sources: list[Path], tmp: Path, name: str,
     lib = ctypes.CDLL(str(so))
     for entry in entries:
         fn = getattr(lib, entry)
-        fn.argtypes = build.SIGNATURES[entry]
+        fn.argtypes = (signatures or {}).get(entry, build.SIGNATURES[entry])
         fn.restype = ctypes.c_int
     return lib
 

@@ -164,7 +164,8 @@ def main() -> int:
                 lambda: call(lib)) for kn, lib in libs.items()})
             line.update(bound_ms=bound_ms, bound_by=bound_by, work=work)
             for kn in libs:
-                line[f"{kn}_bound_share"] = bound_ms / min(dev[kn])
+                line[f"{kn}_bound_share"] = bound_ms / min(
+                    t for t in dev[kn] if t)
             lib_call = cs.library_call(name, a, {})
             if lib_call is not None:
                 line.update(library="torch.bmm (whole buffer)",

@@ -205,16 +205,16 @@ def dispatch_combine_ll(spec: EPSpec, x: Tensor, top_idx: Tensor,
         R, P, eps * C, D)
     back = _all_to_all(spec, back, spec.flat_axis()).reshape(R, E * C, D)
 
-    # combine: each kept choice gathers its slot's row and adds, weighted,
-    # into its token in fp32 (dropped choices add 0 to the scratch row)
+    # combine: each kept choice gathers its slot's row, weighted in fp32,
+    # and a token sums its K choices in one fixed order (dropped choices
+    # add 0).  No atomics: eager steps and a captured step's replays give
+    # the same bits, where index_add_ on the card adds in any order
     w_flat = torch.where(keep, top_w.reshape(R, T * K).to(torch.float32), 0.0)
     sel = torch.where(keep, flat_e * C + rank, 0).to(torch.int64)
     contrib = torch.gather(back, 1, sel[..., None].expand(R, T * K, D))
-    contrib = contrib.to(torch.float32) * w_flat[..., None]
-    tgt = _shared_scratch_rows(torch.where(keep, rows, T), T)
-    out = torch.zeros((R * T + 1, D), dtype=torch.float32, device=dev)
-    out.index_add_(0, tgt.reshape(-1), contrib.reshape(-1, D))
-    out = out[:-1].reshape(R, T, D)
+    contrib = torch.where(keep[..., None],
+                          contrib.to(torch.float32) * w_flat[..., None], 0.0)
+    out = contrib.reshape(R, T, K, D).sum(2)
 
     dropped = pl.n_dropped / torch.clamp(valid.sum(1), min=1)
     occupancy = cnt.sum(1) / (E * C)

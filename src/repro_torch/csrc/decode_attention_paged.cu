@@ -16,8 +16,9 @@
 // Bound on an H100: each live K and V row is read once, 256 bytes a row
 // each at D = 128: at qwen3-4b's decode shape (B 4, 8 kv heads, ragged
 // pos 2078 / 2047 / 1031 / 17) 21.2 MB, 6.3 us at 3.35 TB/s, so latency
-// counts as much as bandwidth.  Design: the contiguous kernel's
-// (decode_attention.cu), through the tables.  pos lives on the device, so
+// counts as much as bandwidth.  Design: 8-byte loads a lane, 256-position
+// chunks and a second launch to merge them (decode_attention.cu has since
+// moved to 16-byte loads and one launch).  pos lives on the device, so
 // the host cannot launch only the live chunks: one block per (chunk of
 // table columns, kv head, sequence) always launches, reads pos[b] and its
 // table entries into shared memory, and returns at once when nothing of
@@ -27,12 +28,88 @@
 // serves all REP query heads of its kv head (each row read once); the
 // running max, sum and output stay in fp32 registers, P rounds to bf16
 // before it weights V while the sum takes it in fp32, and 1/sqrt(D)
-// scales the fp32 dot product (:112-113).  The shared merge kernel of
-// decode_common.cuh combines the chunks; a chunk with nothing live
-// contributes m = -inf, l = 0.
+// scales the fp32 dot product (:112-113).  A second launch,
+// decode_merge_kernel, combines the chunks' (max, sum, output) by
+// log-sum-exp and divides; a chunk with nothing live contributes m = -inf,
+// l = 0, o = 0 and so nothing, and a head with nothing live gets 0.
 #include "decode_common.cuh"
 
 namespace {
+
+constexpr int kWarps = kThreads / 32;
+constexpr int kKB = 8;       // positions a warp has in flight
+
+__device__ __forceinline__ float4 to_float4(uint2 u) {
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Merges the block's warps' running (max, sum, output) of its REP query
+// heads and writes them as chunk `split` of heads bh0 .. bh0 + REP - 1
+// (part_o (.., ns, kD), part_m / part_l (.., ns)); every thread calls it.
+template <int REP>
+__device__ __forceinline__ void store_chunk(const float (&m)[REP], const float (&l)[REP],
+                                            const float4 (&o)[REP], float* part_o,
+                                            float* part_m, float* part_l, long long bh0,
+                                            int ns, int split) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  __shared__ float sm_m[kWarps][REP], sm_l[kWarps][REP];
+  __shared__ __align__(16) float sm_o[kWarps][REP][kD];
+#pragma unroll
+  for (int r = 0; r < REP; ++r) {
+    if (lane == 0) {
+      sm_m[warp][r] = m[r];
+      sm_l[warp][r] = l[r];
+    }
+    *reinterpret_cast<float4*>(&sm_o[warp][r][4 * lane]) = o[r];
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < REP * kD; idx += kThreads) {
+    const int r = idx / kD, d = idx % kD;
+    float M = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, sm_m[w][r]);
+    float L = 0.f, O = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float c = (sm_m[w][r] == -INFINITY) ? 0.f : exp2f(sm_m[w][r] - M);
+      L += sm_l[w][r] * c;
+      O += sm_o[w][r][d] * c;
+    }
+    const long long bh = bh0 + r;
+    part_o[(bh * ns + split) * kD + d] = O;
+    if (d == 0) {
+      part_m[bh * ns + split] = M;
+      part_l[bh * ns + split] = L;
+    }
+  }
+}
+
+// one block a (head, sequence), one thread a feature
+__global__ void __launch_bounds__(kD)
+    decode_merge_kernel(const float* __restrict__ part_o, const float* __restrict__ part_m,
+                        const float* __restrict__ part_l, bf16* __restrict__ out, int H, int ns) {
+  const long long bh = (long long)blockIdx.y * H + blockIdx.x;
+  const int d = threadIdx.x;
+  float M = -INFINITY;
+  for (int s = 0; s < ns; ++s) M = fmaxf(M, part_m[bh * ns + s]);
+  float L = 0.f, O = 0.f;
+  for (int s = 0; s < ns; ++s) {
+    const float pm = part_m[bh * ns + s];
+    const float c = (pm == -INFINITY) ? 0.f : exp2f(pm - M);
+    L += part_l[bh * ns + s] * c;
+    O += part_o[(bh * ns + s) * kD + d] * c;
+  }
+  if (L == 0.f) L = 1.f;
+  out[bh * kD + d] = __float2bfloat16_rn(O / L);
+}
 
 constexpr int kMaxCols = 256;  // table columns a block takes, at most
 

@@ -24,6 +24,7 @@ here has a backward kernel: the serving path calls these under
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -34,7 +35,8 @@ from repro_torch.kernels.grouped_matmul import _check_cuda
 Tensor = torch.Tensor
 
 HEAD_DIM = 128       # the head dim the attention kernels are written for
-DECODE_CHUNK = 256   # cache positions a decode block takes
+DECODE_STEP = 32     # positions a decode_attention block takes a step
+PAGED_CHUNK = 256    # cache positions a decode_attention_paged block takes
 DECODE_REPS = (1, 2, 4, 8)   # query heads a kv head may serve (H / Hkv)
 
 
@@ -170,12 +172,13 @@ flash_attention_cuda.launches = 0
 
 
 # ========================================================== flash decoding ==
-def decode_attention_plain(q: Tensor, k: Tensor, v: Tensor, pos: int, *,
+def decode_attention_plain(q: Tensor, k: Tensor, v: Tensor, pos, *,
                            start: int = 0) -> Tensor:
     """q (B, H, D) one query per sequence; k/v (B, S, Hkv, D) a cache slice
     holding global positions [start, start + S); positions start..pos are
-    live.  GQA as :func:`flash_attention_plain`.  Returns (B, H, D) in
-    q.dtype, 0 for a sequence with no live position."""
+    live, ``pos`` an int or a 0-d integer tensor.  GQA as
+    :func:`flash_attention_plain`.  Returns (B, H, D) in q.dtype, 0 for a
+    sequence with no live position."""
     B, H, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     qg = q.reshape(B, Hkv, H // Hkv, D).to(torch.float32)
@@ -187,33 +190,100 @@ def decode_attention_plain(q: Tensor, k: Tensor, v: Tensor, pos: int, *,
     return _normalise(o, l).reshape(B, H, D).to(q.dtype)
 
 
-def decode_attention_cuda(q: Tensor, k: Tensor, v: Tensor, pos: int, *,
+@functools.lru_cache(maxsize=None)
+def decode_chunk(B: int, S: int, Hkv: int, sms: int, per_sm: int) -> int:
+    """Cache positions a ``decode_attention`` block takes, in whole steps
+    of ``DECODE_STEP``.  Of the cuts whose ``B * Hkv * ceil(S / chunk)``
+    blocks fit the card's resident slots (``sms`` SMs of ``per_sm``
+    blocks) at once, and, where the shapes allow it, give every SM two
+    blocks (each keeps its next two steps in flight), the one whose
+    busiest SM streams the fewest positions, ``ceil(blocks / sms) *
+    chunk``; ties go to the smaller chunk.  The shapes and the card alone
+    fix it, never ``pos``."""
+    pairs = max(1, B * Hkv)
+    cuts = []
+    for ns in range(1, max(1, sms * per_sm // pairs) + 1):
+        per = -(-S // ns)                      # ceil(S / ns), then steps
+        chunk = max(1, -(-per // DECODE_STEP)) * DECODE_STEP
+        blocks = pairs * -(-S // chunk)
+        cuts.append((blocks >= min(per_sm, 2) * sms,
+                     -(-blocks // sms) * chunk, chunk))
+    filled = [c for c in cuts if c[0]] or cuts
+    return min(c[1:] for c in filled)[1]
+
+
+_decode_slots: dict = {}    # (device index, rep) -> (SMs, blocks an SM)
+_arrivals: dict = {}        # device index -> the arrival counters in use
+
+
+def _index(device: torch.device) -> int:
+    return (device.index if device.index is not None
+            else torch.cuda.current_device())
+
+
+def _decode_slots_of(lib, device: torch.device, rep: int) -> tuple:
+    """(SMs, resident ``decode_attention`` blocks an SM holds at ``rep``)."""
+    key = (_index(device), rep)
+    if key not in _decode_slots:
+        per_sm = lib.decode_attention_blocks_per_sm(rep)
+        if per_sm <= 0:
+            raise RuntimeError(f"decode_attention: no occupancy for rep {rep}")
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        _decode_slots[key] = (sms, per_sm)
+    return _decode_slots[key]
+
+
+def _arrival_counters(device: torch.device, n: int) -> Tensor:
+    """``n`` int32 arrival counters on ``device``, zero between launches:
+    each launch's merging blocks set theirs back to 0, so one buffer serves
+    every launch on the stream, and a captured graph's replays, with no
+    memset.  A larger request allocates anew, and the smaller buffers stay
+    alive, since a captured graph may still hold their address."""
+    held = _arrivals.setdefault(_index(device), [])
+    if not held or held[-1].numel() < n:
+        held.append(torch.zeros(max(n, 256), dtype=torch.int32,
+                                device=device))
+    return held[-1]
+
+
+def decode_attention_cuda(q: Tensor, k: Tensor, v: Tensor, pos: Tensor, *,
                           start: int = 0) -> Tensor:
-    """CUDA kernels for :func:`decode_attention_plain` (bf16, head dim 128,
-    contiguous q and cache, H / Hkv in ``DECODE_REPS``).  ``pos`` is a
-    host int: only the chunks of the live prefix are launched."""
+    """CUDA kernel for :func:`decode_attention_plain` (bf16, head dim 128,
+    contiguous q and cache, H / Hkv in ``DECODE_REPS``), in one launch.
+    ``pos`` is a 0-d int32 tensor on q's device, which the kernel reads
+    there: the grid and the scratch follow the shapes alone, so a CUDA
+    graph can capture the call and replay it at any position."""
     name = "decode_attention"
     _check_attention(name, q, k, v, 3)
     B, H, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
-    if H // Hkv not in DECODE_REPS:
-        raise ValueError(f"{name}: {H // Hkv} query heads a kv head; the "
+    rep = H // Hkv
+    if rep not in DECODE_REPS:
+        raise ValueError(f"{name}: {rep} query heads a kv head; the "
                          f"kernel takes {DECODE_REPS}")
     _check_cuda(name, q=q, k=k, v=v)
-    n_live = min(max(int(pos) - int(start) + 1, 0), S)
-    ns = max(1, -(-n_live // DECODE_CHUNK))
+    if not isinstance(pos, Tensor):
+        raise ValueError(f"{name}: pos must be a 0-d int32 tensor on "
+                         f"{q.device}, got {type(pos).__name__}")
+    if pos.dim() != 0 or pos.dtype != torch.int32 or pos.device != q.device:
+        raise ValueError(f"{name}: pos must be a 0-d int32 tensor on "
+                         f"{q.device}, got {pos.dtype} {tuple(pos.shape)} "
+                         f"on {pos.device}")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    lib = build.library()
+    chunk = decode_chunk(B, S, Hkv, *_decode_slots_of(lib, q.device, rep))
+    ns = max(1, -(-S // chunk))
     part_o = torch.empty((B, H, ns, D), dtype=torch.float32, device=q.device)
     part_ml = torch.empty((2, B, H, ns), dtype=torch.float32, device=q.device)
-    lib = build.library()
+    arrivals = _arrival_counters(q.device, B * Hkv)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.decode_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), part_o.data_ptr(),
-            part_ml[0].data_ptr(), part_ml[1].data_ptr(), out.data_ptr(),
-            B, S, H, Hkv, n_live, ns, DECODE_CHUNK, stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
+            part_o.data_ptr(), part_ml.data_ptr(), arrivals.data_ptr(),
+            out.data_ptr(), B, S, H, Hkv, int(start), ns, chunk, stream)
     build.check(err, name)
     decode_attention_cuda.launches += 1
     return out
@@ -301,7 +371,7 @@ def decode_attention_paged_cuda(q: Tensor, k_pool: Tensor, v_pool: Tensor,
     if any(t.device != q.device for t in (k_pool, v_pool, block_tables, pos)):
         raise ValueError(f"{name}: inputs on more than one device")
     nb = block_tables.shape[1]
-    cols = max(1, DECODE_CHUNK // bs)     # table columns a block takes
+    cols = max(1, PAGED_CHUNK // bs)     # table columns a block takes
     ns = max(1, -(-nb // cols))
     out = torch.empty_like(q)
     if out.numel() == 0:

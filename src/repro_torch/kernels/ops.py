@@ -49,6 +49,14 @@ KERNELS = {
 }
 # kernels whose CUDA wrapper is differentiable on the card
 WITH_BACKWARD = frozenset({"mamba_scan"})
+# the CUDA wrappers as registered, whose ``.launches`` count their kernels'
+# launches whatever stands in ``KERNELS`` for them
+_WRAPPERS = {n: cuda for n, (cuda, _) in KERNELS.items()}
+
+
+def launch_counts() -> dict:
+    """{kernel name: launches so far} of every CUDA wrapper."""
+    return {n: w.launches for n, w in _WRAPPERS.items()}
 
 
 def _pick(name: str, *tensors):
@@ -135,10 +143,12 @@ def flash_attention(q, k, v, *, causal: bool = True):
     return _pick("flash_attention", q, k, v)(q, k, v, causal=causal)
 
 
-def decode_attention(q, k, v, pos: int, *, start: int = 0):
+def decode_attention(q, k, v, pos, *, start: int = 0):
     """One query a sequence, q (B, H, D), over the cache slice k/v (B, S,
-    Hkv, D) of positions [start, start + S), live up to ``pos`` (a host
-    int) -> normalised (B, H, D)."""
+    Hkv, D) of positions [start, start + S), live up to ``pos`` ->
+    normalised (B, H, D).  On the card ``pos`` is a 0-d int32 tensor on
+    q's device, read there (a host int raises); on the CPU an int or a 0-d
+    tensor."""
     return _pick("decode_attention", q, k, v)(q, k, v, pos, start=start)
 
 

@@ -8,7 +8,9 @@
 
 Runs on ``cuda`` unless ``--device cpu``.  Prefill and decode run their
 norms and attention through the RMSNorm, flash attention and flash
-decoding kernels, under ``torch.inference_mode()``.  With ``--mesh
+decoding kernels, under ``torch.inference_mode()``.  On the card the
+decode step is captured once in a CUDA graph and replayed for every
+position (:func:`capture_decode_step`), as the reference jits it.  With ``--mesh
 local`` the MoE layers run expert parallel over a rank-stacked world of
 ``--local-model-axis`` ranks on the one device, and, as in the reference,
 whose cache is then sharded over the model axis, the prompt runs through
@@ -24,32 +26,123 @@ import time
 from typing import Optional
 
 
-def generate(cfg, params, prompts, n_gen: int, *, dist=None,
-             batched_prefill: Optional[bool] = None) -> dict:
+WARMUP_STEPS = 2    # eager decode steps before a capture
+
+
+def capture_decode_step(cfg, params, cache, tokens, *, dist=None):
+    """``Z.decode_step`` captured once in a CUDA graph: the port's
+    counterpart of the reference's ``jax.jit(decode_step)``
+    (repro/launch/serve.py:72).  The token (B, 1) and the position (a 0-d
+    int32) live in static buffers, and ``cache`` is the graph's own: the
+    caller fills it in place (the prefill writes ``cache[:, :S]``).  The
+    warm-up steps (first launches, one-time kernel attributes, the
+    allocator's growth) and the capture run at position 0 with
+    ``tokens``: they write row 0 of every layer's cache, which the prefill
+    or the first decode step writes again.
+
+    Returns ``(step, captured)``: ``step(tok, t)`` copies ``tok`` and ``t``
+    into the static buffers, replays the graph, and returns clones of its
+    static outputs ``(logits, aux)`` (the next replay overwrites them);
+    ``captured`` maps each kernel to the launches one replay makes.  A
+    capture that fails raises."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import model_zoo as Z
+
+    dev = tokens.device
+    tok_s = tokens.clone()
+    pos_s = torch.zeros((), dtype=torch.int32, device=dev)
+
+    def run():
+        logits, _, aux = Z.decode_step(cfg, params, cache, tok_s, pos_s,
+                                       dist=dist, moe_mode="ll")
+        return logits, aux
+
+    # warm-up and capture on a side stream; not through torch.cuda.graph,
+    # which empties the allocator's cache first, so that the prefill would
+    # cudaMalloc its activations anew (TTFT)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        for _ in range(WARMUP_STEPS):
+            run()
+        side.synchronize()
+        before = ops.launch_counts()
+        graph.capture_begin()
+        try:
+            logits_s, aux_s = run()
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    captured = {n: c - before[n] for n, c in ops.launch_counts().items()}
+
+    def step(tok, t):
+        # the static buffers are inference tensors: written under its mode
+        with torch.inference_mode():
+            tok_s.copy_(tok)
+            pos_s.fill_(t)
+            graph.replay()
+            step.replays += 1
+            return logits_s.clone(), {k: v.clone() for k, v in aux_s.items()}
+
+    step.replays = 0
+    return step, captured
+
+
+def generate(cfg, params, prompts, n_gen, *, dist=None,
+             batched_prefill: Optional[bool] = None,
+             cuda_graph: Optional[bool] = None) -> dict:
     """Prefill ``prompts`` (B, S), then decode greedily until ``n_gen``
     tokens per sequence exist.  ``batched_prefill`` None takes the
     reference's rule (repro/launch/serve.py): one batched HT prefill unless
     the model has Mamba layers or ``dist`` has a model axis; otherwise the
     prompt runs through S - 1 LL decode steps, as the reference prefills
     its model-sharded cache, and there is no TTFT (``ttft_s`` None).
-    True forces the batched prefill.  Times on the host clock around work
-    that ends in a device synchronise."""
+    True forces the batched prefill.
+
+    ``cuda_graph`` None means yes on the card and no on the CPU: the decode
+    step is captured once (:func:`capture_decode_step`) before the clock
+    starts, reported as ``capture_s``, and replayed for every decode step,
+    the per-token prefill's included; the prefill stays eager.  True on the
+    CPU raises; False keeps the eager step.  Times on the host clock around
+    work that ends in a device synchronise."""
     import torch
 
     from repro_torch.models import model_zoo as Z
 
+    dev = prompts.device
+    if cuda_graph is None:
+        cuda_graph = dev.type == "cuda"
+    elif cuda_graph and dev.type != "cuda":
+        raise ValueError(f"generate: cuda_graph=True needs the prompts on a "
+                         f"CUDA device, not {dev}")
     if batched_prefill is None:
         batched_prefill = not cfg.mamba.enabled and (
             dist is None or dist.model_axis is None)
-    dev = prompts.device
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     B, S = prompts.shape
     max_len = S + n_gen
     cache = Z.init_cache(cfg, B, max_len, dtype=Z.compute_dtype(cfg),
                          device=dev)
+    capture_s = captured = None
+    # no gradients: the norm and attention kernels have no backward
+    with torch.inference_mode():
+        if cuda_graph:
+            sync()
+            tc = time.perf_counter()
+            step, captured = capture_decode_step(cfg, params, cache,
+                                                 prompts[:, :1], dist=dist)
+            sync()
+            capture_s = time.perf_counter() - tc
+        else:
+            def step(tok, t):
+                logits, _, aux = Z.decode_step(cfg, params, cache, tok, t,
+                                               dist=dist, moe_mode="ll")
+                return logits, aux
     sync()
     t0 = time.perf_counter()
-    # no gradients: the norm and attention kernels have no backward
     with torch.inference_mode():
         if batched_prefill:
             logits, cache, aux = Z.prefill(cfg, params, cache, prompts,
@@ -60,8 +153,7 @@ def generate(cfg, params, prompts, n_gen: int, *, dist=None,
         else:
             tok, prefill = prompts[:, :1], []
             for t in range(S - 1):
-                logits, cache, aux = Z.decode_step(cfg, params, cache, tok, t,
-                                                   dist=dist, moe_mode="ll")
+                logits, aux = step(tok, t)
                 tok = prompts[:, t + 1:t + 2]
                 prefill.append(aux)
             out, t_start = [], S - 1
@@ -69,8 +161,7 @@ def generate(cfg, params, prompts, n_gen: int, *, dist=None,
         t_prompt = time.perf_counter() - t0
         dropped = []                 # the decode steps'
         for t in range(t_start, max_len - 1):
-            logits, cache, aux = Z.decode_step(cfg, params, cache, tok, t,
-                                               dist=dist, moe_mode="ll")
+            logits, aux = step(tok, t)
             tok = torch.argmax(logits[:, :cfg.vocab_size], dim=-1)[:, None]
             out.append(tok)
             dropped.append(aux["dropped"])
@@ -85,6 +176,9 @@ def generate(cfg, params, prompts, n_gen: int, *, dist=None,
             "decode_tokens_per_s": (B * len(dropped) / (dt - t_prompt)
                                     if dropped else None),
             "batched_prefill": batched_prefill,
+            "cuda_graph": cuda_graph, "capture_s": capture_s,
+            "captured_launches": captured,
+            "graph_replays": step.replays if cuda_graph else 0,
             "prefill_dropped": (float(torch.stack(
                 [a["dropped"] for a in prefill]).mean()) if prefill else 0.0),
             "prefill_dropped_per_layer": per_layer,

@@ -95,13 +95,16 @@ def block_prefill(cfg: ModelConfig, dist: Optional[DistCtx], p: dict,
 
 
 def block_decode(cfg: ModelConfig, dist: Optional[DistCtx], p: dict,
-                 x: Tensor, cache: dict, pos: int, *,
+                 x: Tensor, cache: dict, pos: Tensor, *,
                  moe_mode: str = "ll") -> tuple[Tensor, dict, dict]:
-    """One-token decode: x (B, 1, D) at position ``pos``."""
+    """One-token decode: x (B, 1, D) at position ``pos``, a 0-d int32
+    tensor on x's device that nothing here reads on the host (so a CUDA
+    graph can capture the step and replay it at any position)."""
     h = ops.rmsnorm(x, p["ln1"], cfg.norm_eps)
     q, k_new, v_new = decode_qkv(cfg, p["attn"], h, pos, norm=ops.rmsnorm)
-    cache["k"][:, pos] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][:, pos] = v_new[:, 0].to(cache["v"].dtype)
+    row = pos.reshape(1).to(torch.int64)
+    cache["k"].index_copy_(1, row, k_new.to(cache["k"].dtype))
+    cache["v"].index_copy_(1, row, v_new.to(cache["v"].dtype))
     # the whole cache: the kernel reads only positions 0..pos
     o = ops.decode_attention(q[:, 0], cache["k"], cache["v"], pos)[:, None]
     h = torch.einsum("bshk,hkd->bsd", o, p["attn"]["wo"].to(h.dtype))

@@ -90,11 +90,11 @@ def _qkv(cfg: ModelConfig, p: dict, x: Tensor, positions: Tensor, *,
     return q, k, v
 
 
-def decode_qkv(cfg: ModelConfig, p: dict, x: Tensor, pos: int, *,
+def decode_qkv(cfg: ModelConfig, p: dict, x: Tensor, pos: Tensor, *,
                norm=rmsnorm):
-    """x: (B, 1, d) new token at position ``pos``."""
-    positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
-                           device=x.device)
+    """x: (B, 1, d) new token at position ``pos`` (a 0-d integer tensor on
+    x's device, not read on the host)."""
+    positions = pos.reshape(1, 1).expand(x.shape[0], 1)
     return _qkv(cfg, p, x, positions, norm=norm)
 
 

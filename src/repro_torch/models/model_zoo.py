@@ -202,12 +202,18 @@ def prefill(cfg: ModelConfig, params: dict, cache: list, tokens: Tensor, *,
 
 
 def decode_step(cfg: ModelConfig, params: dict, cache: list, tokens: Tensor,
-                pos: int, *, dist: Optional[DistCtx] = None,
+                pos, *, dist: Optional[DistCtx] = None,
                 moe_mode: str = "ll") -> tuple[Tensor, list, dict]:
     """One decode step: tokens (B, 1) at position ``pos`` (same for the
-    batch).  Returns (logits (B, V_pad) fp32, cache, ``{"dropped",
-    "dropped_per_layer"}``)."""
+    batch), an int or a 0-d int32 tensor on the tokens' device, as the
+    reference's takes ``jnp.int32(t)``.  Nothing of the step reads ``pos``
+    on the host, so a CUDA graph captures it with ``pos`` in a static
+    buffer (``launch.serve.capture_decode_step``).  Returns (logits (B,
+    V_pad) fp32, cache, ``{"dropped", "dropped_per_layer"}``)."""
     x = B.vocab_embed(params["embed"], tokens)
+    if not isinstance(pos, Tensor):
+        # a fill on the device: no copy from the host, no synchronise
+        pos = torch.full((), pos, dtype=torch.int32, device=x.device)
     auxes = []
     for p, c in zip(params["blocks"], cache):
         x, _, aux = B.block_decode(cfg, dist, p, x, c, pos,

@@ -313,19 +313,39 @@ def test_cuda_flash_attention_takes_strided_views(cuda_device):
     assert torch.equal(got, ref)
 
 
+def _pos(p, device):
+    """A position as the decode kernel takes it: a 0-d int32 on the card."""
+    return torch.full((), p, dtype=torch.int32, device=device)
+
+
+def _decode_chunk(q, k):
+    """The chunk the wrapper cuts this call's cache slice into."""
+    B, H = q.shape[:2]
+    S, Hkv = k.shape[1:3]
+    return na.decode_chunk(B, S, Hkv, *na._decode_slots_of(
+        na.build.library(), q.device, H // Hkv))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,S,H,Hkv,pos,start", [
     (2, 600, 8, 2, 0, 0),          # one live position
     (2, 600, 8, 2, 100, 0),        # inside the first chunk
-    (2, 600, 8, 2, 255, 0),        # the last position of a chunk
-    (2, 600, 8, 2, 256, 0),        # the first of the next
-    (2, 600, 8, 2, 599, 0),        # the whole cache, ragged last chunk
+    (2, 600, 8, 2, 255, 0),
+    (2, 600, 8, 2, 256, 0),
+    (2, 600, 8, 2, 599, 0),        # pos = S - 1: the whole cache
     (2, 600, 8, 2, 5000, 0),       # pos past the slice: all of it live
     (2, 400, 8, 2, 300, 50),       # a slice starting at 50
     (2, 400, 8, 2, 20, 50),        # pos before the slice: nothing live
+    (2, 400, 8, 2, 449, 50),       # the slice's last position
     (3, 300, 16, 16, 290, 0),      # MHA (qwen2-moe)
+    (3, 301, 16, 16, 300, 0),      # S not a multiple of any chunk
     (1, 300, 8, 1, 200, 0),        # rep 8
-    (4, 2080, 32, 8, 2079, 0),     # the qwen3-4b decode's shape
+    (1, 333, 8, 1, 332, 0),        # rep 8, S - 1, ragged
+    (2, 257, 4, 2, 256, 0),        # rep 2
+    (4, 2080, 32, 8, 2079, 0),     # the qwen3-4b decode's shape, S - 1
+    (4, 2080, 32, 8, 2048, 0),     # its first decode step
+    (4, 272, 16, 16, 270, 0),      # the qwen2-moe decode's shape
+    (1, 4, 4, 1, 3, 0),            # a slice shorter than one step
 ])
 def test_cuda_decode_attention_matches_plain(cuda_device, B, S, H, Hkv, pos,
                                              start):
@@ -333,7 +353,8 @@ def test_cuda_decode_attention_matches_plain(cuda_device, B, S, H, Hkv, pos,
     q = _bf16(rng, (B, H, 128), cuda_device)
     k = _bf16(rng, (B, S, Hkv, 128), cuda_device)
     v = _bf16(rng, (B, S, Hkv, 128), cuda_device)
-    got = na.decode_attention_cuda(q, k, v, pos, start=start).float()
+    got = na.decode_attention_cuda(q, k, v, _pos(pos, cuda_device),
+                                   start=start).float()
     ref = na.decode_attention_plain(q, k, v, pos, start=start).float()
     torch.testing.assert_close(got, ref, rtol=2e-2, atol=2e-2)
     if pos < start:
@@ -342,8 +363,96 @@ def test_cuda_decode_attention_matches_plain(cuda_device, B, S, H, Hkv, pos,
     n_live = min(max(pos - start + 1, 0), S)
     k[:, n_live:] = float("nan")
     v[:, n_live:] = float("nan")
-    again = na.decode_attention_cuda(q, k, v, pos, start=start).float()
+    again = na.decode_attention_cuda(q, k, v, _pos(pos, cuda_device),
+                                     start=start).float()
     assert torch.equal(again, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("edge", [-1, 0, 1])
+def test_cuda_decode_attention_chunk_edges(cuda_device, rep, edge):
+    """pos at the last position of a chunk, the first of the next and the
+    one after, for each rep, at the qwen3 decode's cache length; the rows
+    past pos NaN."""
+    rng = np.random.default_rng(rep * 10 + edge)
+    B, Hkv, S = 2, 4, 2080
+    q = _bf16(rng, (B, Hkv * rep, 128), cuda_device)
+    k = _bf16(rng, (B, S, Hkv, 128), cuda_device)
+    v = _bf16(rng, (B, S, Hkv, 128), cuda_device)
+    chunk = _decode_chunk(q, k)
+    assert chunk % na.DECODE_STEP == 0 and chunk < S
+    for pos in (chunk + edge, 2 * chunk + edge):
+        ref = na.decode_attention_plain(q, k, v, pos).float()
+        kp, vp = k.clone(), v.clone()
+        kp[:, pos + 1:] = float("nan")
+        vp[:, pos + 1:] = float("nan")
+        got = na.decode_attention_cuda(q, kp, vp, _pos(pos, cuda_device))
+        _row_close(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rep", [1, 4, 8])
+def test_cuda_decode_attention_dead_chunks_add_nothing(cuda_device, rep):
+    """Scores far below 0 (every live key close to -q's direction), pos in
+    the first chunk, so most blocks are dead: a dead chunk must merge as
+    m = -inf, l = 0, o = 0; a finite m there would swamp the live chunks'
+    weights (2^-200 underflows) and zero the output."""
+    rng = np.random.default_rng(rep)
+    B, Hkv, S = 2, 2, 1000
+    u = rng.standard_normal((B, 1, Hkv, 128)).astype(np.float32)
+    k = u + 0.3 * rng.standard_normal((B, S, Hkv, 128)).astype(np.float32)
+    q = -20.0 * np.repeat(u[:, 0], rep, axis=1)
+    q, k = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+            for a in (q, k))
+    v = _bf16(rng, (B, S, Hkv, 128), cuda_device)
+    for pos in (0, 40, S - 1):
+        ref = na.decode_attention_plain(q, k, v, pos).float()
+        s = torch.einsum("bhd,bshd->bhs", q.float()[:, ::rep], k.float())
+        # base-2 scores, as the kernel keeps them: below -150 on every key
+        assert float(s[..., :pos + 1].max()) / np.sqrt(128) * 1.4427 < -150
+        got = na.decode_attention_cuda(q, k, v, _pos(pos, cuda_device))
+        _row_close(got, ref)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_attention_resets_its_counters(cuda_device):
+    """The merging block sets its arrival counter back to 0: the same call
+    twice, and after a call at another shape, gives the same bits."""
+    rng = np.random.default_rng(9)
+    q = _bf16(rng, (4, 32, 128), cuda_device)
+    k = _bf16(rng, (4, 2080, 8, 128), cuda_device)
+    v = _bf16(rng, (4, 2080, 8, 128), cuda_device)
+    pos = _pos(2078, cuda_device)
+    first = na.decode_attention_cuda(q, k, v, pos)
+    assert torch.equal(na.decode_attention_cuda(q, k, v, pos), first)
+    na.decode_attention_cuda(q[:2, :8].contiguous(), k[:2, :100, :2].contiguous(),
+                             v[:2, :100, :2].contiguous(), _pos(50, cuda_device))
+    assert torch.equal(na.decode_attention_cuda(q, k, v, pos), first)
+    assert int(na._arrival_counters(q.device, 1).abs().sum()) == 0
+
+
+@pytest.mark.cuda
+def test_cuda_decode_attention_graph_replays(cuda_device):
+    """One CUDA graph, captured once with pos in a static buffer, replayed
+    at several positions: each replay matches the plain version there."""
+    rng = np.random.default_rng(10)
+    q = _bf16(rng, (4, 32, 128), cuda_device)
+    k = _bf16(rng, (4, 2080, 8, 128), cuda_device)
+    v = _bf16(rng, (4, 2080, 8, 128), cuda_device)
+    pos = _pos(0, cuda_device)
+    na.decode_attention_cuda(q, k, v, pos)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = na.decode_attention_cuda.launches
+    with torch.cuda.graph(graph):
+        out = na.decode_attention_cuda(q, k, v, pos)
+    assert na.decode_attention_cuda.launches == before + 1
+    for p in (2078, 0, 191, 192, 1000, 2079, 2078):
+        pos.fill_(p)
+        graph.replay()
+        torch.cuda.synchronize()
+        _row_close(out, na.decode_attention_plain(q, k, v, p))
 
 
 @pytest.mark.cuda
@@ -362,13 +471,13 @@ def test_cuda_attention_and_norm_refuse_grad(cuda_device):
     with pytest.raises(NotImplementedError, match="no backward kernel"):
         ops.flash_attention(q, k, k)
     with pytest.raises(NotImplementedError, match="no backward kernel"):
-        ops.decode_attention(q[:, 0], k, k, 10)
+        ops.decode_attention(q[:, 0], k, k, _pos(10, cuda_device))
     assert (na.rmsnorm_cuda.launches, na.flash_attention_cuda.launches,
             na.decode_attention_cuda.launches) == before
     with torch.inference_mode():
         ops.rmsnorm(x, scale)
         ops.flash_attention(q, k, k)
-        ops.decode_attention(q[:, 0].contiguous(), k, k, 10)
+        ops.decode_attention(q[:, 0].contiguous(), k, k, _pos(10, cuda_device))
     assert (na.rmsnorm_cuda.launches, na.flash_attention_cuda.launches,
             na.decode_attention_cuda.launches) == tuple(b + 1 for b in before)
 
@@ -388,7 +497,16 @@ def test_cuda_attention_wrappers_raise_on_inputs_they_do_not_take(
     k = _bf16(rng, (1, 32, 1, 128), cuda_device)
     with pytest.raises(ValueError, match="query heads a kv head"):
         na.decode_attention_cuda(_bf16(rng, (1, 16, 128), cuda_device), k, k,
-                                 5)
+                                 _pos(5, cuda_device))
+    # pos: a 0-d int32 on q's device, nothing else
+    q1 = _bf16(rng, (1, 8, 128), cuda_device)
+    before = na.decode_attention_cuda.launches
+    for bad in (5, torch.tensor(5, dtype=torch.int32),
+                torch.tensor(5, device=cuda_device),
+                torch.tensor([5], dtype=torch.int32, device=cuda_device)):
+        with pytest.raises(ValueError, match="0-d int32 tensor"):
+            na.decode_attention_cuda(q1, k, k, bad)
+    assert na.decode_attention_cuda.launches == before
     x = _bf16(rng, (3, 128), cuda_device)
     with pytest.raises(ValueError, match="float32"):
         na.rmsnorm_cuda(x, torch.ones(128, device=cuda_device,
@@ -401,7 +519,8 @@ def test_cuda_attention_wrappers_raise_on_inputs_they_do_not_take(
 @pytest.mark.cuda
 def test_cuda_serve_cli_reduced_qwen3(cuda_device, capsys):
     """A reduced qwen3 (head dim 128) served on the card goes through the
-    three kernels."""
+    three kernels; the decode step's are counted where Python calls them:
+    its two warm-up steps and its capture, not its replays."""
     from repro_torch.launch import serve
     before = (na.rmsnorm_cuda.launches, na.flash_attention_cuda.launches,
               na.decode_attention_cuda.launches)
@@ -411,9 +530,46 @@ def test_cuda_serve_cli_reduced_qwen3(cuda_device, capsys):
     assert "[serve] generated 8 tokens" in capsys.readouterr().out
     after = (na.rmsnorm_cuda.launches, na.flash_attention_cuda.launches,
              na.decode_attention_cuda.launches)
-    # a prefill and 3 decode steps, each 2 layers of 4 norms and the final
-    # one; 2 prefill attentions, 2 x 3 decode attentions
+    # the prefill, 2 warm-up steps and the capture, each 2 layers of 4
+    # norms and the final one; 2 prefill attentions, 2 x 3 decode ones
     assert [a - b for a, b in zip(after, before)] == [4 * 9, 2, 6]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,world", [("qwen3_4b", None),
+                                        ("qwen2_moe_a2_7b", 2)])
+def test_cuda_generate_graph_matches_eager(cuda_device, arch, world):
+    """``generate`` through the captured decode step (the default on the
+    card) and through the eager step, on the same prompts: the same tokens
+    bit for bit.  qwen2-moe runs over an EP world of 2, so its prompt too
+    runs through decode steps (LL), replayed from the graph, as the
+    reference serves ``--mesh local``.  The capture counts each kernel of
+    a step once."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.distributed.sharding import make_dist_ctx
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model_zoo as Z
+    cfg = reduced_config(get_config(arch), n_layers=2, d_model=512,
+                         vocab=512)
+    dist = make_dist_ctx(cfg, model=world) if world else None
+    params = Z.init_params(cfg, seed=0, device=cuda_device,
+                           dtype=Z.compute_dtype(cfg))
+    B, S, n_gen = 4, 24, 8
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=torch.
+                            Generator().manual_seed(0)).to(cuda_device)
+    eager = generate(cfg, params, prompts, n_gen, dist=dist,
+                     cuda_graph=False)
+    graph = generate(cfg, params, prompts, n_gen, dist=dist)
+    assert graph["cuda_graph"] and not eager["cuda_graph"]
+    assert graph["capture_s"] > 0 and eager["capture_s"] is None
+    assert graph["tokens"].shape == (B, n_gen)
+    assert torch.equal(graph["tokens"], eager["tokens"])
+    # a layer's ln1 and ln2 (and q_norm, k_norm under qk_norm), the final
+    assert graph["captured_launches"]["rmsnorm"] == (
+        4 if cfg.qk_norm else 2) * cfg.n_layers + 1
+    assert graph["captured_launches"]["decode_attention"] == cfg.n_layers
+    assert graph["graph_replays"] == (n_gen - 1 if world is None
+                                      else S - 1 + n_gen)
 
 
 def _range_close(got, ref, tol=1e-2):
@@ -688,20 +844,32 @@ def test_cuda_decode_attention_paged_matches_plain(cuda_device, pos):
 
 @pytest.mark.cuda
 def test_cuda_decode_attention_paged_equals_contiguous(cuda_device):
-    """One pos for every sequence and the pool's rows gathered back into a
-    contiguous cache: the paged kernel does the contiguous kernel's
-    arithmetic in its order (256-position chunks, 8 positions a warp), so
-    the two agree bit for bit."""
+    """One pos for every sequence.  The pool's rows copied into fresh
+    blocks in table order (an identity table: sequence b's column j is
+    block b * nb + j): the paged kernel does the same arithmetic in the
+    same order through either table, so the two agree bit for bit, and a
+    live block read twice or in another's place shows.  The rows gathered
+    back into a contiguous cache: the paged and the contiguous kernels
+    agree within the row tolerance (they split and sum the cache in
+    different orders, 256-position chunks of 8-position warps against the
+    contiguous kernel's chunks of 16-lane rows)."""
     rng = np.random.default_rng(7)
     pos = (2078,) * 4
     q, k, v, tables, posv = _paged_case(rng, cuda_device, pos)
-    S = tables.shape[1] * 16
+    B, nb = tables.shape
+    S = nb * 16
     idx = tables.clamp_min(0).long()
+    paged = ops.decode_attention_paged(q, k, v, tables, posv)
+    ident = torch.arange(B * nb, dtype=torch.int32,
+                         device=cuda_device).reshape(B, nb)
+    ident = torch.where(tables >= 0, ident, tables)
+    k_id, v_id = (t[idx.flatten()].contiguous() for t in (k, v))
+    assert torch.equal(
+        ops.decode_attention_paged(q, k_id, v_id, ident, posv), paged)
     kc = k[idx].reshape(4, S, 8, 128).contiguous()
     vc = v[idx].reshape(4, S, 8, 128).contiguous()
-    paged = ops.decode_attention_paged(q, k, v, tables, posv)
-    cont = na.decode_attention_cuda(q, kc, vc, pos[0])
-    assert torch.equal(paged, cont)
+    cont = na.decode_attention_cuda(q, kc, vc, _pos(pos[0], cuda_device))
+    _row_close(paged, cont)
 
 
 @pytest.mark.cuda

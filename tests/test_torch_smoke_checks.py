@@ -1,7 +1,8 @@
 """The checks ``chip_smoke.py`` makes on the card, run on the CPU at a
 reduced size, so that the checks themselves are tested: HT at its
 configured capacity (with drops) against the dense oracle restricted to
-the choices the plan keeps."""
+the choices the plan keeps; and the launch accounting and decode cases of
+a captured decode step."""
 import dataclasses
 import sys
 from pathlib import Path
@@ -71,3 +72,46 @@ def test_restricted_oracle_catches_a_lost_choice(monkeypatch):
     monkeypatch.setattr(ep, "dispatch_combine_ht", faulty)
     res = chip_smoke.restricted_check(cfg, dist, p, x)
     assert res["rel_err"] > chip_smoke.MOE_TOL["fp32"]
+
+
+def test_graph_launches_counts_every_replay():
+    """A wrapper counts once where Python calls it: at capture for a
+    captured step, whose replays each launched it again."""
+    counted = {"rmsnorm": 9 + 3 * 9, "decode_attention": 3 * 2,
+               "flash_attention": 2}
+    res = {"captured_launches": {"rmsnorm": 9, "decode_attention": 2,
+                                 "flash_attention": 0},
+           "graph_replays": 7}
+    eager = {"captured_launches": None, "graph_replays": 0}
+    assert chip_smoke.graph_launches(counted, res, eager) == {
+        "rmsnorm": 36 + 6 * 9, "decode_attention": 6 + 6 * 2,
+        "flash_attention": 2}
+    assert chip_smoke.graph_launches(counted, eager) == counted
+
+
+def test_decode_cases_are_device_positions():
+    """The last decode call's inputs at its position, at the first decode
+    step's, 0 and S - 1, each a new 0-d int32 on the query's device;
+    ``decode_live`` reads either an int or such a tensor."""
+    q, k = torch.zeros((2, 4, 8)), torch.zeros((2, 10, 2, 8))
+    last = [((q, k, k, torch.tensor(6, dtype=torch.int32)), {})]
+    cases = chip_smoke.decode_cases(last, 4)
+    assert [int(a[3]) for a, _ in cases] == [6, 4, 0, 9]
+    assert all(a[3].dtype == torch.int32 and a[3].dim() == 0
+               and a[3] is not last[0][0][3] for a, _ in cases)
+    assert [chip_smoke.decode_live(a, kw) for a, kw in cases] == [
+        7, 5, 1, 10]
+    assert chip_smoke.decode_live((q, k, k, 20), {"start": 15}) == 6
+
+
+def test_prefill_ln1_leads_rmsnorm():
+    """The capture records the decode step's norms before the prefill's:
+    the lead key picks the prefill's (B, S, d_model) call over them and
+    over the wider (B, S, heads, 128) q/k norms."""
+    rec = chip_smoke.Recorder(lambda *a: None)
+    for shape in ((2, 1, 16), (2, 1, 4, 8), (2, 6, 16), (2, 6, 4, 8)):
+        rec(torch.zeros(shape), torch.ones(shape[-1]), 1e-6)
+    key = chip_smoke.prefill_ln1(2, 6, 16)
+    cases = list(rec.cases.values())
+    best = max(range(len(cases)), key=lambda i: key(cases[i][0]))
+    assert tuple(cases[best][0][0].shape) == (2, 6, 16)
