@@ -84,7 +84,8 @@ Phases, each printed as one JSON line:
    kind in the train phase against the plain version, and
    ``mamba_scan_bwd`` on the same inputs with a seeded dy against
    ``torch.autograd.grad`` through the plain version, all six gradients;
-   both timed beside their bound and the plain version's time;
+   both timed (CUDA events and device time) beside their bound and the
+   plain version's time;
 11. serve-qwen3 (the dense GQA serving path): qwen3-4b at full width and
    all 36 layers (random bf16 weights from seed 0) served through
    ``generate``: batch 4, prompts of 2048 random tokens, 32 greedy tokens.
@@ -108,7 +109,10 @@ Phases, each printed as one JSON line:
    their plain versions row by row (each output row within its tolerance
    of that row's largest plain value), timed beside their bound, the plain
    version and one PyTorch library call computing the same function
-   (``library_ms``, and its device time); then decode_graph: the
+   (``library_ms``, and its device time; for ``rmsnorm``,
+   ``decode_attention`` and ``combine_reduce`` also both cold, each call
+   on one of ``COLD_CACHES`` input sets, ``cold_device_ms``); then
+   decode_graph: the
    ``decode_attention`` kernel captured once in a CUDA graph and replayed
    at pos 0, the last step's and S - 1, against the plain version; then
    paged_decode: the last decode step's query and
@@ -143,8 +147,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 FP32_FLOP_PER_S = 67e12
-# caches a cold decode_attention timing cycles through (decode_cold)
+# input sets a cold timing cycles through (cold_device_ms), and the
+# arguments it draws afresh for each: the cache, the rows, the parts
 COLD_CACHES = 8
+COLD_ARGS = {"decode_attention": (1, 2), "rmsnorm": (0,),
+             "combine_reduce": (0,)}
 
 KERNEL_INFO = {  # name: (source, the TPU kernel it replaces)
     "grouped_swiglu": ("src/repro_torch/csrc/grouped_swiglu.cu",
@@ -554,30 +561,30 @@ def check_case(name, args, kwargs) -> dict:
             "library_ms": cuda_ms(lib) if lib is not None else None,
             "library_device_ms": device_ms(lib) if lib is not None else None,
             "work": work}
-    if name == "decode_attention":
-        case.update(decode_cold(args, kwargs))
+    if name in COLD_ARGS:
+        case.update(cold_device_ms(name, args, kwargs))
     return case
 
 
-def decode_cold(args, kwargs) -> dict:
-    """decode_attention and SDPA on the device, cold: each call on the next
-    of ``COLD_CACHES`` caches of the call's shape (seeded N(0, 1)), whose
-    sum at qwen3's shape (272 MB) does not fit the card's 50 MB L2, as a
-    decode step's 36 layers do not.  Repeated calls on one cache, as
+def cold_device_ms(name, args, kwargs) -> dict:
+    """Kernel ``name`` and its library call on the device, cold: each call
+    on the next of ``COLD_CACHES`` sets of the call's large inputs
+    (``COLD_ARGS``, seeded N(0, 1) of their shapes), whose sum does not fit
+    the card's 50 MB L2: at qwen3's shapes 272 MB of decode caches (a
+    decode step's 36 layers do not fit it either), 336 MB of ln1 rows, and
+    at the combine shape 168 MB of parts.  Repeated calls on one input, as
     ``device_ms`` makes them, find part of it in L2."""
     import torch
 
     from repro_torch.kernels import ops
-    cuda = ops.KERNELS["decode_attention"][0]
-    q, k, v, pos = args
-    g = torch.Generator(device=q.device).manual_seed(3)
-    caches = [tuple(torch.randn(k.shape, generator=g, device=q.device,
-                                dtype=k.dtype) for _ in range(2))
-              for _ in range(COLD_CACHES)]
-    libs = [library_call("decode_attention", (q, kk, vv, pos), kwargs)
-            for kk, vv in caches]
-    kernel = device_ms(lambda: [cuda(q, kk, vv, pos, **kwargs)
-                                for kk, vv in caches], n=5)
+    cuda = ops.KERNELS[name][0]
+    g = torch.Generator(device=args[0].device).manual_seed(3)
+    sets = [tuple(torch.randn(a.shape, generator=g, device=a.device,
+                              dtype=a.dtype) if i in COLD_ARGS[name] else a
+                  for i, a in enumerate(args))
+            for _ in range(COLD_CACHES)]
+    libs = [library_call(name, a, kwargs) for a in sets]
+    kernel = device_ms(lambda: [cuda(*a, **kwargs) for a in sets], n=5)
     library = (device_ms(lambda: [f() for f in libs], n=5)
                if libs[0] is not None else None)
     return {"cold_device_ms": kernel and kernel / COLD_CACHES,
@@ -587,8 +594,8 @@ def decode_cold(args, kwargs) -> dict:
 def check_kernel(name, rec, launches, extra=(), lead=0) -> dict:
     """Every kind of call the main path made to kernel ``name`` (and the
     ``extra`` (args, kwargs) cases).  Case ``lead`` stands for the kernel
-    in the kernels line, with its device times (warm, and for
-    decode_attention cold) beside them: an index into the recorded cases,
+    in the kernels line, with its device times (warm, and for the kernels
+    of ``COLD_ARGS`` cold) beside them: an index into the recorded cases,
     then the extra ones (by default the first recorded call), or a key on
     a recorded case's arguments, whose largest case leads."""
     if not rec.cases:
@@ -615,7 +622,7 @@ def check_kernel(name, rec, launches, extra=(), lead=0) -> dict:
 DEVICE_KINDS = (("scan kernels", ("scan_fwd_kernel", "scan_bwd_kernel")),
                 ("attention and norm kernels", (
                     "flash_fwd_kernel", "decode_kernel", "paged_split_kernel",
-                    "decode_merge_kernel", "rmsnorm_kernel")),
+                    "decode_merge_kernel", "rmsnorm_row")),
                 ("EP kernels", ("swiglu_tiles", "gather_quantize",
                                 "dequantize_kernel")),
                 ("cuBLAS GEMM", ("nvjet", "gemm", "cutlass", "xmma")),
@@ -1390,6 +1397,8 @@ def check_scan(rec, launches: dict) -> list:
             fwd_cases.append({
                 "max_abs_err": err, "max_abs_ref": scale,
                 "ms": cuda_ms(lambda: ms._scan_fwd(*args, save_states=True)),
+                "device_ms": device_ms(
+                    lambda: ms._scan_fwd(*args, save_states=True)),
                 "plain_ms": cuda_ms(lambda: ms.mamba_scan_plain(*args), n=5,
                                     warmup=1),
                 "bound_ms": bound_ms, "bound_by": bound_by, "work": work,
@@ -1415,6 +1424,8 @@ def check_scan(rec, launches: dict) -> list:
             "max_abs_err": max(v["max_abs_err"] for v in per.values()),
             "per_gradient": per,
             "ms": cuda_ms(lambda: ms.mamba_scan_bwd_cuda(*args, states, dy)),
+            "device_ms": device_ms(
+                lambda: ms.mamba_scan_bwd_cuda(*args, states, dy)),
             # the plain version's backward alone, its graph built once
             "plain_ms": cuda_ms(lambda: torch.autograd.grad(
                 y_plain, ins, dy, retain_graph=True), n=5, warmup=1),
@@ -1428,7 +1439,8 @@ def check_scan(rec, launches: dict) -> list:
         src, replaces = KERNEL_INFO[name]
         out.append({"name": name, "route": "cuda", "source": src,
                     "replaces": replaces, "launches": launches[name],
-                    **{k: cases[0][k] for k in ("ms", "plain_ms", "bound_ms",
+                    **{k: cases[0][k] for k in ("ms", "device_ms",
+                                                "plain_ms", "bound_ms",
                                                 "bound_by")},
                     "max_abs_err": max(c["max_abs_err"] for c in cases),
                     "library_ms": None, "tolerance": KERNEL_TOL[name],
@@ -1436,27 +1448,53 @@ def check_scan(rec, launches: dict) -> list:
     return out
 
 
-def train_phase(dev) -> tuple[list, "Recorder", dict]:
-    """The training path: falcon-mamba-7b at full width, 16 layers, 5 AdamW
-    steps on batch 4 x 1024 through ``train_loop``; then one more step under
-    the profiler, and one optimizer update timed.  Returns (phase lines,
-    the scan's Recorder, launches)."""
-    import torch
-
+def train_setup():
+    """The training path's (config, hyper-parameters, batch):
+    falcon-mamba-7b at full width and ``TRAIN_LAYERS`` layers,
+    ``TRAIN_STEPS`` AdamW steps, one seeded batch of ``TRAIN_BATCH`` x
+    ``TRAIN_SEQ`` tokens (numpy)."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, synth_batch
-    from repro_torch.kernels import mamba_scan as ms
-    from repro_torch.kernels import ops
-    from repro_torch.optim.adamw import apply_updates, tree_leaves, tree_map
-    from repro_torch.training.train_loop import (HParams, Watchdog,
-                                                 init_state, train_loop,
-                                                 train_step)
+    from repro_torch.training.train_loop import HParams
 
     cfg = dataclasses.replace(get_config("falcon_mamba_7b"),
                               n_layers=TRAIN_LAYERS)
+    hp = HParams(peak_lr=3e-4, warmup=1, total_steps=TRAIN_STEPS)
+    # every step trains on the same batch: a step along the gradients must
+    # then lower the loss on the batch they came from, whatever five steps
+    # on fresh batches would generalise
+    batch = synth_batch(DataConfig(vocab_size=cfg.vocab_size,
+                                   batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                                   seed=0), 0)
+    return cfg, hp, batch
+
+
+def train_steps(cfg, hp, batch, state, dev) -> tuple:
+    """``hp.total_steps`` steps of ``train_loop`` on ``batch`` from
+    ``state``: (state, history, seconds of each step)."""
+    from repro_torch.training.train_loop import Watchdog, train_loop
+    wd = Watchdog()
+    state, hist = train_loop(cfg, hp, None, lambda step: batch,
+                             steps=hp.total_steps, state=state, watchdog=wd,
+                             log_every=0, device=dev)
+    return state, hist, list(wd.history)
+
+
+def train_phase(dev) -> tuple[list, "Recorder", dict]:
+    """The training path (``train_setup``): 5 AdamW steps on batch 4 x 1024
+    through ``train_loop``; then one more step under the profiler, and one
+    optimizer update timed.  Returns (phase lines, the scan's Recorder,
+    launches)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import ops
+    from repro_torch.optim.adamw import apply_updates, tree_leaves, tree_map
+    from repro_torch.training.train_loop import init_state, train_step
+
+    cfg, hp, batch = train_setup()
     B, S, STEPS = TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS
-    hp = HParams(peak_lr=3e-4, warmup=1, total_steps=STEPS)
-    dc = DataConfig(vocab_size=cfg.vocab_size, batch=B, seq_len=S, seed=0)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state = init_state(cfg, seed=0, device=dev)
@@ -1470,22 +1508,14 @@ def train_phase(dev) -> tuple[list, "Recorder", dict]:
                 "mamba_scan_bwd": ms.mamba_scan_bwd_cuda}
     for c in counters.values():
         c.launches = 0
-    # every step trains on the same batch: a step along the gradients must
-    # then lower the loss on the batch they came from, whatever five steps
-    # on fresh batches would generalise
-    batch = synth_batch(dc, 0)
-    wd = Watchdog()
     try:
-        state, hist = train_loop(cfg, hp, None, lambda step: batch,
-                                 steps=STEPS, state=state, watchdog=wd,
-                                 log_every=0, device=dev)
+        state, hist, secs = train_steps(cfg, hp, batch, state, dev)
         launches = {n: c.launches for n, c in counters.items()}
     finally:
         ops.KERNELS["mamba_scan"] = original
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = [h["loss"] for h in hist]
     gnorms = [h["grad_norm"] for h in hist]
-    secs = list(wd.history)
     for n, k in launches.items():
         if k <= 0:
             raise AssertionError(f"kernel {n} was not launched on the "

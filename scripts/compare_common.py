@@ -1,5 +1,6 @@
 """What the kernel comparison scripts (``flash_compare.py``,
-``tiles_compare.py``, ``decode_compare.py``) share: building an earlier
+``tiles_compare.py``, ``decode_compare.py``, ``rmsnorm_compare.py``,
+``scan_compare.py``) share: building an earlier
 version of a kernel's sources out of tree and binding its C entry points,
 ptxas's and cuobjdump's report on the current sources, and timing versions
 in turns.
@@ -55,7 +56,8 @@ def load_other(sources: list[Path], tmp: Path, name: str,
     lib = ctypes.CDLL(str(so))
     for entry in entries:
         fn = getattr(lib, entry)
-        fn.argtypes = (signatures or {}).get(entry, build.SIGNATURES[entry])
+        sigs = signatures or {}
+        fn.argtypes = sigs[entry] if entry in sigs else build.SIGNATURES[entry]
         fn.restype = ctypes.c_int
     return lib
 
@@ -148,6 +150,14 @@ def host_ms(fn, n: int = 20) -> float:
     spans = sorted(e.cpu_time_total for e in prof.events()
                    if e.name == "compare_call")
     return spans[len(spans) // 2] / 1e3
+
+
+def cold(calls) -> float:
+    """One call's device time where ``calls()`` makes one on each of
+    ``chip_smoke.COLD_CACHES`` input sets in turn (None: not measured)."""
+    import chip_smoke as cs
+    t = cs.device_ms(calls, n=5)
+    return t and t / cs.COLD_CACHES
 
 
 def in_turns(kernels: dict, call) -> tuple[dict, dict]:

@@ -79,14 +79,6 @@ def host_pos_call(lib, q, k, v, pos: int):
     return out
 
 
-def cold(calls) -> float:
-    """One call's device time where ``calls()`` makes one on each cold
-    cache in turn (None: not measured)."""
-    import chip_smoke as cs
-    t = cs.device_ms(calls, n=5)
-    return t and t / cs.COLD_CACHES
-
-
 def row_err(got, ref) -> float:
     e = (got.float() - ref.float()).abs().amax(-1)
     s = ref.float().abs().amax(-1).clamp_min(1e-30)
@@ -181,12 +173,12 @@ def main() -> int:
             line.update({f"{kn}_device_ms": devt[kn] for kn in fns})
             line.update({f"{kn}_host_ms": cc.host_ms(lambda: fn(k, v))
                          for kn, fn in fns.items()})
-            line.update({f"{kn}_cold_device_ms": cold(
+            line.update({f"{kn}_cold_device_ms": cc.cold(
                 lambda: [fn(kk, vv) for kk, vv in caches]) for kn, fn in
                 fns.items()})
             sdpa_cold = [cs.library_call("decode_attention", (q, kk, vv, pos),
                                          {}) for kk, vv in caches]
-            line["sdpa_cold_device_ms"] = cold(
+            line["sdpa_cold_device_ms"] = cc.cold(
                 lambda: [f() for f in sdpa_cold])
             line.update(bound_ms=bound_ms, bound_by=bound_by,
                         live_bytes=work["bytes"],

@@ -45,7 +45,8 @@ SIGNATURES = {
     "dequantize_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
     "mamba_scan_fwd_launch": [_P] * 8 + [_I, _I, _I, _P],
     "mamba_scan_bwd_launch": [_P] * 14 + [_I, _I, _I, _P],
-    "rmsnorm_launch": [_P, _P, _P, _L, _I, _F, _P],
+    "rmsnorm_rows_launch": [_P, _P, _P, _L, _I, _F, _I, _I, _P],
+    "rmsnorm_row_launch": [_P, _P, _P, _L, _I, _F, _I, _P],
     "flash_attention_launch": [_P] * 4 + [_I] * 6 + [_L] * 9 + [_P],
     "decode_attention_launch": [_P] * 8 + [_I] * 7 + [_P],
     "decode_attention_blocks_per_sm": [_I],

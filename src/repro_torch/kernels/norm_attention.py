@@ -38,6 +38,9 @@ HEAD_DIM = 128       # the head dim the attention kernels are written for
 DECODE_STEP = 32     # positions a decode_attention block takes a step
 PAGED_CHUNK = 256    # cache positions a decode_attention_paged block takes
 DECODE_REPS = (1, 2, 4, 8)   # query heads a kv head may serve (H / Hkv)
+# RMSNorm's launch shapes, in vectors of 8 values (4 where D % 8 != 0):
+RMSNORM_ROWS_MAX_VECTORS = 32  # widest row the several-rows-a-block kernel takes
+RMSNORM_ROW_MAX_THREADS = 512  # the one-row-a-block kernel's largest block
 
 
 # ================================================================ RMSNorm ==
@@ -47,6 +50,34 @@ def rmsnorm_plain(x: Tensor, scale: Tensor, eps: float = 1e-5) -> Tensor:
     x32 = x.to(torch.float32)
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps) * scale).to(x.dtype)
+
+
+def rmsnorm_vectors(D: int) -> int:
+    """The vectors a row of width D is cut in: 8 values each, 4 where
+    D % 8 != 0."""
+    return D // (8 if D % 8 == 0 else 4)
+
+
+@functools.lru_cache(maxsize=None)
+def rmsnorm_threads_per_row(rows: int, D: int, sms: int) -> int:
+    """Threads a row gets in ``csrc/rmsnorm.cu``, from the shape and the
+    card's ``sms``.  Rows of at most ``RMSNORM_ROWS_MAX_VECTORS`` vectors
+    (the q/k norms) go to the rows kernel, several rows a block: from 4
+    lanes a row, doubling while a lane would hold more than 4 vectors, or
+    while all the rows together would give the card fewer than 256 threads
+    an SM, and each lane still has a vector.  Wider rows get one block a
+    row, 2 vectors a thread (1 where there are fewer rows than SMs), up to
+    ``RMSNORM_ROW_MAX_THREADS``.  The C entries refuse a shape their kernel
+    cannot take, not one this rule would not pick."""
+    vecs = rmsnorm_vectors(D)
+    if vecs <= RMSNORM_ROWS_MAX_VECTORS:
+        t = 4
+        while t < 32 and t < vecs and (-(-vecs // t) > 4
+                                       or rows * t < sms * 256):
+            t *= 2
+        return t
+    per = 1 if rows < sms else 2
+    return min(RMSNORM_ROW_MAX_THREADS, -(-vecs // (32 * per)) * 32)
 
 
 def rmsnorm_cuda(x: Tensor, scale: Tensor, eps: float = 1e-5) -> Tensor:
@@ -67,11 +98,17 @@ def rmsnorm_cuda(x: Tensor, scale: Tensor, eps: float = 1e-5) -> Tensor:
     if x.numel() == 0:
         return out
     lib = build.library()
+    rows = x.numel() // D
+    sms = _sm_count(x.device)
+    threads = rmsnorm_threads_per_row(rows, D, sms)
+    args = (x.data_ptr(), scale.data_ptr(), out.data_ptr(), rows, D, eps,
+            threads)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.rmsnorm_launch(x.data_ptr(), scale.data_ptr(),
-                                 out.data_ptr(), x.numel() // D, D, eps,
-                                 stream)
+        if rmsnorm_vectors(D) <= RMSNORM_ROWS_MAX_VECTORS:
+            err = lib.rmsnorm_rows_launch(*args, sms, stream)
+        else:
+            err = lib.rmsnorm_row_launch(*args, stream)
     build.check(err, name)
     rmsnorm_cuda.launches += 1
     return out
@@ -212,6 +249,7 @@ def decode_chunk(B: int, S: int, Hkv: int, sms: int, per_sm: int) -> int:
     return min(c[1:] for c in filled)[1]
 
 
+_sms: dict = {}             # device index -> SMs
 _decode_slots: dict = {}    # (device index, rep) -> (SMs, blocks an SM)
 _arrivals: dict = {}        # device index -> the arrival counters in use
 
@@ -221,6 +259,14 @@ def _index(device: torch.device) -> int:
             else torch.cuda.current_device())
 
 
+def _sm_count(device: torch.device) -> int:
+    """The SMs of ``device``."""
+    key = _index(device)
+    if key not in _sms:
+        _sms[key] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _sms[key]
+
+
 def _decode_slots_of(lib, device: torch.device, rep: int) -> tuple:
     """(SMs, resident ``decode_attention`` blocks an SM holds at ``rep``)."""
     key = (_index(device), rep)
@@ -228,8 +274,7 @@ def _decode_slots_of(lib, device: torch.device, rep: int) -> tuple:
         per_sm = lib.decode_attention_blocks_per_sm(rep)
         if per_sm <= 0:
             raise RuntimeError(f"decode_attention: no occupancy for rep {rep}")
-        sms = torch.cuda.get_device_properties(device).multi_processor_count
-        _decode_slots[key] = (sms, per_sm)
+        _decode_slots[key] = (_sm_count(device), per_sm)
     return _decode_slots[key]
 
 

@@ -75,6 +75,49 @@ def test_rmsnorm_plain_matches_pallas(dtype, shape, eps, x_scale):
     _close(got, ref, dtype)
 
 
+# the launch shapes rmsnorm_cuda picks (threads a row), at 132 SMs
+RMSNORM_SERVED = {   # (rows, D): threads a row
+    (8192, 2560): 160,   # qwen3-4b prefill ln1: a row a block, 2 vectors a thread
+    (262144, 128): 4,    # its q_norm: 4 lanes a row, 4 vectors each
+    (65536, 128): 4,     # its k_norm
+    (4, 2560): 320,      # the decode step's ln1: a vector a thread
+    (128, 128): 16,      # its q_norm: a vector a lane
+    (32, 128): 16,       # its k_norm
+}
+
+
+@pytest.mark.parametrize("rows,D", list(RMSNORM_SERVED))
+def test_rmsnorm_threads_per_row_at_the_served_shapes(rows, D):
+    from repro_torch.kernels import norm_attention as na
+    assert na.rmsnorm_threads_per_row(rows, D, 132) == RMSNORM_SERVED[
+        (rows, D)]
+
+
+@pytest.mark.parametrize("D", [4, 12, 128, 200, 256, 264, 1028, 2048, 2560,
+                               4096, 8192, 40000])
+@pytest.mark.parametrize("rows", [1, 4, 37, 131, 132, 8192, 262144])
+def test_rmsnorm_threads_per_row_is_a_launch_the_kernel_takes(rows, D):
+    """Rows of at most ``RMSNORM_ROWS_MAX_VECTORS`` vectors: a power of
+    two from 4 to 32 with at most 8 vectors a lane (the rows kernel), never
+    more lanes than the row has vectors beyond the first 4; wider rows: a
+    multiple of 32 up to ``RMSNORM_ROW_MAX_THREADS`` (one row a block), 2
+    vectors a thread, 1 with fewer rows than SMs, until the block is
+    full."""
+    from repro_torch.kernels import norm_attention as na
+    t = na.rmsnorm_threads_per_row(rows, D, 132)
+    vecs = na.rmsnorm_vectors(D)
+    assert vecs == D // (8 if D % 8 == 0 else 4)
+    if vecs <= na.RMSNORM_ROWS_MAX_VECTORS:
+        assert t in (4, 8, 16, 32)
+        assert -(-vecs // t) <= 8
+        assert t == 4 or t // 2 < vecs
+    else:
+        per = 1 if rows < 132 else 2
+        assert t % 32 == 0 and t <= na.RMSNORM_ROW_MAX_THREADS
+        assert t == na.RMSNORM_ROW_MAX_THREADS or -(-vecs // t) == per
+        assert t >= 32 and (t == 32 or -(-vecs // (t - 32)) > per)
+
+
 # -------------------------------------------------------- flash attention --
 FLASH_CASES = {   # name: (B, Sq, Skv, H, Hkv, D, causal)
     "causal-rep1": (2, 128, 128, 4, 4, 32, True),

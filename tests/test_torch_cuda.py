@@ -166,6 +166,30 @@ def test_cuda_mamba_scan_bwd_matches_autograd(cuda_device, shape):
         assert _max_rel(g, r) < 1e-4, (name, _max_rel(g, r))
 
 
+# S ragged against the 8-step chunk (1, 7, 13), a single step, Di ragged
+# against the backward's 32-channel block (70, 130) and odd (67: staged in
+# 4-byte pieces, not 8-byte pairs), Bt 1, and a long S at narrow Di, where a
+# state carried wrongly from chunk to chunk would show
+SCAN_BWD_EDGES = [(1, 1, 64), (2, 7, 70), (1, 13, 130), (3, 9, 64),
+                  (2, 13, 67), (2, 1024, 72)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SCAN_BWD_EDGES)
+def test_cuda_mamba_scan_bwd_edges(cuda_device, shape):
+    rng = np.random.default_rng(sum(shape))
+    ins = [t.to(cuda_device) for t in _scan_inputs(rng, *shape)]
+    dy = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                          ).to(cuda_device)
+    _, states = ms._scan_fwd(*ins, save_states=True)
+    got = ms.mamba_scan_bwd_cuda(*ins, states, dy)
+    ref = ms.mamba_scan_bwd_plain(*ins, None, dy)
+    for name, g, r in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), got, ref):
+        assert g.shape == r.shape, name
+        assert torch.isfinite(g).all(), name
+        assert _max_rel(g, r) < 1e-4, (name, _max_rel(g, r))
+
+
 @pytest.mark.cuda
 def test_cuda_mamba_scan_autograd_function(cuda_device):
     """ops.mamba_scan on CUDA tensors that require grad goes through both
@@ -264,6 +288,94 @@ def test_cuda_rmsnorm_matches_plain(cuda_device, rows, D):
     x3 = x.reshape(1, rows, D)
     assert torch.equal(na.rmsnorm_cuda(x3, scale).reshape(rows, D),
                        na.rmsnorm_cuda(x, scale))
+
+
+def _rmsnorm_case(rng, rows, D, device):
+    """Rows of very different scales, one of them all zeros (its output is
+    0), and an N(0, 1) fp32 scale."""
+    x = _bf16(rng, (rows, D), device) * torch.from_numpy(
+        rng.uniform(0.01, 50, (rows, 1)).astype(np.float32)).to(
+            device, torch.bfloat16)
+    x[rows // 2] = 0
+    scale = torch.from_numpy(rng.standard_normal(D).astype(np.float32)).to(
+        device)
+    return x, scale
+
+
+def _rmsnorm_poisoned(x, scale):
+    """rmsnorm_cuda whose output lands in memory just filled with NaN (the
+    caching allocator hands the freed block of that size back), so an
+    element the kernel leaves unwritten fails the comparison."""
+    junk = torch.full_like(x, float("nan"))
+    del junk
+    return na.rmsnorm_cuda(x, scale, 1e-5)
+
+
+def _assert_rmsnorm_close(got, ref):
+    # one bf16 ulp (2^-7 of the value) at most, per element and so per row
+    got, ref = got.float(), ref.float()
+    assert ((got - ref).abs() <= 2.0 ** -7 * ref.abs()).all()
+    assert (got != ref).float().mean() < 0.01
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 4, 37, 8192])
+@pytest.mark.parametrize("D", [4, 200, 1028, 2560, 4096])
+def test_cuda_rmsnorm_edge_shapes(cuda_device, rows, D):
+    """The launch the wrapper picks at each shape (rows kernel or one row a
+    block; 16- or 8-byte vectors) against the plain version; every element
+    written (``_rmsnorm_poisoned``)."""
+    rng = np.random.default_rng(rows * 7 + D)
+    x, scale = _rmsnorm_case(rng, rows, D, cuda_device)
+    ref = na.rmsnorm_plain(x, scale, 1e-5)
+    before = na.rmsnorm_cuda.launches
+    got = _rmsnorm_poisoned(x, scale)
+    assert na.rmsnorm_cuda.launches == before + 1
+    _assert_rmsnorm_close(got, ref)
+    assert (got[rows // 2] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,threads", [
+    (200, 4), (200, 8), (200, 32), (12, 4),        # rows kernel, 16/8-byte
+    (1028, 32),                     # a row a block: 4 vectors kept, 5 read twice
+    (1028, 64), (1028, 512), (2560, 160), (2560, 320), (4096, 256),
+    (40000, 512),                   # past a block's registers: read twice
+])
+def test_cuda_rmsnorm_every_launch_shape(cuda_device, monkeypatch, D,
+                                         threads):
+    """Each kernel and register depth at a forced launch shape: the rows
+    kernel (4 to 32 lanes a row) and one row a block (32 to 512 threads),
+    at a row count that leaves a block part empty."""
+    rng = np.random.default_rng(D + threads)
+    x, scale = _rmsnorm_case(rng, 37, D, cuda_device)
+    ref = na.rmsnorm_plain(x, scale, 1e-5)
+    monkeypatch.setattr(na, "rmsnorm_threads_per_row",
+                        lambda rows, width, sms: threads)
+    _assert_rmsnorm_close(_rmsnorm_poisoned(x, scale), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,threads", [
+    (128, 2), (128, 12), (128, 64),     # rows kernel: 4..32 lanes, a power of two
+    (2560, 48), (2560, na.RMSNORM_ROW_MAX_THREADS + 32),   # a row a block
+])
+def test_cuda_rmsnorm_refuses_a_launch_its_kernel_cannot_take(
+        cuda_device, monkeypatch, D, threads):
+    """The wrapper picks within the kernels' own limits: a launch shape
+    one step past them is refused by the C entry, launches nothing, and
+    leaves the next launch unharmed."""
+    rng = np.random.default_rng(D + threads)
+    x, scale = _rmsnorm_case(rng, 37, D, cuda_device)
+    before = na.rmsnorm_cuda.launches
+    with monkeypatch.context() as m:
+        m.setattr(na, "rmsnorm_threads_per_row",
+                  lambda rows, width, sms: threads)
+        with pytest.raises(RuntimeError, match="rmsnorm: CUDA error"):
+            na.rmsnorm_cuda(x, scale, 1e-5)
+    assert na.rmsnorm_cuda.launches == before
+    _assert_rmsnorm_close(na.rmsnorm_cuda(x, scale, 1e-5),
+                          na.rmsnorm_plain(x, scale, 1e-5))
 
 
 @pytest.mark.cuda
