@@ -81,11 +81,12 @@ Phases, each printed as one JSON line:
 9. train_profile: one more step under torch.profiler, and the time of
    one AdamW update of every parameter;
 10. kernel (scan): ``mamba_scan`` on the inputs of its first call of each
-   kind in the train phase against the plain version, and
-   ``mamba_scan_bwd`` on the same inputs with a seeded dy against
-   ``torch.autograd.grad`` through the plain version, all six gradients;
-   both timed (CUDA events and device time) beside their bound and the
-   plain version's time;
+   kind in the train phase against the plain version (y, and the states
+   it saves at every chunk boundary), and ``mamba_scan_bwd`` on the same
+   inputs with a seeded dy against ``torch.autograd.grad`` through the
+   plain version, all six gradients; both timed (CUDA events and device
+   time) beside their bound (the forward's counting the states it saves,
+   as every training call does) and the plain version's time;
 11. serve-qwen3 (the dense GQA serving path): qwen3-4b at full width and
    all 36 layers (random bf16 weights from seed 0) served through
    ``generate``: batch 4, prompts of 2048 random tokens, 32 greedy tokens.
@@ -196,8 +197,9 @@ KERNEL_TOL = {
     "gather_swiglu_scatter": 5e-3,
     "gather_quantize": None,
     "dequantize": None,
-    # fp32 on both sides; expf and FMA contraction differ from torch's exp
-    # and separate roundings by ulps, which the decaying recurrence carries
+    # fp32 on both sides (y, and the chunk states it saves); ex2.approx and
+    # FMA contraction differ from torch's exp and separate roundings by
+    # ulps, which the decaying recurrence carries
     "mamba_scan": 1e-5,
     # per gradient: dA, dB, dC and dD are sums over thousands of terms
     # (time and batch, or channels) added with fp32 atomics in any order
@@ -1337,13 +1339,16 @@ def combine_phase(cfg, params, x, dist) -> tuple[dict, dict]:
                               launches)
 
 
-def scan_bound(name: str, args) -> tuple[float, str, dict]:
+def scan_bound(name: str, args, save_states: bool = False
+               ) -> tuple[float, str, dict]:
     """Least time for one scan call (forward, or backward from the chunk
     states): the larger of its bytes (fp32 inputs read once, outputs
-    written once) over the memory rate and its operations, each type over
-    its own rate: the fp32 arithmetic over the fp32 rate, the
-    exponentials over the SFU rate (the two pipes run side by side, so the
-    slower one bounds)."""
+    written once; a forward that saves the chunk states for the backward,
+    ``save_states``, as every training call does, writes them too) over
+    the memory rate and its operations, each type over its own rate: the
+    fp32 arithmetic over the fp32 rate, the exponentials over the SFU rate
+    (the two pipes run side by side, so the slower one bounds)."""
+    from repro_torch.kernels.mamba_scan import n_chunks
     x, _, A, _, _, _ = args[:6]
     Bt, S, Di = x.shape
     N = A.shape[1]
@@ -1351,12 +1356,14 @@ def scan_bound(name: str, args) -> tuple[float, str, dict]:
     small = Di * N + Di                                   # A, D
     if name == "mamba_scan":
         nbytes = 4 * (3 * elems + 2 * Bt * S * N + small)  # x, dt, y; B, C
+        if save_states:
+            nbytes += 4 * Bt * n_chunks(S) * Di * N
         ops, exps = SCAN_FWD_OPS * elems * N, SCAN_FWD_EXPS * elems * N
     else:
-        n_chunks = args[6].shape[1]
+        nc = args[6].shape[1]
         # x, dt, dy in and dx, ddt out; the chunk states; B, C in and
         # dB, dC out; A, D in and dA, dD out
-        nbytes = 4 * (5 * elems + Bt * n_chunks * Di * N + 4 * Bt * S * N
+        nbytes = 4 * (5 * elems + Bt * nc * Di * N + 4 * Bt * S * N
                       + 2 * small)
         ops, exps = SCAN_BWD_OPS * elems * N, SCAN_BWD_EXPS * elems * N
     t_bytes = nbytes / HBM_BYTES_PER_S
@@ -1384,18 +1391,28 @@ def check_scan(rec, launches: dict) -> list:
     for args, _ in rec.cases.values():
         with torch.no_grad():
             y, states = ms._scan_fwd(*args, save_states=True)
-            ref = ms.mamba_scan_plain(*args)
+            ref, ref_states = ms.mamba_scan_plain(*args, with_states=True)
         torch.cuda.synchronize()
-        err = float((y - ref).abs().max())
-        scale = float(ref.abs().max())
-        if not torch.isfinite(y).all() or err > KERNEL_TOL["mamba_scan"] * scale:
-            raise AssertionError(f"mamba_scan: max |err| {err} > "
-                                 f"{KERNEL_TOL['mamba_scan']} * {scale}")
-        del y, ref
-        bound_ms, bound_by, work = scan_bound("mamba_scan", args)
+        # y, and the states saved at every chunk boundary, each against its
+        # plain value within the tolerance of its own largest
+        errs = {}
+        for what, g, r in (("y", y, ref), ("states", states, ref_states)):
+            err, scale = float((g - r).abs().max()), float(r.abs().max())
+            errs[what] = (err, scale)
+            tol = KERNEL_TOL["mamba_scan"]
+            if not torch.isfinite(g).all() or err > tol * scale:
+                raise AssertionError(f"mamba_scan {what}: max |err| {err} > "
+                                     f"{tol} * {scale}")
+        err, scale = errs["y"]
+        del y, ref, ref_states
+        # the timed calls save the states, as every training call does
+        bound_ms, bound_by, work = scan_bound("mamba_scan", args,
+                                              save_states=True)
         with torch.no_grad():
             fwd_cases.append({
                 "max_abs_err": err, "max_abs_ref": scale,
+                "states_max_abs_err": errs["states"][0],
+                "states_max_abs_ref": errs["states"][1],
                 "ms": cuda_ms(lambda: ms._scan_fwd(*args, save_states=True)),
                 "device_ms": device_ms(
                     lambda: ms._scan_fwd(*args, save_states=True)),

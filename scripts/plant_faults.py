@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
 """Plant one fault at a time in a copy of the port's sources and count the
-``cuda`` tests of RMSNorm and the scan that each fails, on one NVIDIA GPU.
+``cuda`` tests of RMSNorm, the scan and the wire kernels that each fails,
+on one NVIDIA GPU.
 
     python3 scripts/plant_faults.py
 
-Each fault is a one-line edit of ``csrc/rmsnorm.cu`` or
-``csrc/mamba_scan.cu`` in a copy of ``src/`` and ``tests/`` under a
-temporary directory (the repository is never edited); the copy builds its
-own kernels and runs ``pytest --noconftest -m cuda -k "rmsnorm or scan"
-tests/test_torch_cuda.py``.  One JSON line a fault: pytest's summary and
-the failed tests.  Exits 1 if a fault fails no test.
+Each fault is a one-line edit of ``csrc/mamba_scan.cu``,
+``csrc/dequantize.cu`` or ``csrc/rmsnorm.cu`` in a copy of ``src/`` and
+``tests/`` under a temporary directory (the repository is never edited);
+the copy builds its own kernels and runs ``pytest --noconftest -m cuda -k
+"rmsnorm or scan or quantize" tests/test_torch_cuda.py``.  One JSON line a
+fault: pytest's summary and the failed tests.  Exits 1 if a fault fails no
+test.
 """
 from __future__ import annotations
 
@@ -33,6 +35,19 @@ FAULTS = {
         "    const BwdSmem::Stage& st = sm.stage[c & 1];\n"
         "    const int t0 = c * kChunk;\n"
         "    for (int j = 0; j < 2; ++j) for (int s = 0; s < 2; ++s) g[j][s] = 0.f;\n"),
+    "scan_fwd_skips_states": (
+        CSRC + "mamba_scan.cu", "    if (st_out != nullptr && d_ok)\n",
+        "    if (st_out != nullptr && d_ok && c == 0)\n"),
+    "scan_fwd_drops_lane": (
+        CSRC + "mamba_scan.cu",
+        "    // sum over the channel's 4 lanes: lane q keeps steps 2 q and 2 q + 1\n",
+        "    if (q == 3) for (int i = 0; i < kChunk; ++i) acc[i] = 0.f;\n"),
+    "dequantize_next_scale": (
+        CSRC + "dequantize.cu", "scales[(size_t)r * nb + c / kBlock]",
+        "scales[(size_t)r * nb + (c / kBlock + 1) % nb]"),
+    "dequantize_last_vector_unwritten": (
+        CSRC + "dequantize.cu", "    if (i < total) {\n      if constexpr",
+        "    if (i < total && (i + 1) % per_row != 0) {\n      if constexpr"),
     "rmsnorm_scale_off_rows": (
         CSRC + "rmsnorm.cu", "sc[q] = s_scale[q * nv + j];",
         "sc[q] = s_scale[q * nv + (j + 1) % nv];"),
@@ -58,7 +73,7 @@ def run(name: str, path: str, old: str, new: str, root: Path) -> dict:
     f.write_text(text.replace(old, new))
     r = subprocess.run(
         [sys.executable, "-m", "pytest", "--noconftest", "-q", "-m", "cuda",
-         "-k", "rmsnorm or scan", "-p", "no:cacheprovider",
+         "-k", "rmsnorm or scan or quantize", "-p", "no:cacheprovider",
          "tests/test_torch_cuda.py"],
         cwd=dst, env={**os.environ, "PYTHONPATH": str(dst / "src")},
         capture_output=True, text=True)

@@ -13,112 +13,215 @@
 // across the sequential chunk axis of its grid.  The TPU package has no
 // backward kernel (it differentiates the lax.scan oracle); this file adds one.
 //
-// Bound on an H100, at Bt 4, S 1024, Di 8192.  Forward: the exponentials.
-// Its one exponential per (b, t, d, n) takes 0.128 ms on the special-function
-// units (16 per SM per clock, 132 SMs, 1.98 GHz; an accurate expf is at least
-// one such op), above its bytes (x and dt read, y written, 12 bytes per
-// (b, t, d): 0.121 ms at 3.35 TB/s) and its 7 other fp32 operations per
-// (b, t, d, n) (0.056 ms at 67 TFLOP/s).  Backward: bytes.  It reads x, dt, dy
-// and the chunk states and writes dx and ddt (0.281 ms), above its two
-// exponentials (0.257 ms; the kernel below computes each once, 0.128 ms) and
-// 26 fp32 operations (0.208 ms) per (b, t, d, n).
+// Bound on an H100, at Bt 4, S 1024, Di 8192.  Forward: bytes.  It reads x
+// and dt and writes y (12 bytes per (b, t, d): 403 MB) and, when the caller
+// keeps them for the backward (every training call), the chunk states (64
+// bytes per (b, d) every kChunk steps: 268 MB), 0.200 ms at 3.35 TB/s, above
+// its one exponential per (b, t, d, n) on the special-function units (0.128
+// ms: 16 per SM per clock, 132 SMs, 1.98 GHz) and its 7 other fp32
+// operations per (b, t, d, n) (0.056 ms at 67 TFLOP/s).  Backward: bytes.
+// It reads x, dt, dy and the chunk states and writes dx and ddt (0.281 ms),
+// above its two exponentials (0.257 ms; the kernel below computes each once,
+// 0.128 ms) and 26 fp32 operations (0.208 ms) per (b, t, d, n).
 //
 // Design.  Hopper blocks run in no order, so the sequential grid axis of the
-// TPU kernel becomes a loop over time inside a thread: one thread per
-// (batch, channel) keeps its 16 states in registers.  A block covers 128
-// channels of one batch row; each chunk of kChunk steps it stages the B_t and
-// C_t rows (shared by all its channels) in shared memory and loads x and dt
-// for its kChunk steps into registers up front (coalesced along Di), so the
-// load latency is paid once a chunk, not once a step.  The forward also
-// writes the state at every chunk boundary (states), for the backward.
+// TPU kernel becomes a loop over time inside a thread, and a channel's 16
+// states are spread over 4 lanes so that enough warps are in flight to hide
+// the loads: Bt x Di x 4 threads (131,072 at the shapes above, ~31 warps an
+// SM, one wave).
+//
+// The forward: a warp takes 8 channels, each lane one channel and 4 of its
+// states, 256-thread blocks (64 channels).  Each chunk of kChunk steps the
+// block stages x and dt (interleaved, so a step reads both in one 8-byte
+// load) and the B_t and C_t rows (shared by all its channels) in shared
+// memory by cp.async, three chunks ahead of the one it computes.  A step is
+// one ex2.approx of dt * a * log2(e) per state (one special-function op; the
+// backward recomputes the same decay the same way) and 3 FMAs.  The lane's
+// partial sums of y_t (its 4 states' C . h) stay in registers for the chunk
+// and are summed over the channel's 4 lanes by a 6-shuffle transpose-reduce
+// at its end, which leaves each lane 2 steps of y to write.  At each chunk
+// boundary a lane writes its 4 states as one 16-byte store, so a channel's
+// 64 bytes and a warp's 512 are contiguous.
 //
 // The backward sweeps time in reverse per (batch, channel), carrying
 // g = dL/dh_t.  A warp takes 8 channels and their 16 states, each lane 2
-// channels x 2 states, so Bt x Di x 4 threads (131,072 at the shapes
-// above, four 128-thread blocks an SM, 32 channels a block: small blocks,
-// so that one block's barrier and chunk end overlap the others' work).
-// Each chunk it recomputes the chunk's states from the saved boundary
-// state, in registers, keeping each step's decay exp(dt a) for the reverse
-// walk, so one exponential per (b, t, d, n): ex2.approx of dt * a * log2(e),
-// one special-function op.  The chunk's x, dt, dy (8-byte channel pairs
-// where Di is even), B, C and boundary states land in shared memory by
-// cp.async, the next chunk's while this one computes, x and dt (and B and
-// C) interleaved so that a step reads them in one 16-byte load.  dB_t and
-// dC_t sum a lane's 2 channels in registers and its quad's 8 (the quad's
-// lanes hold the same states) by a 3-shuffle transpose-reduce a step.  dx
-// and ddt sum a channel's 16 states over the 8 lanes that hold them: each
-// lane leaves its per-step partial sums in shared memory, and at the
-// chunk's end each half-warp adds one step's for all 32 channels (8
+// channels x 2 states (four 128-thread blocks an SM, 32 channels a block:
+// small blocks, so that one block's barrier and chunk end overlap the
+// others' work).  Each chunk it recomputes the chunk's states from the
+// saved boundary state, in registers, keeping each step's decay exp(dt a)
+// for the reverse walk, so one exponential per (b, t, d, n): ex2.approx of
+// dt * a * log2(e), one special-function op.  The chunk's x, dt, dy (8-byte
+// channel pairs where Di is even), B, C and boundary states land in shared
+// memory by cp.async, the next chunk's while this one computes, x and dt
+// (and B and C) interleaved so that a step reads them in one 16-byte load.
+// dB_t and dC_t sum a lane's 2 channels in registers and its quad's 8 (the
+// quad's lanes hold the same states) by a 3-shuffle transpose-reduce a
+// step.  dx and ddt sum a channel's 16 states over the 8 lanes that hold
+// them: each lane leaves its per-step partial sums in shared memory, and at
+// the chunk's end each half-warp adds one step's for all 32 channels (8
 // independent 16-byte loads a lane, not a chain of shuffles every step),
 // writes dx and ddt, adds dD's terms, and sums dB_t, dC_t over the block's
 // 4 warps; one float4 atomicAdd per (b, t, 4 values) and block adds those
 // across the Di / 32 blocks.  dA sums over batch and time in registers and
 // adds across the Bt blocks with atomicAdd.  Atomics add in any order, so
 // dA, dB, dC and dD can change in the last bits from run to run.  On an
-// H100 this runs at about 44% of the bytes bound, limited by the rate it
-// issues instructions at (PERF.md).
+// H100 the backward runs at about 44% of the bytes bound, limited by the
+// rate it issues instructions at (PERF.md).
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kN = 16;        // d_state
 constexpr int kChunk = 8;     // steps per chunk (the Python wrapper's SCAN_CHUNK)
-constexpr int kThreads = 128; // channels per block
+constexpr float kLog2e = 1.4426950408889634f;
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem, int bytes, bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+                 "r"(ok ? 16 : 0) : "memory");
+  else if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(gmem),
+                 "r"(ok ? 8 : 0) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
+                 "r"(ok ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+// One stage of a transpose-reduce over the lanes that differ in bit M:
+// lanes with bit M set keep the upper W of their 2W live values and
+// receive the partner's upper half.
+template <int W, int M, int L>
+__device__ __forceinline__ void transpose_reduce_stage(float (&v)[L], int lane) {
+  static_assert(2 * W <= L, "live values");
+  const bool upper = (lane & M) != 0;
+#pragma unroll
+  for (int j = 0; j < W; ++j) {
+    const float send = upper ? v[j] : v[j + W];
+    const float keep = upper ? v[j + W] : v[j];
+    v[j] = keep + __shfl_xor_sync(0xffffffffu, send, M);
+  }
+}
+
+// -------------------------------------------------------------- forward --
+// lane (gid, q) = (lane / 4, lane % 4) holds channel gid of its warp's 8
+// and states 4 q .. 4 q + 3
+constexpr int kFwdThreads = 256;
+constexpr int kFwdChannels = kFwdThreads / 4;   // channels a block
+constexpr int kFwdStages = 4;                   // chunks in shared memory
+static_assert(kFwdThreads == 4 * kFwdChannels && kN == 16, "4 lanes, 4 states a lane");
+static_assert(kChunk * kFwdChannels == 2 * kFwdThreads, "a thread stages 2 steps of x, dt");
+static_assert(kChunk * 2 * kN / 4 <= kFwdThreads, "a thread stages at most one B or C piece");
+
+// one chunk's inputs (zeros past S and Di)
+struct FwdStage {
+  float2 xdt[kChunk][kFwdChannels];             // a channel's x, dt
+  float4 bc[kChunk][2][kN / 4];                 // B_t, then C_t, 4 states a float4
+};
+
+__global__ void __launch_bounds__(kFwdThreads, 4)
 scan_fwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                 const float* __restrict__ A, const float* __restrict__ Bm,
                 const float* __restrict__ Cm, const float* __restrict__ Dp,
                 float* __restrict__ y, float* __restrict__ states, int S, int Di, int NC) {
-  __shared__ float sB[kChunk][kN];
-  __shared__ float sC[kChunk][kN];
-  const int b = blockIdx.y;
-  const int d = blockIdx.x * kThreads + threadIdx.x;
-  const bool valid = d < Di;
-  float a[kN], h[kN];
-#pragma unroll
-  for (int n = 0; n < kN; ++n) {
-    a[n] = valid ? A[(size_t)d * kN + n] : 0.f;
-    h[n] = 0.f;
-  }
-  const float Dd = valid ? Dp[d] : 0.f;
-  const size_t row = (size_t)b * S;
-  for (int c = 0; c < NC; ++c) {
+  __shared__ FwdStage sm[kFwdStages];
+  const int tid = threadIdx.x, lane = tid & 31, q = lane & 3;
+  const int ch = (tid >> 5) * 8 + (lane >> 2);           // the lane's channel in the block
+  const int b = blockIdx.y, d0 = blockIdx.x * kFwdChannels, d = d0 + ch;
+  const bool d_ok = d < Di;
+  const long long row = (long long)b * S;
+  // staging: x and dt of channel io_ch at steps io_i and io_i + kChunk / 2;
+  // threads below kChunk * 8 one 16-byte piece of B_t or C_t
+  const int io_ch = tid % kFwdChannels, io_i = tid / kFwdChannels;
+  const bool io_ok = d0 + io_ch < Di;
+  const long long io_off = (row + io_i) * Di + d0 + io_ch;
+  const int bc_i = tid / 8, bc_w = tid / 4 % 2, bc_q = tid % 4;
+  const float* bc_src = (bc_w ? Cm : Bm) + (row + bc_i) * kN + bc_q * 4;
+
+  auto stage = [&](int c) {
+    FwdStage& st = sm[c % kFwdStages];
     const int t0 = c * kChunk;
-    if (states != nullptr && valid) {
-      float4* dst = reinterpret_cast<float4*>(states + (((size_t)b * NC + c) * Di + d) * kN);
 #pragma unroll
-      for (int q = 0; q < kN / 4; ++q)
-        dst[q] = make_float4(h[4 * q], h[4 * q + 1], h[4 * q + 2], h[4 * q + 3]);
+    for (int r = 0; r < 2; ++r) {
+      const int i = io_i + r * (kChunk / 2);
+      const bool ok = io_ok && t0 + i < S;
+      const long long o = ok ? io_off + (long long)(t0 + r * (kChunk / 2)) * Di : 0;
+      cp_async(&st.xdt[i][io_ch].x, x + o, 4, ok);
+      cp_async(&st.xdt[i][io_ch].y, dt + o, 4, ok);
     }
-    for (int k = threadIdx.x; k < kChunk * kN; k += kThreads) {
-      const int t = t0 + k / kN;
-      const bool ok = t < S;
-      sB[k / kN][k % kN] = ok ? Bm[(row + t) * kN + k % kN] : 0.f;
-      sC[k / kN][k % kN] = ok ? Cm[(row + t) * kN + k % kN] : 0.f;
+    if (tid < kChunk * 8) {
+      const bool ok = t0 + bc_i < S;
+      cp_async(&st.bc[bc_i][bc_w][bc_q], ok ? bc_src + t0 * kN : Bm, 16, ok);
     }
-    float xs[kChunk], ds[kChunk];
+  };
+
+  float a2[4], h[4];
+  {
+    const float4 a = d_ok ? *reinterpret_cast<const float4*>(A + (size_t)d * kN + 4 * q)
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+    a2[0] = a.x * kLog2e, a2[1] = a.y * kLog2e, a2[2] = a.z * kLog2e, a2[3] = a.w * kLog2e;
+  }
 #pragma unroll
-    for (int i = 0; i < kChunk; ++i) {
-      const int t = t0 + i;
-      const bool ok = valid && t < S;
-      xs[i] = ok ? x[(row + t) * Di + d] : 0.f;
-      ds[i] = ok ? dt[(row + t) * Di + d] : 0.f;
-    }
+  for (int k = 0; k < 4; ++k) h[k] = 0.f;
+  const float Dd = d_ok ? Dp[d] : 0.f;
+  float* y_out = y + row * Di + d;
+  float4* st_out = states == nullptr ? nullptr
+      : reinterpret_cast<float4*>(states + ((long long)b * NC * Di + d) * kN + 4 * q);
+
+#pragma unroll
+  for (int c = 0; c < kFwdStages - 1; ++c) {
+    if (c < NC) stage(c);
+    cp_async_commit();
+  }
+  for (int c = 0; c < NC; ++c) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kFwdStages - 2) : "memory");
+    // chunk c has landed, and every thread is done with chunk c - 1's
+    // buffer, which the stage below overwrites
     __syncthreads();
+    if (c + kFwdStages - 1 < NC) stage(c + kFwdStages - 1);
+    cp_async_commit();
+    const FwdStage& st = sm[c % kFwdStages];
+    const int t0 = c * kChunk;
+    if (st_out != nullptr && d_ok)
+      st_out[(long long)c * Di * (kN / 4)] = make_float4(h[0], h[1], h[2], h[3]);
+    // acc[i]: the lane's 4 states' share of y at step i; steps past S have
+    // dt = x = 0: exp(0) = 1 and no input, h unchanged
+    float acc[kChunk];
 #pragma unroll
     for (int i = 0; i < kChunk; ++i) {
-      float acc = 0.f;
+      const float2 xd = st.xdt[i][ch];
+      const float4 bv = st.bc[i][0][q], cv = st.bc[i][1][q];
+      const float dtx = xd.y * xd.x;
+      const float bn[4] = {bv.x, bv.y, bv.z, bv.w}, cn[4] = {cv.x, cv.y, cv.z, cv.w};
 #pragma unroll
-      for (int n = 0; n < kN; ++n) {
-        // steps past S have dt = x = 0: exp(0) = 1 and no input, h unchanged
-        h[n] = expf(ds[i] * a[n]) * h[n] + ds[i] * sB[i][n] * xs[i];
-        acc += h[n] * sC[i][n];
+      for (int k = 0; k < 4; ++k) {
+        h[k] = fmaf(ex2(xd.y * a2[k]), h[k], dtx * bn[k]);
+        acc[i] = k == 0 ? h[k] * cn[k] : fmaf(h[k], cn[k], acc[i]);
       }
-      const int t = t0 + i;
-      if (valid && t < S) y[(row + t) * Di + d] = acc + xs[i] * Dd;
     }
-    __syncthreads();
+    // sum over the channel's 4 lanes: lane q keeps steps 2 q and 2 q + 1
+    transpose_reduce_stage<4, 2>(acc, lane);
+    transpose_reduce_stage<2, 1>(acc, lane);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int i = 2 * q + j;
+      if (d_ok && t0 + i < S)
+        y_out[(long long)(t0 + i) * Di] = fmaf(st.xdt[i][ch].x, Dd, acc[j]);
+    }
   }
 }
 
@@ -129,7 +232,6 @@ scan_fwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
 constexpr int kBwdThreads = 128;
 constexpr int kBwdWarps = kBwdThreads / 32;
 constexpr int kBwdChannels = kBwdWarps * 8;     // channels a block
-constexpr float kLog2e = 1.4426950408889634f;
 // at the chunk's end warp w takes steps w and w + 4: a half-warp each, a
 // lane the block's 16 channel pairs for dx and ddt, and 8 float4s of
 // dB_t, dC_t in 2 parts
@@ -152,43 +254,6 @@ struct BwdSmem {
   float4 dxt[kChunk][kBwdWarps * (32 + kDxtPad)];
 };
 static_assert(sizeof(BwdSmem) <= 48 * 1024, "static shared memory");
-
-__device__ __forceinline__ void cp_async(void* smem, const void* gmem, int bytes, bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  if (bytes == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-                 "r"(ok ? 16 : 0) : "memory");
-  else if (bytes == 8)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(gmem),
-                 "r"(ok ? 8 : 0) : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
-                 "r"(ok ? 4 : 0) : "memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float4 add4(float4 a, float4 b) {
-  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
-}
-
-// One stage of a transpose-reduce over the lanes that differ in bit M:
-// lanes with bit M set keep the upper W of their 2W live values and
-// receive the partner's upper half.
-template <int W, int M>
-__device__ __forceinline__ void transpose_reduce_stage(float (&v)[4], int lane) {
-  const bool upper = (lane & M) != 0;
-#pragma unroll
-  for (int j = 0; j < W; ++j) {
-    const float send = upper ? v[j] : v[j + W];
-    const float keep = upper ? v[j + W] : v[j];
-    v[j] = keep + __shfl_xor_sync(0xffffffffu, send, M);
-  }
-}
 
 // kPairs: Di is even, so x, dt and dy are staged in 8-byte channel pairs
 template <bool kPairs>
@@ -251,7 +316,7 @@ scan_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
     }
     // c * Di * kN = 2 t0 Di: the chunk's states
     cp_async(&st.h0[h_ch][h_q * 4], h_ok ? h_src + 2 * tD : states, 16, h_ok);
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    cp_async_commit();
   };
 
   float a[2][2], a2[2][2], g[2][2], gA[2][2];
@@ -403,8 +468,8 @@ extern "C" int mamba_scan_fwd_launch(const void* x, const void* dt, const void* 
                                      const void* C, const void* D, void* y, void* states,
                                      int Bt, int S, int Di, void* stream) {
   const int NC = (S + kChunk - 1) / kChunk;
-  const dim3 grid((Di + kThreads - 1) / kThreads, Bt);
-  scan_fwd_kernel<<<grid, kThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((Di + kFwdChannels - 1) / kFwdChannels, Bt);
+  scan_fwd_kernel<<<grid, kFwdThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(dt), static_cast<const float*>(A),
       static_cast<const float*>(B), static_cast<const float*>(C), static_cast<const float*>(D),
       static_cast<float*>(y), static_cast<float*>(states), S, Di, NC);

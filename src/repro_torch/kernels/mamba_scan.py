@@ -31,19 +31,27 @@ N_STATE = 16        # the d_state the CUDA kernels are written for
 
 
 def mamba_scan_plain(x: Tensor, dt: Tensor, A: Tensor, B: Tensor, C: Tensor,
-                     D: Tensor) -> Tensor:
+                     D: Tensor, *, with_states: bool = False):
     """x, dt (Bt, S, Di); A (Di, N); B, C (Bt, S, N); D (Di,) -> y (Bt, S, Di):
-    ``h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t``, ``y_t = C_t . h_t + D x_t``."""
+    ``h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t``, ``y_t = C_t . h_t + D x_t``.
+    ``with_states``: (y, states), states (Bt, ceil(S / SCAN_CHUNK), Di, N)
+    the state before each chunk's first step, as the forward kernel saves
+    them."""
     Bt, S, Di = x.shape
     dA = torch.exp(dt[..., None] * A[None, None])                 # (Bt,S,Di,N)
     dBx = dt[..., None] * B[:, :, None, :] * x[..., None]          # (Bt,S,Di,N)
     h = torch.zeros((Bt, Di, A.shape[1]), dtype=x.dtype, device=x.device)
-    ys = []
+    ys, states = [], [h] if with_states and S else []
     for t in range(S):
         h = dA[:, t] * h + dBx[:, t]
         ys.append(torch.einsum("bdn,bn->bd", h, C[:, t]))
-    y = torch.stack(ys, 1) if ys else torch.zeros_like(x)
-    return y + x * D
+        if states and (t + 1) % SCAN_CHUNK == 0 and t + 1 < S:
+            states.append(h)
+    y = (torch.stack(ys, 1) if ys else torch.zeros_like(x)) + x * D
+    if not with_states:
+        return y
+    return y, (torch.stack(states, 1) if states else
+               h.new_zeros((Bt, 0, Di, A.shape[1])))
 
 
 def mamba_scan_bwd_plain(x: Tensor, dt: Tensor, A: Tensor, B: Tensor,

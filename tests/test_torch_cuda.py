@@ -96,6 +96,44 @@ def test_cuda_quantize_kernels_bit_exact(cuda_device, wire, D):
                            qp.dequantize_plain(q_ref, s_ref))
 
 
+def _wire_bytes(N, D, wire, device):
+    """(N, D) wire values running through all 256 byte patterns (NaN
+    encodings included) wherever N * D >= 256."""
+    b = ((torch.arange(N * D, dtype=torch.int64) * 37 + 11) % 256).to(
+        torch.uint8).reshape(N, D)
+    return b.view(torch.float8_e4m3fn if wire == "fp8" else torch.int8).to(
+        device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["fp8", "int8"])
+@pytest.mark.parametrize("N,D", [(16, 2048), (32, 16), (3, 144), (5, 200),
+                                 (9, 36), (7, 201), (1, 2048), (1, 16),
+                                 (0, 2048)])
+def test_cuda_dequantize_every_byte_bit_exact(cuda_device, wire, N, D):
+    """Every byte value of both wire dtypes, at D that the kernel takes in
+    4-byte units (16, 144, 2048, and 200 and 36, not multiples of 16) and
+    in single bytes (201), and N 0 and 1, bit for bit against the plain
+    version (compared as int32 views, so NaNs compare too); every element
+    written (the output lands in memory just filled with NaN).  Scales
+    differ from block to block, and one is subnormal."""
+    rng = np.random.default_rng(N * 1000 + D)
+    q = _wire_bytes(N, D, wire, cuda_device)
+    nb = -(-D // 128)
+    s = rng.uniform(1e-3, 1e3, (N, nb)).astype(np.float32)
+    if N:
+        s[0, -1] = 1e-39
+    scales = torch.from_numpy(s).to(cuda_device)
+    junk = torch.full((N, D), float("nan"), device=cuda_device)
+    del junk
+    before = qp.dequantize_cuda.launches
+    got = qp.dequantize_cuda(q, scales)
+    assert qp.dequantize_cuda.launches == before + (1 if N else 0)
+    ref = qp.dequantize_plain(q, scales)
+    assert got.shape == ref.shape == (N, D)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
 @pytest.mark.cuda
 def test_cuda_wrappers_raise_on_inputs_they_do_not_take(cuda_device):
     """A CUDA tensor launches the kernel or raises: never a quiet fallback."""
@@ -135,18 +173,82 @@ def _max_rel(got, ref):
 SCAN_SHAPES = [(2, 37, 200), (1, 64, 256), (3, 5, 130)]
 
 
+def _scan_fwd_checked(ins, states_vs_float64=False):
+    """The forward kernel, its y and states landing in memory just filled
+    with NaN (the caching allocator hands the freed blocks of those sizes
+    back), against the plain recurrence: y, and the state at every chunk
+    boundary (t = 8 c), each within 1e-5 of its own largest value.  fp32
+    on both sides; ex2.approx and FMA contraction differ from torch's exp
+    and separate roundings by ulps, which the decaying recurrence carries.
+    ``states_vs_float64``: the states are held instead to the recurrence
+    in float64, within twice the fp32 plain version's own error there."""
+    Bt, S, Di = ins[0].shape
+    st_shape = (Bt, ms.n_chunks(S), Di, 16)
+    junk = (torch.full_like(ins[0], float("nan")),
+            torch.full(st_shape, float("nan"), device=ins[0].device))
+    del junk
+    before = ms.mamba_scan_cuda.launches
+    y, states = ms._scan_fwd(*ins, save_states=True)
+    assert ms.mamba_scan_cuda.launches == before + 1
+    ref, ref_states = ms.mamba_scan_plain(*ins, with_states=True)
+    assert states.shape == st_shape == ref_states.shape
+    assert torch.isfinite(y).all() and torch.isfinite(states).all()
+    assert (states[:, 0] == 0).all()
+    assert _max_rel(y, ref) < 1e-5, _max_rel(y, ref)
+    if states_vs_float64:
+        _, exact = ms.mamba_scan_plain(*[t.double() for t in ins],
+                                       with_states=True)
+        err = _max_rel(states.double(), exact)
+        assert err <= 2 * _max_rel(ref_states.double(), exact), err
+    else:
+        assert _max_rel(states, ref_states) < 1e-5, _max_rel(states,
+                                                             ref_states)
+    y_only, none = ms._scan_fwd(*ins, save_states=False)
+    assert none is None and torch.equal(y_only, y)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", SCAN_SHAPES)
 def test_cuda_mamba_scan_fwd_matches_plain(cuda_device, shape):
     ins = [t.to(cuda_device) for t in _scan_inputs(np.random.default_rng(3),
                                                    *shape)]
-    y, states = ms._scan_fwd(*ins, save_states=True)
-    ref = ms.mamba_scan_plain(*ins)
-    # fp32 on both sides; expf and FMA contraction differ from torch's exp
-    # and separate roundings by ulps, which the decaying recurrence carries
-    assert _max_rel(y, ref) < 1e-5
-    assert states.shape == (shape[0], ms.n_chunks(shape[1]), shape[2], 16)
-    assert (states[:, 0] == 0).all()
+    _scan_fwd_checked(ins)
+
+
+# ragged against the forward's 64-channel block (67 odd, 70, 130) and the
+# 8-step chunk (S 1, 7, 9, 13), odd Bt, and a long S at narrow Di, where a
+# state carried wrongly from chunk to chunk would show
+SCAN_FWD_EDGES = [(1, 1, 64), (3, 7, 67), (1, 9, 70), (3, 13, 130),
+                  (5, 1, 130), (1, 1024, 72)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SCAN_FWD_EDGES)
+def test_cuda_mamba_scan_fwd_edges(cuda_device, shape):
+    ins = [t.to(cuda_device) for t in _scan_inputs(
+        np.random.default_rng(sum(shape) + 1), *shape)]
+    _scan_fwd_checked(ins)
+
+
+@pytest.mark.cuda
+def test_cuda_mamba_scan_fwd_slowest_decays(cuda_device):
+    """dt at its init's floor (0.001) and a = -0.5 (A_log's smallest
+    entry after a 0.5 draw): the state carries each step's error of the
+    decay over ~1 / (dt |a|) = 2,000 steps, so a biased exponential would
+    show here first.  y is held to the plain version within 1e-5; the
+    states to the float64 recurrence, from which the fp32 plain version's
+    own states drift by ~1.6e-5 of their largest here (ex2.approx and
+    torch's exp round the decay apart, so the two fp32 recurrences drift
+    apart by more than either drifts from the exact one)."""
+    rng = np.random.default_rng(7)
+    Bt, S, Di = 1, 4096, 64
+    x, _, _, B, C, D = _scan_inputs(rng, Bt, S, Di)
+    dt = torch.from_numpy(rng.uniform(1e-3, 1.2e-3, (Bt, S, Di)).astype(
+        np.float32))
+    A = torch.from_numpy((-0.5 * rng.uniform(1.0, 1.05, (Di, 16))).astype(
+        np.float32))
+    _scan_fwd_checked([t.to(cuda_device) for t in (x, dt, A, B, C, D)],
+                      states_vs_float64=True)
 
 
 @pytest.mark.cuda

@@ -77,6 +77,34 @@ def test_plain_scan_grads_match_jax(case):
                                    err_msg=name)
 
 
+@pytest.mark.parametrize("Bt,S,Di", [(2, 20, 48), (1, 16, 8), (3, 1, 5),
+                                     (1, 33, 12)])
+def test_plain_scan_states_match_jax(Bt, S, Di):
+    """The chunk states the plain scan returns (what the forward kernel's
+    saved states are held to on the card): the state before step 8 c,
+    against the jnp oracle's h at t = 8 c - 1, read out of its y with
+    D = 0 and C one-hot in each state n."""
+    N = 16
+    x, dt, A, B, _, D = _scan_inputs(np.random.default_rng(S + Di), Bt, S,
+                                     Di, N)
+    y, states = ms.mamba_scan_plain(*map(torch.from_numpy,
+                                         (x, dt, A, B, B, D)),
+                                    with_states=True)
+    assert states.shape == (Bt, ms.n_chunks(S), Di, N)
+    assert torch.equal(y, ms.mamba_scan_plain(*map(torch.from_numpy,
+                                                   (x, dt, A, B, B, D))))
+    assert (states[:, 0] == 0).all()
+    zero_d = np.zeros_like(D)
+    h = np.stack([np.asarray(mamba_scan_ref(
+        x, dt, A, B, np.broadcast_to(np.eye(N, dtype=np.float32)[n],
+                                     (Bt, S, N)), zero_d))
+        for n in range(N)], -1)                             # (Bt, S, Di, N)
+    for c in range(1, ms.n_chunks(S)):
+        np.testing.assert_allclose(states[:, c].numpy(),
+                                   h[:, ms.SCAN_CHUNK * c - 1],
+                                   rtol=RTOL, atol=ATOL, err_msg=f"chunk {c}")
+
+
 def test_ops_mamba_scan_cpu_takes_plain():
     """A CPU tensor takes the plain version (differentiable), launching
     nothing."""

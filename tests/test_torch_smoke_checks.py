@@ -115,3 +115,27 @@ def test_prefill_ln1_leads_rmsnorm():
     cases = list(rec.cases.values())
     best = max(range(len(cases)), key=lambda i: key(cases[i][0]))
     assert tuple(cases[best][0][0].shape) == (2, 6, 16)
+
+
+@pytest.mark.parametrize("save_states,ms_,by", [(True, 0.2005, "bytes"),
+                                                (False, 0.1284, "operations")])
+def test_scan_bound_counts_the_saved_states(save_states, ms_, by):
+    """The forward's bound at the trained shape (4, 1024, 8192): a call
+    that saves the chunk states for the backward, as every training call
+    does, also writes (4, 128, 8192, 16) fp32 (268.4 MB beside x, dt and
+    y's 402.7 MB), and its bytes then bound it, above the exponentials'
+    0.128 ms; without them the exponentials bound it."""
+    Bt, S, Di, N = 4, 1024, 8192, 16
+    meta = dict(device="meta")
+    args = (torch.empty((Bt, S, Di), **meta), torch.empty((Bt, S, Di), **meta),
+            torch.empty((Di, N), **meta), torch.empty((Bt, S, N), **meta),
+            torch.empty((Bt, S, N), **meta), torch.empty((Di,), **meta))
+    bound_ms, bound_by, work = chip_smoke.scan_bound(
+        "mamba_scan", args, save_states=save_states)
+    assert bound_by == by
+    assert bound_ms == pytest.approx(ms_, rel=2e-3)
+    states_bytes = 4 * Bt * (S // 8) * Di * N
+    assert work["bytes"] - 4 * (3 * Bt * S * Di + 2 * Bt * S * N
+                                + Di * N + Di) == (
+        states_bytes if save_states else 0)
+    assert work["exp_ms"] == pytest.approx(0.1284, rel=2e-3)
