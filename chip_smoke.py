@@ -33,8 +33,9 @@ Phases, each printed as one JSON line:
    position against the batched HT prefill's with every capacity lifted,
    within ``SERVE_PLAIN_TOL`` of their largest; then one prefill, one
    decode step, and one decode step replayed from its CUDA graph under
-   torch.profiler (device busy share, the device activities and host
-   operators that take the most time);
+   torch.profiler (device busy share, device time by kind, the device
+   activities and host operators that take the most time), and one decode
+   step on the fp8 wire replayed from its own graph;
 5. moe_served: HT at the served shape (1024 tokens), on the MoE inputs
    one prefill recorded: per-layer drops, and for layer 0 and the layer
    that drops most, the output at the configured capacity against the
@@ -393,15 +394,28 @@ def bound(name: str, args, kwargs) -> tuple[float, str, dict]:
         t_ops = flops / BF16_FLOP_PER_S
         work = {"occupied_rows": rows, "occupied_experts": experts}
     elif name == "gather_quantize":
+        # the table rows the occupied slots name, each read once (a token
+        # that fills several slots, as HT's and LL's do, is one read), the
+        # indices of the occupied slots and the counts; every slot's bytes
+        # and scales written
+        from repro_torch.core.plan import occupancy_mask
         x_ext, src, counts = args
         D = x_ext.shape[1]
         n = src.shape[0]
         nb = -(-D // 128)
-        rows = n if counts is None else int(
-            counts.clamp(max=n // counts.numel()).sum())
-        nbytes = rows * D * 4 + n * D + n * nb * 4 + n * 4
+        occ = (torch.ones(n, dtype=torch.bool, device=src.device)
+               if counts is None else occupancy_mask(
+                   counts.reshape(-1), counts.numel(),
+                   n // counts.numel()).reshape(-1))
+        rows = int(occ.sum())
+        table_rows = int(torch.unique(src[occ].clamp(
+            0, x_ext.shape[0] - 1)).numel())
+        nbytes = (table_rows * D * 4 + rows * 4
+                  + (0 if counts is None else counts.numel() * 4)
+                  + n * D + n * nb * 4)
         t_ops = 4.0 * rows * D / FP32_FLOP_PER_S
-        work = {"slots": n, "occupied_slots": rows}
+        work = {"slots": n, "occupied_slots": rows,
+                "table_rows_read": table_rows}
     else:
         q, scales = args
         nbytes = q.numel() * 5 + scales.numel() * 4
@@ -625,8 +639,8 @@ DEVICE_KINDS = (("scan kernels", ("scan_fwd_kernel", "scan_bwd_kernel")),
                 ("attention and norm kernels", (
                     "flash_fwd_kernel", "decode_kernel", "paged_split_kernel",
                     "decode_merge_kernel", "rmsnorm_row")),
-                ("EP kernels", ("swiglu_tiles", "gather_quantize",
-                                "dequantize_kernel")),
+                ("wire kernels", ("gather_quantize", "dequantize_kernel")),
+                ("EP kernels", ("swiglu_tiles",)),
                 ("cuBLAS GEMM", ("nvjet", "gemm", "cutlass", "xmma")),
                 ("copies and casts", ("copy", "Memcpy", "Memset")),
                 ("reductions", ("reduce", "Reduce", "softmax", "Softmax")),
@@ -640,14 +654,15 @@ def device_kind(name: str) -> str:
     return "other"
 
 
-def profile_step(what: str, step) -> dict:
+def profile_step(what: str, step, by_name: bool = False) -> dict:
     """``step()`` once under torch.profiler: the device's busy share of the
     step's wall time (the union of the device activities' intervals: the
     kernels, copies and fills the card ran), the device time by kind of
     activity, the device activities with the most time, and the host
-    operators with the most self time.  Host operators (``aten::mm``, ...)
-    also carry the device time of the kernels they launch; only device rows
-    count as device time here."""
+    operators with the most self time (``by_name``: also every device
+    activity's time and calls, by name).  Host operators (``aten::mm``,
+    ...) also carry the device time of the kernels they launch; only device
+    rows count as device time here."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -682,6 +697,8 @@ def profile_step(what: str, step) -> dict:
         kind["device_ms"] += us / 1e3
         kind["calls"] += c
     busy_ms = busy_us / 1e3
+    named = ({"device_by_name": {k: [us / 1e3, c] for us, k, c in dev_rows}}
+             if by_name else {})
     return {"phase": "profile", "what": what, "wall_ms": wall * 1e3,
             "device_busy_ms": busy_ms if spans else None,
             "device_busy_share": (busy_ms / (wall * 1e3)) if spans else None,
@@ -690,30 +707,63 @@ def profile_step(what: str, step) -> dict:
             "top_device": [{"name": k[:80], "device_ms": us / 1e3,
                             "calls": c} for us, k, c in dev_rows[:8]],
             "top_host_self": [{"name": k[:80], "host_ms": us / 1e3,
-                               "calls": c} for us, k, c in host_rows[:8]]}
+                               "calls": c} for us, k, c in host_rows[:8]],
+            **named}
 
 
-def profile_serve(cfg, params, prompts, dist) -> list:
+def profile_gap(prof, base) -> dict:
+    """Where ``prof``'s device time exceeds ``base``'s, two profiles of
+    the same step taken ``by_name`` (their by-name rows are dropped): the
+    busy time, each kind, and each activity whose time differs by 5 us or
+    more, largest first."""
+    a, b = prof.pop("device_by_name"), base.pop("device_by_name")
+    kinds = set(prof["device_ms_by_kind"]) | set(base["device_ms_by_kind"])
+    rows = []
+    for name in set(a) | set(b):
+        (ms_a, n_a), (ms_b, n_b) = a.get(name, (0.0, 0)), b.get(name, (0.0, 0))
+        if abs(ms_a - ms_b) >= 0.005:
+            rows.append({"name": name[:120], "kind": device_kind(name),
+                         "device_ms": ms_a, "base_device_ms": ms_b,
+                         "calls": n_a, "base_calls": n_b})
+    rows.sort(key=lambda r: r["base_device_ms"] - r["device_ms"])
+    return {"device_busy_ms": prof["device_busy_ms"] - base["device_busy_ms"],
+            "device_ms_by_kind": {
+                k: prof["device_ms_by_kind"].get(k, {}).get("device_ms", 0.0)
+                - base["device_ms_by_kind"].get(k, {}).get("device_ms", 0.0)
+                for k in sorted(kinds)},
+            "activities": rows}
+
+
+def profile_serve(cfg, cfg_fp8, params, prompts, dist) -> list:
     """Profiles of one batched HT prefill, one LL decode step, and one LL
-    decode step replayed from its CUDA graph."""
+    decode step replayed from its CUDA graph, on the fp32 wire; then one
+    replayed LL decode step on the fp8 wire (``cfg_fp8``), with where its
+    device time exceeds the fp32 one's (``vs_fp32_replayed``)."""
     import torch
 
     from repro_torch.launch.serve import capture_decode_step
     from repro_torch.models import model_zoo as Z
     B, S = prompts.shape
-    cache = Z.init_cache(cfg, B, S + 3, dtype=Z.compute_dtype(cfg),
-                         device=prompts.device)
-    with torch.inference_mode():
-        replay, _ = capture_decode_step(cfg, params, cache, prompts[:, :1],
-                                        dist=dist)
-    out = [profile_step("one HT prefill (batch 4 x 256)", lambda: Z.prefill(
-        cfg, params, cache, prompts, dist=dist))]
     tok = prompts[:, -1:]
-    out.append(profile_step("one LL decode step (batch 4)",
-                            lambda: Z.decode_step(cfg, params, cache, tok, S,
-                                                  dist=dist)))
-    out.append(profile_step("one LL decode step replayed from its CUDA graph "
-                            "(batch 4)", lambda: replay(tok, S)))
+    out = []
+    for c, wire in ((cfg, "fp32"), (cfg_fp8, "fp8")):
+        cache = Z.init_cache(c, B, S + 3, dtype=Z.compute_dtype(c),
+                             device=prompts.device)
+        with torch.inference_mode():
+            replay, _ = capture_decode_step(c, params, cache, prompts[:, :1],
+                                            dist=dist)
+        if wire == "fp32":
+            out.append(profile_step("one HT prefill (batch 4 x 256)",
+                                    lambda: Z.prefill(c, params, cache,
+                                                      prompts, dist=dist)))
+            out.append(profile_step("one LL decode step (batch 4)",
+                                    lambda: Z.decode_step(c, params, cache,
+                                                          tok, S, dist=dist)))
+        out.append(profile_step(f"one LL decode step replayed from its CUDA "
+                                f"graph (batch 4, {wire} wire)",
+                                lambda: replay(tok, S), by_name=True))
+        del replay, cache
+    out[-1]["vs_fp32_replayed"] = profile_gap(out[-1], out[-2])
     return out
 
 
@@ -1969,7 +2019,7 @@ def serve_phases(dev) -> list:
                   "decode_tokens_per_s"],
               **eager_vs_graph(c, params, prompts, n_gen, dist)})
     emit(serve_local_per_token(cfg, params, prompts, dist))
-    for prof in profile_serve(cfg, params, prompts, dist):
+    for prof in profile_serve(cfg, cfg_fp8, params, prompts, dist):
         emit(prof)
     served, x0 = moe_served(cfg, params, prompts, dist)
     emit(served)

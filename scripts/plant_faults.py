@@ -1,17 +1,18 @@
 #!/usr/bin/env python3
 """Plant one fault at a time in a copy of the port's sources and count the
-``cuda`` tests of RMSNorm, the scan and the wire kernels that each fails,
-on one NVIDIA GPU.
+``cuda`` tests of RMSNorm, the scan, the wire kernels and the
+double-buffered grouped SwiGLU that each fails, on one NVIDIA GPU.
 
-    python3 scripts/plant_faults.py
+    python3 scripts/plant_faults.py [FAULT ...]
 
-Each fault is a one-line edit of ``csrc/mamba_scan.cu``,
-``csrc/dequantize.cu`` or ``csrc/rmsnorm.cu`` in a copy of ``src/`` and
-``tests/`` under a temporary directory (the repository is never edited);
-the copy builds its own kernels and runs ``pytest --noconftest -m cuda -k
-"rmsnorm or scan or quantize" tests/test_torch_cuda.py``.  One JSON line a
-fault: pytest's summary and the failed tests.  Exits 1 if a fault fails no
-test.
+Each fault (all of ``FAULTS``, or those named) is a one-line edit of
+``csrc/mamba_scan.cu``, ``csrc/dequantize.cu``, ``csrc/rmsnorm.cu``,
+``csrc/gather_quantize.cu`` or ``csrc/grouped_swiglu_db.cu`` in a copy of
+``src/`` and ``tests/`` under a temporary directory (the repository is
+never edited); the copy builds its own kernels and runs ``pytest
+--noconftest -m cuda -k TESTS tests/test_torch_cuda.py``.  One JSON line
+a fault: pytest's summary and the failed tests.  Exits 1 if a fault fails
+no test.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 CSRC = "src/repro_torch/csrc/"
+TESTS = "rmsnorm or scan or quantize or swiglu_db"
 # name: (file, text, the text that replaces it)
 FAULTS = {
     "scan_drops_carry": (
@@ -54,6 +56,26 @@ FAULTS = {
     "rmsnorm_scale_off_row": (
         CSRC + "rmsnorm.cu", "      scale_at<V>(scale, c, s[i]);",
         "      scale_at<V>(scale, (c + V) % D, s[i]);"),
+    "gather_quantize_skips_zero_fill": (
+        CSRC + "gather_quantize.cu",
+        "        reinterpret_cast<uint4*>(qrow)[i] = make_uint4(0, 0, 0, 0);",
+        "        ;"),
+    "gather_quantize_next_block_absmax": (
+        CSRC + "gather_quantize.cu",
+        "    const float a = fmaxf(fmaxf(fabsf(v[j][0]), fabsf(v[j][1])),\n"
+        "                          fmaxf(fabsf(v[j][2]), fabsf(v[j][3])));",
+        "    const float (&vn)[4] = v[(j + 1) % kN];\n"
+        "    const float a = fmaxf(fmaxf(fabsf(vn[0]), fabsf(vn[1])), "
+        "fmaxf(fabsf(vn[2]), fabsf(vn[3])));"),
+    "gather_quantize_direct_e4m3": (
+        CSRC + "gather_quantize.cu",
+        "__nv_cvt_halfraw2_to_fp8x2(h, __NV_SATFINITE, __NV_E4M3)",
+        "__nv_cvt_float2_to_fp8x2(make_float2(y[2 * p], y[2 * p + 1]), "
+        "__NV_SATFINITE, __NV_E4M3)"),
+    "swiglu_db_next_expert_count": (
+        CSRC + "grouped_swiglu_db.cu",
+        "  up.cnt = static_cast<const int*>(cnt);",
+        "  up.cnt = static_cast<const int*>(cnt) + 1;"),
     "rmsnorm_tail_unwritten": (
         CSRC + "rmsnorm.cu",
         "    if (c < D) *reinterpret_cast<P*>(orow + c) = normed<V>(v[i], r, s[i]);",
@@ -73,7 +95,7 @@ def run(name: str, path: str, old: str, new: str, root: Path) -> dict:
     f.write_text(text.replace(old, new))
     r = subprocess.run(
         [sys.executable, "-m", "pytest", "--noconftest", "-q", "-m", "cuda",
-         "-k", "rmsnorm or scan or quantize", "-p", "no:cacheprovider",
+         "-k", TESTS, "-p", "no:cacheprovider",
          "tests/test_torch_cuda.py"],
         cwd=dst, env={**os.environ, "PYTHONPATH": str(dst / "src")},
         capture_output=True, text=True)
@@ -85,9 +107,14 @@ def run(name: str, path: str, old: str, new: str, root: Path) -> dict:
 
 
 def main() -> int:
+    names = sys.argv[1:] or list(FAULTS)
+    unknown = set(names) - set(FAULTS)
+    if unknown:
+        raise SystemExit(f"no such fault: {sorted(unknown)}")
     ok = True
     with tempfile.TemporaryDirectory() as tmp:
-        for name, (path, old, new) in FAULTS.items():
+        for name in names:
+            path, old, new = FAULTS[name]
             line = run(name, path, old, new, Path(tmp))
             ok &= line["n_failed"] > 0
             print(json.dumps(line), flush=True)

@@ -1,25 +1,29 @@
 #!/usr/bin/env python3
-"""Time the three kernels of the grouped-expert tile loop
+"""Time the four kernels of the grouped-expert tile loop
 (``csrc/swiglu_tiles.cuh``: grouped_matmul, grouped_swiglu,
-gather_swiglu_scatter) against an earlier version of their sources, on one
-NVIDIA GPU, on the same inputs.
+gather_swiglu_scatter, grouped_swiglu_db) against an earlier version of
+their sources, on one NVIDIA GPU, on the same inputs.
 
     mkdir -p build/old_tiles
     for f in swiglu_tiles.cuh grouped_matmul.cu grouped_swiglu.cu \\
-             gather_swiglu_scatter.cu; do
+             gather_swiglu_scatter.cu grouped_swiglu_db.cu; do
       git show <commit>:src/repro_torch/csrc/$f > build/old_tiles/$f
     done
     python3 scripts/tiles_compare.py --other old=build/old_tiles [--sass]
 
 (``build/`` is ignored by git; an earlier tile loop that includes
-``hopper_common.cuh`` needs that header in the directory too.)  The
-current kernels ("new") come from the package's build; each ``--other
-NAME=DIR`` compiles DIR's three ``.cu`` files out of tree and runs them
-through the package's own wrappers (``compare_common.py``).  Inputs are
+``hopper_common.cuh`` needs that header in the directory too; a
+``grouped_swiglu_db.cu`` from before it ran on the tile loop is a source
+of its own.)  The current kernels ("new") come from the package's build;
+each ``--other NAME=DIR`` compiles DIR's four ``.cu`` files out of tree
+and runs them through the package's own wrappers
+(``compare_common.py``).  Inputs are
 seeded N(0, 1) values at the shapes qwen2-moe serves (64 experts, D 2048,
 F 1408): the grouped matmul on the HT buffer (64, 128, 2048) @ (64, 2048,
-1408) and ``gather_swiglu_scatter`` on 1024 tokens x top-4 at capacity
-128, both with per-expert counts of a seeded uniform top-4 routing;
+1408), ``grouped_swiglu_db`` on the same buffer (the HT expert compute of
+a plain expert_fn under ``REPRO_SWIGLU_DB=1``) and ``gather_swiglu_scatter``
+on 1024 tokens x top-4 at capacity 128, all with per-expert counts of a
+seeded uniform top-4 routing;
 ``grouped_swiglu`` at the LL decode shape (64, 64, 2048) with (64, 4)
 bucketed counts, 16 tokens (4 from each of 4 source ranks) routed top-4
 among 15 experts.  Each version is held to the plain version at
@@ -30,8 +34,8 @@ beside ``torch.bmm`` over the whole buffer for the grouped matmul and each
 call's bound from ``chip_smoke.bound``; and each version's host time per
 call (the median of the profiler's CPU time of a span around the
 wrapper) and device time by kernel (the two passes apart).  ``--sass``
-prints ptxas's register, spill and shared-memory report for the three
-kernels and counts their HGMMA (wgmma) and HMMA (mma.sync) instructions.
+prints ptxas's register, spill and shared-memory report for the four
+sources' kernels and counts their HGMMA (wgmma) and HMMA (mma.sync) instructions.
 One JSON line per result, the card's name and power limit from nvidia-smi
 among them.
 """
@@ -50,7 +54,7 @@ E, D, F, K_TOP = 64, 2048, 1408, 4
 HT_TOKENS, HT_C = 1024, 128
 LL_RANKS, LL_TOKENS_PER_RANK, LL_EXPERTS, LL_C = 4, 4, 15, 64
 SOURCES = ("grouped_matmul.cu", "grouped_swiglu.cu",
-           "gather_swiglu_scatter.cu")
+           "gather_swiglu_scatter.cu", "grouped_swiglu_db.cu")
 ENTRIES = [s.replace(".cu", "_launch") for s in SOURCES]
 
 
@@ -95,7 +99,9 @@ def cases(torch, gm):
     x_buf = normal(E, HT_C, D)
     dead = ~gm.occupancy_mask(counts, E, HT_C)
     out = [("grouped_matmul", gm.grouped_matmul_cuda,
-            (x_buf, wg, counts), dead)]
+            (x_buf, wg, counts), dead),
+           ("grouped_swiglu_db", gm.grouped_swiglu_db_cuda,
+            (x_buf, wg, wu, wd, counts), dead)]
     x_ext = normal(HT_TOKENS + 1, D)
     x_ext[HT_TOKENS] = 0
     w_slot = torch.from_numpy(rng.random(E * HT_C, dtype=np.float32)).to(dev)

@@ -1,5 +1,5 @@
 // Shared tile loop of the grouped expert kernels (grouped_matmul.cu,
-// grouped_swiglu.cu, gather_swiglu_scatter.cu).
+// grouped_swiglu.cu, grouped_swiglu_db.cu, gather_swiglu_scatter.cu).
 //
 // The TPU kernels keep a (bm, D) fp32 accumulator in VMEM and stream the
 // hidden dim F through it.  At D = 2048 and bm = 128 that is 1 MB, far over

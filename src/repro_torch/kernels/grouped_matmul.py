@@ -198,8 +198,9 @@ def grouped_swiglu_db_cuda(x: Tensor, w_gate: Tensor, w_up: Tensor,
                            w_down: Tensor,
                            counts: Tensor | None = None) -> Tensor:
     """CUDA kernel for :func:`grouped_swiglu_db_plain` (bf16 in and out):
-    ``csrc/grouped_swiglu_db.cu``, whose blocks stream only the occupied
-    row tiles through a two-stage ``cp.async`` ring."""
+    ``csrc/grouped_swiglu_db.cu``, the two passes of the grouped-expert
+    tile loop (``csrc/swiglu_tiles.cuh``) with one count an expert, whose
+    TMA ring streams only the occupied row tiles."""
     name = "grouped_swiglu_db"
     E, C, D = x.shape
     _refuse_bucketed(name, counts)

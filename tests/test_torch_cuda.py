@@ -72,28 +72,97 @@ def test_cuda_gather_swiglu_scatter_matches_plain(cuda_device):
     torch.testing.assert_close(got, ref, rtol=1e-2, atol=1e-2)
 
 
+def _wire_table(rng, T, D, device):
+    """(T + 1, D) fp32 token table, rows at magnitudes from 1e-32 to 1e32:
+    row 0 all zeros (zero scales), row 1 near 1e-30, row 2 near 1e30, row
+    3 with an all-zero first block; row T the zero scratch row."""
+    x = rng.standard_normal((T + 1, D)) * rng.uniform(0.01, 100, (T + 1, 1))
+    x[0] = 0
+    x[1] *= 1e-30
+    x[2] *= 1e30
+    x[3, :128] = 0
+    x[T] = 0
+    return torch.from_numpy(x.astype(np.float32)).to(device)
+
+
+def _check_gather_quantize(x_ext, src, counts, wire):
+    """gather_quantize_cuda against the plain version, bit for bit (bytes
+    and scales), its outputs landing in memory just filled with NaN, so
+    that a slot the kernel leaves unwritten shows; then dequantize on its
+    output.  Returns the CUDA (q, scales)."""
+    n, D = src.shape[0], x_ext.shape[1]
+    poison = (torch.full((n, D), 0xFF, dtype=torch.uint8, device=src.device),
+              torch.full((n, -(-D // 128)), float("nan"), device=src.device))
+    del poison
+    before = qp.gather_quantize_cuda.launches
+    q, s = qp.gather_quantize_cuda(x_ext, src, counts, wire_dtype=wire)
+    assert qp.gather_quantize_cuda.launches == before + 1
+    q_ref, s_ref = qp.gather_quantize_plain(x_ext, src, counts,
+                                            wire_dtype=wire)
+    assert torch.equal(q.view(torch.uint8), q_ref.view(torch.uint8))
+    assert torch.equal(s.view(torch.int32), s_ref.view(torch.int32))
+    assert torch.equal(qp.dequantize_cuda(q, s),
+                       qp.dequantize_plain(q_ref, s_ref))
+    return q, s
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("wire", ["fp8", "int8"])
-@pytest.mark.parametrize("D", [200, 2048])
+@pytest.mark.parametrize("D", [36, 130, 200, 2048])
 def test_cuda_quantize_kernels_bit_exact(cuda_device, wire, D):
+    """D 36 and 200: a partial last block in 4-feature units; 130: D % 4
+    != 0, single features.  Zero, tiny and huge rows, slots naming the
+    scratch row, buckets empty, full and partial, and no counts."""
     rng = np.random.default_rng(D)
     T, E, C = 64, 8, 16
-    x_ext = torch.from_numpy((rng.standard_normal((T + 1, D))
-                              * rng.uniform(0.01, 100, (T + 1, 1))
-                              ).astype(np.float32)).to(cuda_device)
-    x_ext[T] = 0
-    src = torch.from_numpy(rng.integers(0, T + 1, E * C).astype(np.int32)
-                           ).to(cuda_device)
-    counts = torch.from_numpy(rng.integers(0, C + 1, E).astype(np.int32)
-                              ).to(cuda_device)
-    for cnt in (counts, None):
-        q, s = qp.gather_quantize_cuda(x_ext, src, cnt, wire_dtype=wire)
-        q_ref, s_ref = qp.gather_quantize_plain(x_ext, src, cnt,
-                                                wire_dtype=wire)
-        assert torch.equal(q.view(torch.uint8), q_ref.view(torch.uint8))
-        assert torch.equal(s, s_ref)
-        assert torch.equal(qp.dequantize_cuda(q, s),
-                           qp.dequantize_plain(q_ref, s_ref))
+    x_ext = _wire_table(rng, T, D, cuda_device)
+    src = rng.integers(0, T + 1, E * C).astype(np.int32)
+    src[:8] = [0, 1, 2, 3, T, T, 0, 2]
+    src[C:C + 4] = [T, 1, 2, 0]
+    cnt = rng.integers(0, C + 1, E).astype(np.int32)
+    cnt[:3] = [C, 0, 4]
+    src, counts = (torch.from_numpy(a).to(cuda_device) for a in (src, cnt))
+    for c in (counts, None):
+        q, s = _check_gather_quantize(x_ext, src, c, wire)
+    assert (s[0] == 0).all() and (s[1, 1:] > 0).all()    # no counts: row 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["fp8", "int8"])
+@pytest.mark.parametrize("case", ["ht", "ll"])
+def test_cuda_gather_quantize_served_shapes(cuda_device, wire, case):
+    """The served dispatch, 4096 slots x 2048: HT from a seeded top-4
+    routing of 1024 tokens over 4 ranks (each token once to each rank its
+    choices reach, 256 slots a (rank, destination), no counts: unfilled
+    slots name the scratch row); LL with 64 occupied slots in 256 buckets
+    of 16 (16 tokens x top 4), one bucket at its capacity."""
+    rng = np.random.default_rng(5)
+    R, T, D, E, K = 4, 256, 2048, 60, 4
+    if case == "ht":
+        x_ext = _wire_table(rng, R * T, D, cuda_device)
+        src = np.full((R, R, T), R * T, np.int32)
+        for r in range(R):
+            fill = np.zeros(R, int)
+            for t in range(T):
+                for g in np.unique(rng.choice(E, K, replace=False) // (E // R)):
+                    src[r, g, fill[g]] = r * T + t
+                    fill[g] += 1
+        counts = None
+    else:
+        x_ext = _wire_table(rng, 16, D, cuda_device)
+        n_buckets, C = 256, 16
+        counts = np.zeros(n_buckets, np.int32)
+        counts[7] = C
+        for b in rng.choice(np.arange(8, n_buckets), 24, replace=False):
+            counts[b] = 2
+        src = np.full((n_buckets, C), 16, np.int32)
+        occ = np.arange(C)[None, :] < counts[:, None]
+        src[occ] = rng.integers(0, 16, int(occ.sum()))
+        assert occ.sum() == 64
+        counts = torch.from_numpy(counts).to(cuda_device)
+    src = torch.from_numpy(src.reshape(-1)).to(cuda_device)
+    assert src.shape == (4096,)
+    _check_gather_quantize(x_ext, src, counts, wire)
 
 
 def _wire_bytes(N, D, wire, device):

@@ -106,6 +106,35 @@ def test_gather_quantize_plain_bit_exact(wire, D):
     np.testing.assert_array_equal(sd.numpy(), sd_ref)
 
 
+@pytest.mark.parametrize("wire", ["fp8", "int8"])
+@pytest.mark.parametrize("D", [130, 256])
+def test_gather_quantize_plain_ll_pattern(wire, D):
+    """The LL decode step's dispatch: most buckets empty, one at its
+    capacity, the rest partial; empty slots name the scratch row.  Bytes
+    and scales equal the reference's oracle; every empty slot is zero
+    bytes with zero scales."""
+    rng = np.random.default_rng(D * 7 + len(wire))
+    T, E, C = 12, 32, 4
+    x_ext = (rng.standard_normal((T + 1, D))
+             * rng.uniform(1e-3, 1e3, (T + 1, 1))).astype(np.float32)
+    x_ext[T] = 0.0
+    counts = np.zeros(E, np.int32)
+    counts[[3, 9, 17, 30]] = [C, 1, 2, 3]
+    occ = np.arange(C)[None, :] < counts[:, None]
+    src = np.where(occ, rng.integers(0, T, (E, C)), T).astype(
+        np.int32).reshape(-1)
+    q_ref, s_ref = gather_quantize_ref(x_ext, src, counts, wire_dtype=wire)
+    q, s = qp.gather_quantize_plain(*_t(x_ext, src, counts), wire_dtype=wire)
+    np.testing.assert_array_equal(q.view(torch.uint8).numpy(),
+                                  np.asarray(q_ref).view(np.uint8))
+    np.testing.assert_array_equal(s.numpy(), s_ref)
+    dead = ~occ.reshape(-1)
+    assert dead.sum() == E * C - C - 6
+    assert (q.view(torch.uint8).numpy()[dead] == 0).all()
+    assert (s.numpy()[dead] == 0).all()
+    assert (s.numpy()[~dead] > 0).all()
+
+
 def _small_case(dtype=torch.float32, device="cpu"):
     rng = np.random.default_rng(0)
     E, C, D, F = 2, 8, 16, 24

@@ -139,3 +139,55 @@ def test_scan_bound_counts_the_saved_states(save_states, ms_, by):
                                 + Di * N + Di) == (
         states_bytes if save_states else 0)
     assert work["exp_ms"] == pytest.approx(0.1284, rel=2e-3)
+
+
+@pytest.mark.parametrize("dense", [True, False])
+def test_gather_quantize_bound_reads_each_named_row_once(dense):
+    """The wire's send half reads each table row its occupied slots name
+    once, however many slots name it: the HT dispatch sends a token once to
+    every rank its choices reach and fills the rest with the scratch row,
+    the LL one once a choice.  Every slot's bytes and scales are written."""
+    T, D, n = 8, 256, 64
+    x_ext = torch.zeros((T + 1, D))
+    src = torch.arange(n) % (T + 1)                 # each row named ~7 times
+    counts = None if dense else torch.tensor([16, 0, 3, 1], dtype=torch.int32)
+    bound_ms, bound_by, work = chip_smoke.bound(
+        "gather_quantize", (x_ext, src, counts), {})
+    occ = n if dense else 20
+    named = T + 1 if dense else len(set((src[:16].tolist() + src[32:35].tolist()
+                                          + src[48:49].tolist())))
+    assert work["occupied_slots"] == occ
+    assert work["table_rows_read"] == named
+    nbytes = (named * D * 4 + occ * 4 + (0 if dense else 16)
+              + n * D + n * 2 * 4)
+    assert work["bytes"] == nbytes
+    assert bound_by == "bytes"
+    assert bound_ms == pytest.approx(nbytes / chip_smoke.HBM_BYTES_PER_S * 1e3)
+
+
+def test_profile_gap_splits_the_difference_by_activity():
+    """profile_gap: the busy time, each kind and each activity of one
+    profile against another of the same step, largest excess first,
+    activities within 5 us left out, the by-name rows dropped."""
+    def prof(busy, kinds, named):
+        return {"device_busy_ms": busy,
+                "device_ms_by_kind": {k: {"device_ms": v, "calls": 1}
+                                      for k, v in kinds.items()},
+                "device_by_name": named}
+    fp8 = prof(14.7, {"wire kernels": 0.42, "copies and casts": 3.9},
+               {"gather_quantize_kernel": [0.11, 24],
+                "dequantize_kernel": [0.31, 24], "copy_kernel": [3.9, 900],
+                "same": [1.0, 3], "close": [0.5, 1]})
+    fp32 = prof(13.5, {"copies and casts": 2.8, "other": 0.2},
+                {"copy_kernel": [2.8, 800], "index_kernel": [0.2, 24],
+                 "same": [1.0, 3], "close": [0.503, 1]})
+    gap = chip_smoke.profile_gap(fp8, fp32)
+    assert "device_by_name" not in fp8 and "device_by_name" not in fp32
+    assert gap["device_busy_ms"] == pytest.approx(1.2)
+    assert gap["device_ms_by_kind"] == pytest.approx(
+        {"wire kernels": 0.42, "copies and casts": 1.1, "other": -0.2})
+    names = [r["name"] for r in gap["activities"]]
+    assert names == ["copy_kernel", "dequantize_kernel",
+                     "gather_quantize_kernel", "index_kernel"]
+    assert gap["activities"][0]["kind"] == "copies and casts"
+    assert gap["activities"][1]["kind"] == "wire kernels"
