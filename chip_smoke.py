@@ -112,8 +112,9 @@ Phases, each printed as one JSON line:
    of that row's largest plain value), timed beside their bound, the plain
    version and one PyTorch library call computing the same function
    (``library_ms``, and its device time; for ``rmsnorm``,
-   ``decode_attention`` and ``combine_reduce`` also both cold, each call
-   on one of ``COLD_CACHES`` input sets, ``cold_device_ms``); then
+   ``decode_attention``, ``combine_reduce`` and ``decode_attention_paged``
+   also cold (the library call's where there is one), each call on one of
+   ``COLD_CACHES`` input sets, ``cold_device_ms``); then
    decode_graph: the
    ``decode_attention`` kernel captured once in a CUDA graph and replayed
    at pos 0, the last step's and S - 1, against the plain version; then
@@ -121,10 +122,13 @@ Phases, each printed as one JSON line:
    last layer's cache copied into block pools whose tables a
    ``KVBlockPool`` makes (ragged positions 2078, 2047, 1031, 17; 16-token
    blocks; unread rows NaN), through ``ops.decode_attention_paged``
-   (launches counted as above), and at one position for all four against
-   the contiguous kernel.  ``grouped_swiglu_db``, ``grouped_matmul``,
-   ``combine_reduce`` and ``decode_attention_paged`` are checked and timed
-   as the kernels of phase 6, on the inputs of phases 5 and 12.
+   (launches counted as above); the paged kernel captured once in a CUDA
+   graph there and replayed with the tables' rows reordered and other
+   positions written in place, and back, against the plain version; and
+   at one position for all four against the contiguous kernel.
+   ``grouped_swiglu_db``, ``grouped_matmul``, ``combine_reduce`` and
+   ``decode_attention_paged`` are checked and timed as the kernels of
+   phase 6, on the inputs of phases 5 and 12.
 
 Then the kernels line ``{"kernels": [...]}`` (all thirteen kernels), the
 nvidia-smi line, and as the last line ``{"ok": true, "device": {...}}``.
@@ -150,10 +154,11 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 FP32_FLOP_PER_S = 67e12
 # input sets a cold timing cycles through (cold_device_ms), and the
-# arguments it draws afresh for each: the cache, the rows, the parts
+# arguments it draws afresh for each: the cache, the rows, the parts, the
+# pools
 COLD_CACHES = 8
 COLD_ARGS = {"decode_attention": (1, 2), "rmsnorm": (0,),
-             "combine_reduce": (0,)}
+             "combine_reduce": (0,), "decode_attention_paged": (1, 2)}
 
 KERNEL_INFO = {  # name: (source, the TPU kernel it replaces)
     "grouped_swiglu": ("src/repro_torch/csrc/grouped_swiglu.cu",
@@ -256,8 +261,11 @@ SERVE_PLAIN_TOL = 0.04
 # prompt through decode steps over the EP world
 SERVE_LOCAL_PROMPT, SERVE_LOCAL_GEN = 16, 4
 # paged decoding at qwen3-4b's decode shape: ragged per-sequence positions
-# and 16-token blocks
+# and 16-token blocks; a CUDA graph captured there is replayed with the
+# table rows in PAGED_REPLAY_ORDER and these positions, each at most that
+# of the sequence whose rows it takes over
 PAGED_POS, PAGED_BLOCK = (2078, 2047, 1031, 17), 16
+PAGED_REPLAY_POS, PAGED_REPLAY_ORDER = (12, 931, 2040, 1999), (3, 2, 1, 0)
 
 
 def emit(obj) -> None:
@@ -587,8 +595,9 @@ def cold_device_ms(name, args, kwargs) -> dict:
     on the next of ``COLD_CACHES`` sets of the call's large inputs
     (``COLD_ARGS``, seeded N(0, 1) of their shapes), whose sum does not fit
     the card's 50 MB L2: at qwen3's shapes 272 MB of decode caches (a
-    decode step's 36 layers do not fit it either), 336 MB of ln1 rows, and
-    at the combine shape 168 MB of parts.  Repeated calls on one input, as
+    decode step's 36 layers do not fit it either), 336 MB of ln1 rows, 175
+    MB of paged pools (333 blocks of 16 rows, K and V), and at the combine
+    shape 168 MB of parts.  Repeated calls on one input, as
     ``device_ms`` makes them, find part of it in L2."""
     import torch
 
@@ -636,9 +645,10 @@ def check_kernel(name, rec, launches, extra=(), lead=0) -> dict:
 
 # device activities by kind, from their names: (kind, name fragments)
 DEVICE_KINDS = (("scan kernels", ("scan_fwd_kernel", "scan_bwd_kernel")),
+                # decode_kernel: both decoders' one body, <rep, SliceRows>
+                # the contiguous one, <rep, TableRows> the paged one
                 ("attention and norm kernels", (
-                    "flash_fwd_kernel", "decode_kernel", "paged_split_kernel",
-                    "decode_merge_kernel", "rmsnorm_row")),
+                    "flash_fwd_kernel", "decode_kernel", "rmsnorm_row")),
                 ("wire kernels", ("gather_quantize", "dequantize_kernel")),
                 ("EP kernels", ("swiglu_tiles",)),
                 ("cuBLAS GEMM", ("nvjet", "gemm", "cutlass", "xmma")),
@@ -1663,12 +1673,54 @@ def paged_pools(k, v, pos, bs):
     return k_pool, v_pool, tables, posv, pool
 
 
+def paged_graph_check(q, k_pool, v_pool, tables, posv) -> dict:
+    """``decode_attention_paged_cuda`` captured once in a CUDA graph on
+    these pools at their positions, then replayed twice: with the table
+    rows reordered (``PAGED_REPLAY_ORDER``) and ``PAGED_REPLAY_POS`` written
+    in place, and back at the captured ones; each replay's output against
+    the plain version on what the buffers then hold, row by row within
+    ``KERNEL_TOL``."""
+    import torch
+
+    from repro_torch.kernels import norm_attention as na
+    tab_s, pos_s = tables.clone(), posv.clone()
+    na.decode_attention_paged_cuda(q, k_pool, v_pool, tab_s, pos_s)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out_s = na.decode_attention_paged_cuda(q, k_pool, v_pool, tab_s,
+                                               pos_s)
+    tol = KERNEL_TOL["decode_attention_paged"]
+    errs = []
+    for order, pos in ((PAGED_REPLAY_ORDER, PAGED_REPLAY_POS),
+                       (tuple(range(len(PAGED_POS))), PAGED_POS)):
+        tab_s.copy_(tables[list(order)])
+        pos_s.copy_(torch.tensor(pos, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        ref = na.decode_attention_paged_plain(q, k_pool, v_pool, tab_s,
+                                              pos_s).float()
+        e_row = (out_s.float() - ref).abs().amax(-1)
+        rel = float((e_row / ref.abs().amax(-1).clamp_min(1e-30)).max())
+        errs.append(rel)
+        if not torch.isfinite(out_s.float()).all() or not rel <= tol:
+            raise AssertionError(f"decode_attention_paged replayed at pos "
+                                 f"{pos}: row rel err {rel} > {tol}")
+    return {"replays": [{"table_rows": list(PAGED_REPLAY_ORDER),
+                         "pos": list(PAGED_REPLAY_POS)},
+                        {"table_rows": list(range(len(PAGED_POS))),
+                         "pos": list(PAGED_POS)}],
+            "max_row_rel_err": errs, "tol": tol}
+
+
 def paged_decode(q, k, v) -> tuple[dict, dict]:
     """``ops.decode_attention_paged`` at qwen3-4b's decode shape on the
     last decode step's query and last layer's cache, copied into block
-    pools (``paged_pools``) at the ragged positions ``PAGED_POS``; then,
-    with every position at the contiguous run's pos, against the
-    contiguous ``decode_attention`` kernel on the same rows."""
+    pools (``paged_pools``) at the ragged positions ``PAGED_POS``; the
+    kernel captured in a CUDA graph there and replayed at other positions
+    and tables (``paged_graph_check``); then, with every position at the
+    contiguous run's pos, against the contiguous ``decode_attention``
+    kernel on the same rows."""
     import torch
 
     from repro_torch.kernels import norm_attention as na
@@ -1688,6 +1740,7 @@ def paged_decode(q, k, v) -> tuple[dict, dict]:
             or not torch.isfinite(out).all()):
         raise AssertionError("paged_decode: no launch, or a wrong or "
                              "non-finite output")
+    graph = paged_graph_check(q, k_pool, v_pool, tables, posv)
     # one pos for all four: the contiguous kernel on the same rows
     pos_all = max(PAGED_POS)
     same = (q, *paged_pools(k, v, (pos_all,) * len(PAGED_POS),
@@ -1704,6 +1757,7 @@ def paged_decode(q, k, v) -> tuple[dict, dict]:
             "kv_heads": k.shape[2], "block": PAGED_BLOCK, "pos": PAGED_POS,
             "pool_blocks": pool.n_blocks, "table_width": tables.shape[1],
             "table_heads": tables[:, :4].tolist(), "launches": launches,
+            "graph": graph,
             "vs_contiguous": {"pos": pos_all, "max_row_rel_err": rel,
                               "bitwise_equal": bool(torch.equal(got, cont))}}
     return line, check_kernel("decode_attention_paged",

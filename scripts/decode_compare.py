@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the flash-decoding kernel (``csrc/decode_attention.cu``) against an
-earlier version of its source, on one NVIDIA GPU, on the same inputs.
+"""Time the flash-decoding kernel (``csrc/decode_attention.cu``) against
+earlier versions of its source, on one NVIDIA GPU, on the same inputs.
 
     mkdir -p build/old_decode
     for f in decode_attention.cu decode_common.cuh; do
@@ -12,32 +12,32 @@ earlier version of its source, on one NVIDIA GPU, on the same inputs.
 (``build/`` is ignored by git.)  The current kernel ("new") comes from the
 package's build and its wrapper, with ``pos`` a 0-d int32 on the card.
 Each ``--other NAME=DIR`` compiles DIR's ``decode_attention.cu`` out of
-tree (``compare_common.py``) and launches it as its source was launched
-before the position moved to the device: ``pos`` a host int, only the
-256-position chunks of the live prefix launched, and a second kernel to
-merge them, through that version's own C entry point.  Inputs are seeded
-N(0, 1) values at the served decode shapes: qwen3-4b's (batch 4, 32 query
-heads over 8 kv heads, a 2080-position cache) at pos 2048 and 2078 (its
-first and last decode steps), and qwen2-moe's (batch 4, 16 heads, MHA, a
-272-position cache) at pos 256 and 270.  Each version is held row by row
-to the plain version (``chip_smoke.KERNEL_TOL``), then timed in turns
-(others, new, new, others reversed): CUDA-event medians and profiler
-device times, beside ``scaled_dot_product_attention`` on the live prefix
-(events and device) and the bound from ``chip_smoke.norm_attn_bound``;
-each version's host time per call; and its cold device time, each call on one of ``chip_smoke.COLD_CACHES``
-caches of the same shape in turn (their 272 MB at qwen3's shape do not fit
-the 50 MB L2, as a decode step's 36 layers do not), where the repeated
-calls above find part of their cache in L2.  ``--chunk N`` also times the
-new kernel with its chunk forced to N positions ("new@N"; ``--chunk 160
---chunk 192`` compares a chunk that puts four blocks on some SMs at
-qwen3's shape with the rule's three).  ``--sass`` prints ptxas's register,
-spill and shared-memory report for the new kernel.  One JSON line per
-result, the card's name and power limit from nvidia-smi among them.
+tree (``compare_common.py``) and launches it through the package's
+wrapper, so it must have today's C entry points (``pos`` on the device,
+one launch); its output must equal the new kernel's bit for bit
+(``NAME_equal_new``).  Inputs are seeded N(0, 1) values at the
+served decode shapes: qwen3-4b's (batch 4, 32 query heads over 8 kv heads, a
+2080-position cache) at pos 2048 and 2078 (its first and last decode
+steps), and qwen2-moe's (batch 4, 16 heads, MHA, a 272-position cache) at
+pos 256 and 270.  Each version is held row by row to the plain version
+(``chip_smoke.KERNEL_TOL``), then timed in turns (others, new, new,
+others reversed): CUDA-event medians and profiler device times, beside
+``scaled_dot_product_attention`` on the live prefix (events and device)
+and the bound from ``chip_smoke.norm_attn_bound``; each version's host
+time per call; and its cold device time, each call on one of
+``chip_smoke.COLD_CACHES`` caches of the same shape in turn (their 272 MB
+at qwen3's shape do not fit the 50 MB L2, as a decode step's 36 layers do
+not), where the repeated calls above find part of their cache in L2.
+``--chunk N`` also times the new kernel with its chunk forced to N
+positions ("new@N"; ``--chunk 160 --chunk 192`` compares a chunk that
+puts four blocks on some SMs at qwen3's shape with the rule's three).
+``--sass`` prints ptxas's register, spill and shared-memory report for
+the new kernel.  One JSON line per result, the card's name and power
+limit from nvidia-smi among them.
 """
 from __future__ import annotations
 
 import argparse
-import ctypes
 import sys
 import tempfile
 from pathlib import Path
@@ -50,33 +50,7 @@ CASES = {"qwen3_4b_first": (4, 32, 8, 2080, 2048),
          "qwen2_moe_first": (4, 16, 16, 272, 256),
          "qwen2_moe_last": (4, 16, 16, 272, 270)}
 ENTRY = "decode_attention_launch"
-# the C entry point before pos moved to the device: q, k, v, part_o,
-# part_m, part_l, out; B, S, H, Hkv, n_live, ns, chunk; the stream
-HOST_POS_SIGNATURE = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
-    ctypes.c_void_p]
-HOST_POS_CHUNK = 256
-
-
-def host_pos_call(lib, q, k, v, pos: int):
-    """The earlier wrapper: the live prefix's chunks, then the merge."""
-    import torch
-
-    from repro_torch.kernels import build
-    B, H, D = q.shape
-    S, Hkv = k.shape[1], k.shape[2]
-    n_live = min(max(pos + 1, 0), S)
-    ns = max(1, -(-n_live // HOST_POS_CHUNK))
-    out = torch.empty_like(q)
-    part_o = torch.empty((B, H, ns, D), dtype=torch.float32, device=q.device)
-    part_ml = torch.empty((2, B, H, ns), dtype=torch.float32,
-                          device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.decode_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), part_o.data_ptr(),
-        part_ml[0].data_ptr(), part_ml[1].data_ptr(), out.data_ptr(),
-        B, S, H, Hkv, n_live, ns, HOST_POS_CHUNK, stream)
-    build.check(err, "decode_attention (host pos)")
-    return out
+SLOTS = "decode_attention_blocks_per_sm"
 
 
 def row_err(got, ref) -> float:
@@ -90,7 +64,8 @@ def main() -> int:
     ap.add_argument("--other", action="append", default=[],
                     metavar="NAME=DIR",
                     help="a directory holding another decode_attention.cu "
-                         "and the decode_common.cuh it includes")
+                         "with today's C entry point and the "
+                         "decode_common.cuh it includes")
     ap.add_argument("--chunk", action="append", default=[], type=int,
                     help="also time the new kernel at this chunk size")
     ap.add_argument("--sass", action="store_true")
@@ -118,7 +93,7 @@ def main() -> int:
             name, path = other.split("=", 1)
             others[name] = cc.load_other(
                 [Path(path) / "decode_attention.cu"], Path(tmp), name,
-                [ENTRY], {ENTRY: HOST_POS_SIGNATURE})
+                [ENTRY, SLOTS])
         gen = torch.Generator(device=dev).manual_seed(0)
         for case, (B, H, Hkv, S, pos) in CASES.items():
             q = torch.randn((B, H, 128), generator=gen, device=dev,
@@ -135,8 +110,10 @@ def main() -> int:
             fns = {"new": lambda kk, vv: na.decode_attention_cuda(q, kk, vv,
                                                                    pos_t)}
             for name, olib in others.items():
-                fns[name] = (lambda kk, vv, olib=olib:
-                             host_pos_call(olib, q, kk, vv, pos))
+                def through_wrapper(kk, vv, olib=olib):
+                    with cc.using_library(olib):
+                        return na.decode_attention_cuda(q, kk, vv, pos_t)
+                fns[name] = through_wrapper
 
             def forced(n):
                 def call(kk, vv):
@@ -162,9 +139,14 @@ def main() -> int:
                 ok &= err <= tol
             # a second call of the new kernel: its arrival counters were
             # set back to 0 by the first
-            line["new_again_equal"] = bool(torch.equal(fns["new"](k, v),
+            new_out = fns["new"](k, v)
+            line["new_again_equal"] = bool(torch.equal(new_out,
                                                        fns["new"](k, v)))
             ok &= line["new_again_equal"]
+            for name in others:
+                line[f"{name}_equal_new"] = bool(torch.equal(
+                    fns[name](k, v), new_out))
+                ok &= line[f"{name}_equal_new"]
             bound_ms, bound_by, work = cs.norm_attn_bound(
                 "decode_attention", (q, k, v, pos), {})
             times, devt = cc.in_turns(fns, lambda f: f(k, v))

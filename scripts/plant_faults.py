@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
 """Plant one fault at a time in a copy of the port's sources and count the
-``cuda`` tests of RMSNorm, the scan, the wire kernels and the
-double-buffered grouped SwiGLU that each fails, on one NVIDIA GPU.
+``cuda`` tests of RMSNorm, the scan, the wire kernels, the double-buffered
+grouped SwiGLU and paged decoding that each fails, on one NVIDIA GPU.
 
     python3 scripts/plant_faults.py [FAULT ...]
 
 Each fault (all of ``FAULTS``, or those named) is a one-line edit of
 ``csrc/mamba_scan.cu``, ``csrc/dequantize.cu``, ``csrc/rmsnorm.cu``,
-``csrc/gather_quantize.cu`` or ``csrc/grouped_swiglu_db.cu`` in a copy of
-``src/`` and ``tests/`` under a temporary directory (the repository is
-never edited); the copy builds its own kernels and runs ``pytest
---noconftest -m cuda -k TESTS tests/test_torch_cuda.py``.  One JSON line
+``csrc/gather_quantize.cu``, ``csrc/grouped_swiglu_db.cu``,
+``csrc/decode_attention_paged.cu`` or the decoders' shared body
+``csrc/decode_common.cuh`` in a copy of ``src/`` and ``tests/`` under a
+temporary directory (the repository is never edited); the copy builds its
+own kernels and runs ``pytest --noconftest -m cuda -k TESTS
+tests/test_torch_cuda.py``.  One JSON line
 a fault: pytest's summary and the failed tests.  Exits 1 if a fault fails
 no test.
 """
@@ -27,7 +29,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 CSRC = "src/repro_torch/csrc/"
-TESTS = "rmsnorm or scan or quantize or swiglu_db"
+TESTS = "rmsnorm or scan or quantize or swiglu_db or paged"
 # name: (file, text, the text that replaces it)
 FAULTS = {
     "scan_drops_carry": (
@@ -80,6 +82,16 @@ FAULTS = {
         CSRC + "rmsnorm.cu",
         "    if (c < D) *reinterpret_cast<P*>(orow + c) = normed<V>(v[i], r, s[i]);",
         "    if (c < D - V) *reinterpret_cast<P*>(orow + c) = normed<V>(v[i], r, s[i]);"),
+    "paged_next_column": (
+        CSRC + "decode_attention_paged.cu",
+        "__ldg(p.tables + (long long)b * p.nb + c)",
+        "__ldg(p.tables + (long long)b * p.nb + min(c + 1, p.nb - 1))"),
+    "paged_reads_dead_rows": (
+        CSRC + "decode_common.cuh", '"r"(live ? 16 : 0));', '"r"(16));'),
+    "paged_merge_drops_last_chunk": (
+        CSRC + "decode_common.cuh",
+        "const bool in = (c0 + j) * p.chunk < n_live;",
+        "const bool in = (c0 + j + 1) * p.chunk < n_live;"),
 }
 
 

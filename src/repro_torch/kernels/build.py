@@ -51,6 +51,7 @@ SIGNATURES = {
     "decode_attention_launch": [_P] * 8 + [_I] * 7 + [_P],
     "decode_attention_blocks_per_sm": [_I],
     "decode_attention_paged_launch": [_P] * 9 + [_I] * 8 + [_P],
+    "decode_attention_paged_blocks_per_sm": [_I],
     "combine_reduce_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 

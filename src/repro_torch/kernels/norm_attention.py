@@ -9,9 +9,15 @@ path runs and what the CUDA kernel is held against on the card) and a
 wrapper (``*_cuda``) that checks its inputs, allocates the output and
 scratch, and launches the hand-written kernel of ``csrc/rmsnorm.cu``,
 ``csrc/flash_attention.cu``, ``csrc/decode_attention.cu`` or
-``csrc/decode_attention_paged.cu`` on the current stream.  The wrappers take bf16 activations (RMSNorm with an fp32 scale,
-the dtype ``cast_params`` keeps norm scales in) and head dim 128, and
-raise on anything else; each counts its launches in ``.launches``.
+``csrc/decode_attention_paged.cu`` on the current stream.  The two
+decoders compile from one kernel body (``csrc/decode_common.cuh``): one
+launch on a grid the shapes and the card fix (:func:`decode_chunk`,
+:func:`paged_chunk`), ``pos`` read on the device, the last block of a
+(sequence, kv head) merging the chunks, so a CUDA graph captures either
+call once and replays it at new positions (and tables).  The wrappers
+take bf16 activations (RMSNorm with an fp32 scale, the dtype
+``cast_params`` keeps norm scales in) and head dim 128, and raise on
+anything else; each counts its launches in ``.launches``.
 
 The plain attention versions follow the TPU kernels' arithmetic rather
 than a softmax: fp32 scores, ``m_safe`` for rows with no live key, the
@@ -35,8 +41,8 @@ from repro_torch.kernels.grouped_matmul import _check_cuda
 Tensor = torch.Tensor
 
 HEAD_DIM = 128       # the head dim the attention kernels are written for
-DECODE_STEP = 32     # positions a decode_attention block takes a step
-PAGED_CHUNK = 256    # cache positions a decode_attention_paged block takes
+DECODE_STEP = 32     # positions a decoding block takes a step, at most
+PAGED_MAX_COLS = 256  # table columns a paged chunk holds (the kernel's limit)
 DECODE_REPS = (1, 2, 4, 8)   # query heads a kv head may serve (H / Hkv)
 # RMSNorm's launch shapes, in vectors of 8 values (4 where D % 8 != 0):
 RMSNORM_ROWS_MAX_VECTORS = 32  # widest row the several-rows-a-block kernel takes
@@ -228,12 +234,13 @@ def decode_attention_plain(q: Tensor, k: Tensor, v: Tensor, pos, *,
 
 
 @functools.lru_cache(maxsize=None)
-def decode_chunk(B: int, S: int, Hkv: int, sms: int, per_sm: int) -> int:
+def decode_chunk(B: int, S: int, Hkv: int, sms: int, per_sm: int,
+                 step: int = DECODE_STEP) -> int:
     """Cache positions a ``decode_attention`` block takes, in whole steps
-    of ``DECODE_STEP``.  Of the cuts whose ``B * Hkv * ceil(S / chunk)``
-    blocks fit the card's resident slots (``sms`` SMs of ``per_sm``
-    blocks) at once, and, where the shapes allow it, give every SM two
-    blocks (each keeps its next two steps in flight), the one whose
+    of ``step`` (``DECODE_STEP``).  Of the cuts whose ``B * Hkv *
+    ceil(S / chunk)`` blocks fit the card's resident slots (``sms`` SMs of
+    ``per_sm`` blocks) at once, and, where the shapes allow it, give every
+    SM two blocks (each keeps its next two steps in flight), the one whose
     busiest SM streams the fewest positions, ``ceil(blocks / sms) *
     chunk``; ties go to the smaller chunk.  The shapes and the card alone
     fix it, never ``pos``."""
@@ -241,7 +248,7 @@ def decode_chunk(B: int, S: int, Hkv: int, sms: int, per_sm: int) -> int:
     cuts = []
     for ns in range(1, max(1, sms * per_sm // pairs) + 1):
         per = -(-S // ns)                      # ceil(S / ns), then steps
-        chunk = max(1, -(-per // DECODE_STEP)) * DECODE_STEP
+        chunk = max(1, -(-per // step)) * step
         blocks = pairs * -(-S // chunk)
         cuts.append((blocks >= min(per_sm, 2) * sms,
                      -(-blocks // sms) * chunk, chunk))
@@ -249,8 +256,22 @@ def decode_chunk(B: int, S: int, Hkv: int, sms: int, per_sm: int) -> int:
     return min(c[1:] for c in filled)[1]
 
 
+def paged_chunk(B: int, nb: int, bs: int, Hkv: int, sms: int,
+                per_sm: int) -> int:
+    """Cache positions a ``decode_attention_paged`` block takes: whole
+    table columns of ``bs`` positions and whole steps, by
+    :func:`decode_chunk`'s rule over the ``nb * bs`` positions a table
+    covers, and at most ``PAGED_MAX_COLS`` columns (past that, more chunks
+    than one wave of resident blocks).  The shapes and the card alone fix
+    it, never ``pos`` or the tables."""
+    step = math.lcm(DECODE_STEP, bs)
+    most = PAGED_MAX_COLS * bs // step * step
+    return min(decode_chunk(B, nb * bs, Hkv, sms, per_sm, step), most)
+
+
 _sms: dict = {}             # device index -> SMs
-_decode_slots: dict = {}    # (device index, rep) -> (SMs, blocks an SM)
+# (device index, kernel, rep) -> (SMs, blocks an SM)
+_decode_slots: dict = {}
 _arrivals: dict = {}        # device index -> the arrival counters in use
 
 
@@ -267,13 +288,15 @@ def _sm_count(device: torch.device) -> int:
     return _sms[key]
 
 
-def _decode_slots_of(lib, device: torch.device, rep: int) -> tuple:
-    """(SMs, resident ``decode_attention`` blocks an SM holds at ``rep``)."""
-    key = (_index(device), rep)
+def _decode_slots_of(lib, device: torch.device, rep: int,
+                     kernel: str = "decode_attention") -> tuple:
+    """(SMs, resident blocks an SM holds of ``kernel``, ``decode_attention``
+    or ``decode_attention_paged``, at ``rep``)."""
+    key = (_index(device), kernel, rep)
     if key not in _decode_slots:
-        per_sm = lib.decode_attention_blocks_per_sm(rep)
+        per_sm = getattr(lib, f"{kernel}_blocks_per_sm")(rep)
         if per_sm <= 0:
-            raise RuntimeError(f"decode_attention: no occupancy for rep {rep}")
+            raise RuntimeError(f"{kernel}: no occupancy for rep {rep}")
         _decode_slots[key] = (_sm_count(device), per_sm)
     return _decode_slots[key]
 
@@ -383,10 +406,13 @@ def decode_attention_paged_plain(q: Tensor, k_pool: Tensor, v_pool: Tensor,
 
 def decode_attention_paged_cuda(q: Tensor, k_pool: Tensor, v_pool: Tensor,
                                 block_tables: Tensor, pos: Tensor) -> Tensor:
-    """CUDA kernels for :func:`decode_attention_paged_plain` (bf16, head
+    """CUDA kernel for :func:`decode_attention_paged_plain` (bf16, head
     dim 128, contiguous q and pools, int32 tables and ``pos`` on the card,
-    H / Hkv in ``DECODE_REPS``).  ``pos`` stays on the device, so every
-    chunk of table columns launches and finds its live positions itself."""
+    H / Hkv in ``DECODE_REPS``), in one launch.  The kernel reads ``pos``
+    and the tables on the device: the grid (:func:`paged_chunk`) and the
+    scratch follow the shapes alone, so a CUDA graph can capture the call
+    and replay it after ``pos``, the tables and the pools are changed in
+    place."""
     name = "decode_attention_paged"
     if (q.dim() != 3 or k_pool.dim() != 4 or v_pool.shape != k_pool.shape
             or k_pool.shape[3] != q.shape[2]):
@@ -415,22 +441,25 @@ def decode_attention_paged_cuda(q: Tensor, k_pool: Tensor, v_pool: Tensor,
                 block_tables=block_tables, pos=pos)
     if any(t.device != q.device for t in (k_pool, v_pool, block_tables, pos)):
         raise ValueError(f"{name}: inputs on more than one device")
-    nb = block_tables.shape[1]
-    cols = max(1, PAGED_CHUNK // bs)     # table columns a block takes
-    ns = max(1, -(-nb // cols))
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    nb = block_tables.shape[1]
+    lib = build.library()
+    rep = H // Hkv
+    chunk = paged_chunk(B, nb, bs, Hkv, *_decode_slots_of(lib, q.device, rep,
+                                                          name))
+    ns = max(1, -(-(nb * bs) // chunk))
     part_o = torch.empty((B, H, ns, D), dtype=torch.float32, device=q.device)
     part_ml = torch.empty((2, B, H, ns), dtype=torch.float32, device=q.device)
-    lib = build.library()
+    arrivals = _arrival_counters(q.device, B * Hkv)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.decode_attention_paged_launch(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             block_tables.data_ptr(), pos.data_ptr(), part_o.data_ptr(),
-            part_ml[0].data_ptr(), part_ml[1].data_ptr(), out.data_ptr(),
-            B, H, Hkv, NB, bs, nb, cols, ns, stream)
+            part_ml.data_ptr(), arrivals.data_ptr(), out.data_ptr(),
+            B, H, Hkv, NB, bs, nb, ns, chunk, stream)
     build.check(err, name)
     decode_attention_paged_cuda.launches += 1
     return out

@@ -1126,16 +1126,16 @@ def test_cuda_decode_attention_paged_matches_plain(cuda_device, pos):
 
 
 @pytest.mark.cuda
-def test_cuda_decode_attention_paged_equals_contiguous(cuda_device):
+def test_cuda_decode_attention_paged_equals_contiguous(cuda_device,
+                                                       monkeypatch):
     """One pos for every sequence.  The pool's rows copied into fresh
     blocks in table order (an identity table: sequence b's column j is
     block b * nb + j): the paged kernel does the same arithmetic in the
     same order through either table, so the two agree bit for bit, and a
     live block read twice or in another's place shows.  The rows gathered
-    back into a contiguous cache: the paged and the contiguous kernels
-    agree within the row tolerance (they split and sum the cache in
-    different orders, 256-position chunks of 8-position warps against the
-    contiguous kernel's chunks of 16-lane rows)."""
+    back into a contiguous cache of nb * 16 positions: both kernels run
+    one body (csrc/decode_common.cuh), so at the same chunk the paged and
+    the contiguous kernels agree bit for bit too."""
     rng = np.random.default_rng(7)
     pos = (2078,) * 4
     q, k, v, tables, posv = _paged_case(rng, cuda_device, pos)
@@ -1151,8 +1151,123 @@ def test_cuda_decode_attention_paged_equals_contiguous(cuda_device):
         ops.decode_attention_paged(q, k_id, v_id, ident, posv), paged)
     kc = k[idx].reshape(4, S, 8, 128).contiguous()
     vc = v[idx].reshape(4, S, 8, 128).contiguous()
-    cont = na.decode_attention_cuda(q, kc, vc, _pos(pos[0], cuda_device))
-    _row_close(paged, cont)
+    slots = na._decode_slots_of(na.build.library(), q.device, 4)
+    chunk = na.decode_chunk(B, S, 8, *slots)
+    monkeypatch.setattr(na, "decode_chunk", lambda *a: chunk)
+    assert torch.equal(ops.decode_attention_paged(q, k, v, tables, posv),
+                       na.decode_attention_cuda(q, kc, vc,
+                                                _pos(pos[0], cuda_device)))
+
+
+def _paged_bulk(rng, device, pos, H, Hkv, bs, nb, spare=5):
+    """Pools in bulk for the sequences' positions ``pos``: each table row
+    nb pool blocks of a random permutation (every column allocated, those
+    wholly past pos too), ``spare`` blocks no table names; every pool row
+    no live position reads is NaN."""
+    B = len(pos)
+    NB = B * nb + spare
+    tables = torch.from_numpy(rng.permutation(NB)[:B * nb].astype(
+        np.int32)).reshape(B, nb).to(device)
+    k = _bf16(rng, (NB, bs, Hkv, 128), device)
+    v = _bf16(rng, (NB, bs, Hkv, 128), device)
+    posv = torch.tensor(pos, dtype=torch.int32, device=device)
+    j = torch.arange(nb * bs, device=device)
+    rows = tables.long()[:, j // bs] * bs + j % bs
+    read = torch.zeros(NB * bs, dtype=torch.bool, device=device)
+    read[rows[j[None, :] <= posv.long()[:, None]]] = True
+    for t in (k, v):
+        t.view(NB * bs, Hkv, 128)[~read] = float("nan")
+    q = _bf16(rng, (B, H, 128), device)
+    return q, k, v, tables, posv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rep", na.DECODE_REPS)
+@pytest.mark.parametrize("bs", [8, 16, 32, 64])
+def test_cuda_decode_attention_paged_blocks_and_reps(cuda_device, bs, rep):
+    """Every rep at block sizes 8 to 64, ragged pos about block and chunk
+    edges, allocated blocks wholly past pos and NaN in every unread row."""
+    Hkv = 8 // rep
+    pos = (2 * bs - 1, 2 * bs, 700, 1500, 0)
+    nb = 1500 // bs + 3
+    rng = np.random.default_rng(bs * 10 + rep)
+    q, k, v, tables, posv = _paged_bulk(rng, cuda_device, pos, Hkv * rep,
+                                        Hkv, bs, nb)
+    got = na.decode_attention_paged_cuda(q, k, v, tables, posv)
+    _row_close(got, na.decode_attention_paged_plain(q, k, v, tables, posv))
+
+
+@pytest.mark.cuda
+def test_cuda_decode_attention_paged_ids_past_the_pool(cuda_device):
+    """Table ids >= NB (and below -1) inside the live prefix are
+    unallocated, as -1 is: skipped, never read."""
+    rng = np.random.default_rng(11)
+    q, k, v, tables, posv = _paged_bulk(rng, cuda_device, (900, 513, 64),
+                                        32, 8, 16, 60)
+    NB = k.shape[0]
+    tables[0, 3] = NB
+    tables[0, 20] = NB + 1000
+    tables[1, 0] = 2 ** 31 - 1
+    tables[2, 1] = -7
+    got = na.decode_attention_paged_cuda(q, k, v, tables, posv)
+    _row_close(got, na.decode_attention_paged_plain(q, k, v, tables, posv))
+
+
+@pytest.mark.cuda
+def test_cuda_decode_attention_paged_wide_tables(cuda_device):
+    """Tables wider than 256 columns: at 8-token blocks, and at 1-token
+    blocks with more (sequence, kv head) pairs than resident blocks, where
+    the rule's chunk stops at the 256 columns a block stages and the
+    chunks run past one wave."""
+    rng = np.random.default_rng(12)
+    q, k, v, tables, posv = _paged_bulk(rng, cuda_device, (2390, 1200, 5),
+                                        32, 8, 8, 300)
+    _row_close(na.decode_attention_paged_cuda(q, k, v, tables, posv),
+               na.decode_attention_paged_plain(q, k, v, tables, posv))
+    B, Hkv, nb = 128, 8, 300
+    pos = tuple(int(p) for p in rng.integers(0, nb, B))
+    q, k, v, tables, posv = _paged_bulk(rng, cuda_device, pos, Hkv, Hkv, 1,
+                                        nb)
+    slots = na._decode_slots_of(na.build.library(), q.device, 1,
+                                "decode_attention_paged")
+    assert na.paged_chunk(B, nb, 1, Hkv, *slots) == na.PAGED_MAX_COLS
+    _row_close(na.decode_attention_paged_cuda(q, k, v, tables, posv),
+               na.decode_attention_paged_plain(q, k, v, tables, posv))
+
+
+@pytest.mark.cuda
+def test_cuda_decode_attention_paged_graph_replays(cuda_device):
+    """One CUDA graph, captured once with pos and the tables in static
+    buffers, replayed after both (and the pools) are changed in place:
+    each replay matches the plain version on what the buffers then hold."""
+    rng = np.random.default_rng(13)
+    pos = (2078, 2047, 1031, 17)
+    q, k, v, tables, posv = _paged_case(rng, cuda_device, pos)
+    na.decode_attention_paged_cuda(q, k, v, tables, posv)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = na.decode_attention_paged_cuda.launches
+    with torch.cuda.graph(graph):
+        out = na.decode_attention_paged_cuda(q, k, v, tables, posv)
+    assert na.decode_attention_paged_cuda.launches == before + 1
+    first = tables.clone()
+    # each new pos at most the table row's old one: no NaN row is live
+    for new_pos, order in (((2078, 2047, 1031, 17), (0, 1, 2, 3)),
+                           ((12, 931, 2040, 2078), (3, 2, 1, 0)),
+                           ((0, 1030, -1, 1999), (1, 2, 3, 0)),
+                           ((2078, 2047, 1031, 17), (0, 1, 2, 3))):
+        tables.copy_(first[list(order)])
+        posv.copy_(torch.tensor(new_pos, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        _row_close(out, na.decode_attention_paged_plain(q, k, v, tables,
+                                                        posv))
+    # the pools too: a live row changed in place is read on the next replay
+    k[int(tables[0, 0])] *= 2
+    graph.replay()
+    torch.cuda.synchronize()
+    _row_close(out, na.decode_attention_paged_plain(q, k, v, tables, posv))
+    assert int(na._arrival_counters(q.device, 1).abs().sum()) == 0
 
 
 @pytest.mark.cuda

@@ -4,9 +4,14 @@ against ``decode_attention_pallas`` in interpret mode (and bit for bit
 against the same call with an int ``pos``); reduced qwen3-4b and
 qwen2-moe (the dense MoE oracle) ``decode_step`` called with a tensor
 ``pos`` against the JAX ``model_zoo.decode_step`` called with
-``jnp.int32(t)``; the decode kernel's chunking, fixed by the shapes
-alone; and ``generate``'s ``cuda_graph`` switch on the CPU."""
+``jnp.int32(t)``; the chunking of both decode kernels (a contiguous
+slice, and whole columns of a paged table), fixed by the shapes alone;
+and ``generate``'s ``cuda_graph`` switch on the CPU."""
 import dataclasses
+import inspect
+import math
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -122,6 +127,53 @@ def test_decode_chunk_at_the_served_shapes():
     (320 blocks)."""
     assert na.decode_chunk(4, 2080, 8, 132, 4) == 192
     assert na.decode_chunk(4, 272, 16, 132, 4) == 64
+
+
+@pytest.mark.parametrize("B,nb,bs,Hkv,sms,per_sm", [
+    (4, 132, 16, 8, 132, 4),     # qwen3-4b's paged decode
+    (4, 132, 16, 8, 132, 3),
+    (4, 300, 8, 8, 132, 4),      # a table wider than 256 columns
+    (5, 190, 8, 8, 132, 4),
+    (5, 26, 64, 1, 132, 4),      # a block wider than a step
+    (3, 7, 48, 2, 132, 4),       # a block size that does not divide 32
+    (128, 300, 1, 8, 132, 4),    # more pairs than slots: capped columns
+    (1, 1, 16, 1, 132, 4),       # one column
+    (2, 5000, 16, 2, 114, 2),    # long tables, capped
+])
+def test_paged_chunk_is_whole_columns(B, nb, bs, Hkv, sms, per_sm):
+    """Whole table columns and whole steps, every position a table covers
+    covered, at most PAGED_MAX_COLS columns a chunk, and below that cap
+    decode_chunk's rule over nb * bs positions.  The rule takes the shapes
+    and the card, and nothing of pos or the tables."""
+    chunk = na.paged_chunk(B, nb, bs, Hkv, sms, per_sm)
+    ns = -(-(nb * bs) // chunk)
+    assert chunk % bs == 0 and chunk % na.DECODE_STEP == 0
+    assert chunk // bs <= na.PAGED_MAX_COLS and ns * chunk >= nb * bs
+    step = math.lcm(na.DECODE_STEP, bs)
+    rule = na.decode_chunk(B, nb * bs, Hkv, sms, per_sm, step)
+    assert chunk == min(rule, na.PAGED_MAX_COLS * bs // step * step)
+    assert list(inspect.signature(na.paged_chunk).parameters) == [
+        "B", "nb", "bs", "Hkv", "sms", "per_sm"]
+
+
+def test_paged_chunk_at_the_served_shape():
+    """qwen3-4b's paged decode (chip_smoke.paged_decode): 132 columns of
+    16 positions over 32 (sequence, kv head) pairs, 11 chunks of 12
+    columns (192 positions), as the contiguous rule cuts its 2080; at 1
+    position a block the chunk stops at 256 columns."""
+    assert na.paged_chunk(4, 132, 16, 8, 132, 4) == 192
+    assert na.paged_chunk(4, 132, 16, 8, 132, 3) == 192
+    assert na.paged_chunk(128, 300, 1, 8, 132, 4) == 256
+
+
+def test_paged_chunk_cap_is_the_kernels_limit():
+    """The rule's cap is the table columns the CUDA kernel stages (its
+    shared array, the limit its entry point checks), read from the
+    source: the two cannot drift apart."""
+    src = (Path(na.__file__).resolve().parents[1] / "csrc"
+           / "decode_attention_paged.cu").read_text()
+    limits = re.findall(r"constexpr int kMaxCols = (\d+);", src)
+    assert [int(n) for n in limits] == [na.PAGED_MAX_COLS]
 
 
 # --------------------------------------------------- decode with pos on ---
