@@ -128,7 +128,34 @@ Phases, each printed as one JSON line:
    at one position for all four against the contiguous kernel.
    ``grouped_swiglu_db``, ``grouped_matmul``, ``combine_reduce`` and
    ``decode_attention_paged`` are checked and timed as the kernels of
-   phase 6, on the inputs of phases 5 and 12.
+   phase 6, on the inputs of phases 5 and 12; ``rmsnorm`` also on the
+   4 x 4096 decode rows phase 13 recorded;
+13. serve-falcon-mamba (serving a Mamba model; runs after phase 7, before
+   phase 11): falcon-mamba-7b at full width (d_model 4096, d_inner 8192,
+   dt_rank 256, d_state 16, d_conv 4, vocab 65,024) and all 64 layers,
+   random bf16 weights from seed 0, served through ``generate``: batch 4,
+   a prompt of 64 random tokens through 63 decode steps replayed from the
+   captured graph, 32 greedy tokens.  ``rmsnorm``'s launches are set to 0
+   just before and read just after (> 0); prompt steps/s, decode tokens/s,
+   ``capture_s``, peak memory, and the bytes a step must move beside the
+   step's time.  The same through the eager step: its decode tokens/s,
+   and the tokens of both paths bit for bit (``eager_vs_graph``: the
+   graph's prompt runs after its capture's warm-up steps, so this fails
+   unless the capture leaves the cache as ``init_cache`` made it).  Then
+   serve_falcon_mamba_plain:
+   every prompt step's logits through the kernel against the plain
+   version's, within ``SERVE_PLAIN_TOL``; and one decode step eager and
+   replayed under the profiler;
+14. serve-jamba-reduced: the jamba hybrid at its published widths, cut
+   to its first 5 layers (``JAMBA_LAYERS``; attention, Mamba and MoE
+   layers, each with its own cache), over an EP world of 4, on the fp32
+   and the fp8 wire: batch 4,
+   a prompt of 16 through replayed decode steps, 8 greedy tokens, each
+   run's kernels' launches counted (``JAMBA_KERNELS``: the fp8 run all
+   five), eager and replayed bit for bit, the logits through the kernels
+   against the plain versions (the plain run taking the kernel run's MoE
+   routing choices), one decode step profiled, and the five kernels on
+   the fp8 run's recorded inputs against their plain versions.
 
 Then the kernels line ``{"kernels": [...]}`` (all thirteen kernels), the
 nvidia-smi line, and as the last line ``{"ok": true, "device": {...}}``.
@@ -260,6 +287,21 @@ SERVE_PLAIN_TOL = 0.04
 # serving qwen2-moe as the reference's ``serve --mesh local`` does: the
 # prompt through decode steps over the EP world
 SERVE_LOCAL_PROMPT, SERVE_LOCAL_GEN = 16, 4
+# serving falcon-mamba-7b at full width and all 64 layers: batch 4, a
+# prompt of 64 tokens through 63 replayed decode steps, 32 greedy tokens
+FALCON_BATCH, FALCON_PROMPT, FALCON_GEN = 4, 64, 32
+# the jamba hybrid at its published widths (d_model 8192, 64 query heads
+# on 8 kv heads of 128, d_inner 16384, dt_rank 512, d_ff and d_expert
+# 24,576, all 16 experts top-2, the vocab of 65,536), cut in depth only:
+# its first 5 of 72 layers in the published order (Mamba + MLP, Mamba +
+# MoE, twice, then attention + MLP at attn_offset 4), the fewest that hold
+# an attention layer.  A whole period of 8 does not fit: its four MoE
+# layers alone are 77 GB in bf16; these 5 hold two (38.6 GB of 48.1 GB).
+# Over an EP world of 4 on the card (--mesh local): 4 experts a rank
+JAMBA_LAYERS = 5
+JAMBA_BATCH, JAMBA_PROMPT, JAMBA_GEN = 4, 16, 8
+JAMBA_KERNELS = ("rmsnorm", "decode_attention", "grouped_swiglu",
+                 "gather_quantize", "dequantize")
 # paged decoding at qwen3-4b's decode shape: ragged per-sequence positions
 # and 16-token blocks; a CUDA graph captured there is replayed with the
 # table rows in PAGED_REPLAY_ORDER and these positions, each at most that
@@ -286,17 +328,21 @@ class Recorder:
     arguments' shapes, None for any other argument (an absent tensor, a
     position, eps) — so that, e.g., both the HT prefill dispatch and the LL
     decode dispatch (occupied counts, empty slots) of ``gather_quantize``
-    are held to the plain version."""
+    are held to the plain version.  A tensor whose storage starts at one
+    of ``weights`` (data pointers of the served model's parameters, which
+    no step writes) is kept by reference, not copied: one MoE layer's
+    experts are 19.3 GB at jamba's widths."""
 
-    def __init__(self, fn):
-        self.fn, self.cases = fn, {}
+    def __init__(self, fn, weights=frozenset()):
+        self.fn, self.cases, self.weights = fn, {}, weights
 
     def __call__(self, *args, **kwargs):
         key = (tuple(tuple(a.shape) if hasattr(a, "shape") else None
                      for a in args), tuple(sorted(kwargs.items())))
         if key not in self.cases:
-            self.cases[key] = (tuple(a.detach().clone() if hasattr(a, "clone")
-                                     else a for a in args), dict(kwargs))
+            self.cases[key] = (tuple(
+                a if not hasattr(a, "clone") or a.data_ptr() in self.weights
+                else a.detach().clone() for a in args), dict(kwargs))
         return self.fn(*args, **kwargs)
 
 
@@ -641,6 +687,18 @@ def check_kernel(name, rec, launches, extra=(), lead=0) -> dict:
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "max_rel_err": max(c["max_rel_err"] for c in cases),
             "tolerance": KERNEL_TOL[name], "cases": cases}
+
+
+def add_cases(entry: dict, cases) -> None:
+    """Holds kernel ``entry["name"]`` (an entry of the kernels line) also
+    on the (args, kwargs) ``cases`` another path recorded: their errors
+    join the entry's."""
+    import torch
+    with torch.inference_mode():
+        more = [check_case(entry["name"], a, kw) for a, kw in cases]
+    entry["cases"] += more
+    for k in ("max_abs_err", "max_rel_err"):
+        entry[k] = max([entry[k], *(c[k] for c in more)])
 
 
 # device activities by kind, from their names: (kind, name fragments)
@@ -1220,12 +1278,13 @@ def decode_graph_check(q, k, v, positions) -> dict:
             "tol": tol}
 
 
-def recording(names):
-    """Recorders standing in for the CUDA wrappers of kernels ``names``,
-    and a function that puts the wrappers back."""
+def recording(names, weights=frozenset()):
+    """Recorders standing in for the CUDA wrappers of kernels ``names``
+    (keeping ``weights`` by reference), and a function that puts the
+    wrappers back."""
     from repro_torch.kernels import ops
     originals = {n: ops.KERNELS[n] for n in names}
-    recs = {n: Recorder(c) for n, (c, _) in originals.items()}
+    recs = {n: Recorder(c, weights) for n, (c, _) in originals.items()}
     for n, (_, plain) in originals.items():
         ops.KERNELS[n] = (recs[n], plain)
     return recs, lambda: ops.KERNELS.update(originals)
@@ -1775,7 +1834,7 @@ def serve_qwen3(dev) -> list:
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
-    from repro_torch.launch.serve import capture_decode_step, generate
+    from repro_torch.launch.serve import generate
     from repro_torch.models import model_zoo as Z
     from repro_torch.optim.adamw import tree_leaves
 
@@ -1795,33 +1854,8 @@ def serve_qwen3(dev) -> list:
     generate(cfg, params, prompts, 2)
     torch.cuda.synchronize()
 
-    originals = {n: ops.KERNELS[n] for n in NORM_ATTN_KERNELS}
-    recorders = {n: Recorder(c) for n, (c, _) in originals.items()}
-    for n, (_, p) in originals.items():
-        ops.KERNELS[n] = (recorders[n], p)
-    last_decode = record_last_decode(recorders["decode_attention"],
-                                     originals["decode_attention"][1])
-    cudas = {n: c for n, (c, _) in originals.items()}
-    for c in cudas.values():
-        c.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    try:
-        res = generate(cfg, params, prompts, N_GEN)
-        launches = graph_launches({n: c.launches for n, c in cudas.items()},
-                                  res)
-    finally:
-        ops.KERNELS.update(originals)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    for n, k in launches.items():
-        if k <= 0:
-            raise AssertionError(f"kernel {n} was not launched on the dense "
-                                 "serving path")
-    if (res["tokens"].shape != (B, N_GEN)
-            or not torch.isfinite(res["logits"]).all()
-            or not ((res["tokens"] >= 0)
-                    & (res["tokens"] < cfg.vocab_size)).all()):
-        raise AssertionError("serve-qwen3 produced a wrong shape, non-finite "
-                             "logits or a token outside the vocab")
+    res, launches, recorders, peak_gb, last_decode = serve_counted(
+        cfg, params, prompts, N_GEN, NORM_ATTN_KERNELS)
     emit({"phase": "serve-qwen3", "model": "qwen3_4b", "width": "full",
           "layers": cfg.n_layers, "d_model": cfg.d_model,
           "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
@@ -1857,6 +1891,7 @@ def serve_qwen3(dev) -> list:
         return first, nxt, tok
 
     got = prefill_and_step()
+    originals = {n: ops.KERNELS[n] for n in NORM_ATTN_KERNELS}
     ops.KERNELS.update({n: (p, p) for n, (_, p) in originals.items()})
     try:
         ref = prefill_and_step(got[2])
@@ -1873,27 +1908,10 @@ def serve_qwen3(dev) -> list:
     emit({"phase": "serve_qwen3_plain", "tokens": [B, 256],
           "tol": SERVE_PLAIN_TOL, **agree})
 
-    cache = Z.init_cache(cfg, B, S + 1, dtype=Z.compute_dtype(cfg),
-                         device=dev)
-    with torch.inference_mode():
-        replay, _ = capture_decode_step(cfg, params, cache, prompts[:, :1])
-
-    def prefill():
-        with torch.inference_mode():
-            Z.prefill(cfg, params, cache, prompts)
-
-    def decode():
-        with torch.inference_mode():
-            Z.decode_step(cfg, params, cache, prompts[:, -1:], S)
-    for what, step in ((f"one prefill (batch {B} x {S})", prefill),
-                       ("one decode step (batch 4, pos 2048)", decode),
-                       ("one decode step replayed from its CUDA graph "
-                        "(batch 4, pos 2048)",
-                        lambda: replay(prompts[:, -1:], S))):
-        prof = profile_step(what, step)
+    for prof in profile_decode(cfg, params, prompts,
+                               f"batch {B}, pos {S}", prefill=True):
         prof["phase"] = "serve_qwen3_profile"
         emit(prof)
-    del cache, replay
 
     kernels = []
     with torch.inference_mode():
@@ -1923,6 +1941,353 @@ def serve_qwen3(dev) -> list:
     return kernels
 
 
+def serve_counted(cfg, params, prompts, n_gen, names, dist=None):
+    """``generate`` with the kernels ``names`` recorded (:class:`Recorder`)
+    and their launch counts set to 0 just before and read just after (a
+    captured kernel's at capture times the replays), each > 0; the tokens
+    of the right shape, inside the vocab, the logits finite.  Returns
+    (result, launches, recorders, peak device GB, the last decode_attention
+    call's arguments as :func:`record_last_decode` keeps them, or None)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.optim.adamw import tree_leaves
+    cudas = {n: ops.KERNELS[n][0] for n in names}
+    recs, restore = recording(names, frozenset(
+        t.data_ptr() for t in tree_leaves(params)))
+    last = (record_last_decode(recs["decode_attention"],
+                               ops.KERNELS["decode_attention"][1])
+            if "decode_attention" in names else None)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        res, launches = counted(cudas, lambda: generate(
+            cfg, params, prompts, n_gen, dist=dist))
+    finally:
+        restore()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = graph_launches(launches, res)
+    for n, k in launches.items():
+        if k <= 0:
+            raise AssertionError(f"kernel {n} was not launched serving "
+                                 f"{cfg.arch_id}")
+    toks = res["tokens"]
+    if (toks.shape != (prompts.shape[0], n_gen)
+            or not torch.isfinite(res["logits"]).all()
+            or not ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"serving {cfg.arch_id} produced a wrong shape, "
+                             "non-finite logits or a token outside the vocab")
+    return res, launches, recs, peak_gb, last
+
+
+def plain_check(cfg, params, prompts, names, dist=None) -> dict:
+    """The prompts through eager decode steps with the kernels ``names``
+    and again through their plain versions: every step's logits within
+    ``SERVE_PLAIN_TOL`` of the plain path's largest.  The plain run takes
+    the MoE routers' choices (``top_idx``; the weights from its own
+    probabilities) that the kernels' run made: the two round apart in bf16,
+    and a router whose k-th and (k+1)-th experts lie that close would
+    otherwise send a token to another expert, which is no kernel's error.
+    How many choices its own routers would have made otherwise is
+    reported (``routing_choices_differing``)."""
+    import torch
+
+    from repro_torch.core import moe as tmoe
+    from repro_torch.kernels import ops
+    from repro_torch.models import model_zoo as Z
+    B, S = prompts.shape
+    route, taken, differing = tmoe.route, [], []
+
+    def record(mcfg, rp, t, n):
+        out = route(mcfg, rp, t, n)
+        taken.append(out.top_idx)
+        return out
+
+    def replay(mcfg, rp, t, n):
+        out = route(mcfg, rp, t, n)
+        top = taken[len(differing)]
+        differing.append(int((out.top_idx != top).sum()))
+        w = torch.gather(out.probs, -1, top.long())
+        w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+        return out._replace(top_idx=top, top_w=w.to(out.top_w.dtype))
+
+    def run():
+        cache = Z.init_cache(cfg, B, S, dtype=Z.compute_dtype(cfg),
+                             device=prompts.device)
+        out = []
+        with torch.inference_mode():
+            for t in range(S):
+                logits, _, _ = Z.decode_step(cfg, params, cache,
+                                             prompts[:, t:t + 1], t,
+                                             dist=dist)
+                out.append(logits)
+        return out
+    originals = {n: ops.KERNELS[n] for n in names}
+    try:
+        tmoe.route = record
+        got = run()
+        tmoe.route = replay
+        ops.KERNELS.update({n: (p, p) for n, (_, p) in originals.items()})
+        ref = run()
+    finally:
+        tmoe.route = route
+        ops.KERNELS.update(originals)
+    errs = [rel_err(g, r) for g, r in zip(got, ref)]
+    line = {"kernels": list(names), "steps": S, "tol": SERVE_PLAIN_TOL,
+            "max_rel_err": max(errs), "last_rel_err": errs[-1],
+            "argmax_agree": float(torch.stack(
+                [(g.argmax(-1) == r.argmax(-1)).float()
+                 for g, r in zip(got, ref)]).mean()),
+            "router_calls": len(taken),
+            "routing_choices_differing": sum(differing)}
+    if not line["max_rel_err"] <= SERVE_PLAIN_TOL:
+        raise AssertionError(f"{cfg.arch_id}: logits through the kernels "
+                             f"against the plain versions: {line}")
+    return line
+
+
+def profile_decode(cfg, params, prompts, what: str, dist=None,
+                   prefill: bool = False) -> list:
+    """One eager decode step and one replayed from its CUDA graph, at
+    position S (the prompts' length, the prompt's last token fed again),
+    under torch.profiler; with ``prefill``, first one prefill of the
+    prompts."""
+    import torch
+
+    from repro_torch.launch.serve import capture_decode_step
+    from repro_torch.models import model_zoo as Z
+    B, S = prompts.shape
+    tok = prompts[:, -1:]
+    cache = Z.init_cache(cfg, B, S + 1, dtype=Z.compute_dtype(cfg),
+                         device=prompts.device)
+    with torch.inference_mode():
+        replay, _ = capture_decode_step(cfg, params, cache, prompts[:, :1],
+                                        dist=dist)
+
+    def run_prefill():
+        with torch.inference_mode():
+            Z.prefill(cfg, params, cache, prompts)
+
+    def eager():
+        with torch.inference_mode():
+            Z.decode_step(cfg, params, cache, tok, S, dist=dist)
+    steps = [(f"one prefill (batch {B} x {S})", run_prefill)] if prefill else []
+    steps += [(f"one decode step ({what})", eager),
+              (f"one decode step replayed from its CUDA graph ({what})",
+               lambda: replay(tok, S))]
+    return [profile_step(w, step) for w, step in steps]
+
+
+def same_tokens(cfg, eager: dict, res: dict) -> bool:
+    """The timed replayed ``generate``'s tokens against the eager one's,
+    bit for bit: a per-token path has no HT atomics, so nothing may
+    differ."""
+    import torch
+    if not torch.equal(eager["tokens"], res["tokens"]):
+        raise AssertionError(f"{cfg.arch_id}: the replayed generate's tokens "
+                             "differ from the eager generate's")
+    return True
+
+
+def step_bytes(params, cache, batch: int) -> int:
+    """Bytes a decode step must move at least: every parameter read once
+    (of the embedding only the batch's rows), every recurrent state read
+    and written once (a KV cache's live rows aside)."""
+    from repro_torch.optim.adamw import tree_leaves
+    n = sum(t.numel() * t.element_size() for k, t in params.items()
+            if k not in ("embed", "blocks"))
+    n += sum(t.numel() * t.element_size()
+             for t in tree_leaves(params["blocks"]))
+    emb = params["embed"]
+    n += batch * emb.shape[1] * emb.element_size()
+    n += sum(2 * t.numel() * t.element_size() for c in cache
+             for k, t in c.items() if k in ("conv", "ssm"))
+    return n
+
+
+def serve_falcon_mamba(dev) -> list:
+    """falcon-mamba-7b at full width and all 64 layers served through
+    ``generate``: the prompt through replayed decode steps, then greedy
+    decode; rmsnorm's launches counted; the eager step's tokens/s, and
+    the tokens of both steps bit for bit; every prompt step's logits
+    through the kernel against the plain version's; one decode step eager
+    and
+    replayed under the profiler.  Returns rmsnorm's recorded (args,
+    kwargs) cases (its D 4096 decode rows), for the kernel's checks."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model_zoo as Z
+    from repro_torch.models.mamba import mamba_dims
+    from repro_torch.optim.adamw import tree_leaves
+
+    cfg = get_config("falcon_mamba_7b")
+    B, S, N_GEN = FALCON_BATCH, FALCON_PROMPT, FALCON_GEN
+    t0 = time.perf_counter()
+    params = Z.init_params(cfg, seed=0, device=dev,
+                           dtype=Z.compute_dtype(cfg))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    param_gb = sum(t.numel() * t.element_size() for t in leaves) / 1e9
+    gen = torch.Generator().manual_seed(0)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen).to(dev)
+    # warm-up: first launches, library loads, the allocator's growth
+    generate(cfg, params, prompts[:, :8], 2)
+    torch.cuda.synchronize()
+    res, launches, recs, peak_gb, _ = serve_counted(cfg, params, prompts,
+                                                    N_GEN, ("rmsnorm",))
+    eager = generate(cfg, params, prompts, N_GEN, cuda_graph=False)
+    both = eager_vs_graph(cfg, params, prompts, N_GEN, batched_prefill=False)
+    nbytes = step_bytes(params, Z.init_cache(cfg, B, 1, device=dev), B)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    step_ms = 1e3 * B / res["decode_tokens_per_s"]
+    d, di, dtr, n = mamba_dims(cfg)
+    emit({"phase": "serve-falcon-mamba", "model": "falcon_mamba_7b",
+          "width": "full", "layers": cfg.n_layers, "d_model": d,
+          "d_inner": di, "dt_rank": dtr, "d_state": n,
+          "d_conv": cfg.mamba.d_conv, "vocab": cfg.vocab_size,
+          "params": n_params, "param_gb": param_gb, "batch": B, "prompt": S,
+          "generated": N_GEN, "prompt_steps": S - 1,
+          "prompt_s": res["prompt_s"],
+          "prompt_steps_per_s": (S - 1) / res["prompt_s"],
+          "eager_prompt_steps_per_s": (S - 1) / eager["prompt_s"],
+          "decode_tokens_per_s": res["decode_tokens_per_s"],
+          "eager_decode_tokens_per_s": eager["decode_tokens_per_s"],
+          "replayed_step_ms": step_ms, "step_bytes": nbytes,
+          "step_bound_ms": bound_ms, "step_bound_share": bound_ms / step_ms,
+          "decode_tokens_per_s_cap": B / bound_ms * 1e3,
+          "total_s": res["total_s"], "tokens_per_s": res["tokens_per_s"],
+          "cuda_graph": res["cuda_graph"], "capture_s": res["capture_s"],
+          "graph_replays": res["graph_replays"],
+          "captured_launches": {k: v for k, v in
+                                res["captured_launches"].items() if v},
+          "launches": launches,
+          "generate_tokens_equal": same_tokens(cfg, eager, res),
+          "eager_vs_graph": both, "first_tokens": res["tokens"][0].tolist(),
+          "init_params_s": init_s, "peak_mem_gb": peak_gb})
+    emit({"phase": "serve_falcon_mamba_plain",
+          **plain_check(cfg, params, prompts, ("rmsnorm",))})
+    for prof in profile_decode(cfg, params, prompts, f"batch {B}, pos {S}"):
+        prof["phase"] = "serve_falcon_mamba_profile"
+        emit(prof)
+    return list(recs["rmsnorm"].cases.values())
+
+
+def jamba_reduced_cfg():
+    """The jamba hybrid at its published widths, its first
+    ``JAMBA_LAYERS`` layers."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("jamba_1_5_large_398b"),
+                               n_layers=JAMBA_LAYERS)
+
+
+def serve_jamba_reduced(dev) -> None:
+    """The jamba hybrid at its published widths, its first 5 layers
+    (attention, Mamba and MoE layers, each with its own cache), served
+    through ``generate`` over an EP world of 4, on the fp32 and the fp8
+    wire: the prompt through replayed decode steps (LL), then greedy
+    decode; each run's kernels' launches counted; the eager and replayed
+    tokens bit for bit; every prompt step's logits through the kernels
+    against the plain versions'; one decode step profiled; the kernels on
+    the fp8 run's recorded inputs against their plain versions."""
+    import torch
+
+    from repro_torch.distributed.sharding import make_dist_ctx
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model_zoo as Z
+    from repro_torch.models.mamba import mamba_dims
+    from repro_torch.optim.adamw import tree_leaves
+
+    cfg = jamba_reduced_cfg()
+    cfg8 = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, wire_dtype="fp8"))
+    dist = make_dist_ctx(cfg, model=4)
+    B, S, N_GEN = JAMBA_BATCH, JAMBA_PROMPT, JAMBA_GEN
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = Z.init_params(cfg, seed=0, device=dev,
+                           dtype=Z.compute_dtype(cfg))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    leaves = tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    param_gb = sum(t.numel() * t.element_size() for t in leaves) / 1e9
+    # a decode step reads the weights outside the experts once and, of
+    # each MoE layer, the experts its batch's B x top_k choices occupy:
+    # from top_k (all on the same ones) to min(E, B x top_k)
+    m = cfg.moe
+    moe = [i for i in range(cfg.n_layers) if cfg.is_moe_layer(i)]
+    expert_bytes = 3 * cfg.d_model * m.d_expert * 2
+    dense = step_bytes(params, Z.init_cache(cfg, B, 1, device=dev), B) \
+        - len(moe) * m.n_experts * expert_bytes
+    bound_ms = [(dense + len(moe) * e * expert_bytes) / HBM_BYTES_PER_S * 1e3
+                for e in (m.top_k, min(m.n_experts, B * m.top_k))]
+    gen = torch.Generator().manual_seed(0)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen).to(dev)
+    for c in (cfg, cfg8):
+        generate(c, params, prompts[:, :4], 2, dist=dist)
+    torch.cuda.synchronize()
+    kinds = ["attention" if cfg.is_attn_layer(i) else "mamba"
+             for i in range(cfg.n_layers)]
+    _, di, dtr, n = mamba_dims(cfg)
+    recs = None
+    for c, wire in ((cfg, "fp32"), (cfg8, "fp8")):
+        names = JAMBA_KERNELS if wire == "fp8" else JAMBA_KERNELS[:3]
+        res, launches, r, peak_gb, last = serve_counted(
+            c, params, prompts, N_GEN, names, dist)
+        eager = generate(c, params, prompts, N_GEN, dist=dist,
+                         cuda_graph=False)
+        both = eager_vs_graph(c, params, prompts, N_GEN, dist,
+                              batched_prefill=False)
+        if wire == "fp8":
+            recs, fp8_launches, last_decode = r, launches, last
+        step_ms = 1e3 * B / res["decode_tokens_per_s"]
+        emit({"phase": "serve-jamba-reduced", "model": "jamba_1_5_large_398b",
+              "width": "full", "layers": cfg.n_layers, "layer_kinds": kinds,
+              "moe_layers": moe, "d_model": cfg.d_model,
+              "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+              "head_dim": cfg.head_dim_, "d_inner": di, "dt_rank": dtr,
+              "d_state": n, "d_ff": cfg.d_ff, "d_expert": m.d_expert,
+              "experts": m.n_experts, "top_k": m.top_k,
+              "vocab": cfg.vocab_size, "params": n_params,
+              "param_gb": param_gb, "ep_world": "model=4", "wire": wire,
+              "batch": B, "prompt": S, "generated": N_GEN,
+              "prompt_steps_per_s": (S - 1) / res["prompt_s"],
+              "decode_tokens_per_s": res["decode_tokens_per_s"],
+              "eager_decode_tokens_per_s": eager["decode_tokens_per_s"],
+              "replayed_step_ms": step_ms,
+              "step_bound_ms_range": bound_ms,
+              "total_s": res["total_s"], "capture_s": res["capture_s"],
+              "graph_replays": res["graph_replays"],
+              "decode_dropped": res["decode_dropped"],
+              "prefill_dropped": res["prefill_dropped"],
+              "launches": launches,
+              "generate_tokens_equal": same_tokens(c, eager, res),
+              "eager_vs_graph": both,
+              "first_tokens": res["tokens"][0].tolist(),
+              "init_params_s": init_s, "init_peak_mem_gb": init_peak_gb,
+              "peak_mem_gb": peak_gb})
+        emit({"phase": "serve_jamba_reduced_plain", "wire": wire,
+              **plain_check(c, params, prompts, names, dist)})
+        del r, res, eager
+    for prof in profile_decode(cfg, params, prompts, f"batch {B}, pos "
+                               f"{S}, fp32 wire", dist):
+        prof["phase"] = "serve_jamba_reduced_profile"
+        emit(prof)
+    with torch.inference_mode():
+        for n in JAMBA_KERNELS:
+            extra, lead = (), 0
+            if n == "decode_attention":     # the last step (rep 8) leads
+                extra = decode_cases(last_decode, S - 1)
+                lead = len(recs[n].cases)
+            emit({"phase": "kernel", "path": "jamba_1_5_large_398b (5 layers)",
+                  **check_kernel(n, recs[n], fp8_launches, extra, lead)})
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1950,7 +2315,20 @@ def main() -> int:
     # the serving model and the recorded EP inputs have left the card
     gc.collect()
     torch.cuda.empty_cache()
+    rmsnorm_cases = serve_falcon_mamba(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_jamba_reduced(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
     kernels += serve_qwen3(dev)
+    # rmsnorm's entry holds falcon-mamba's D 4096 decode rows too
+    rms = next(k for k in kernels if k["name"] == "rmsnorm")
+    add_cases(rms, rmsnorm_cases)
+    emit({"phase": "kernel", "path": "qwen3_4b, and falcon_mamba_7b's "
+          "decode rows",
+          **{k: v for k, v in rms.items() if k != "cases"},
+          "cases": rms["cases"][-len(rmsnorm_cases):]})
     gc.collect()
     torch.cuda.empty_cache()
     lines, scan_rec, scan_launches = train_phase(dev)

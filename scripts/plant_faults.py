@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
 """Plant one fault at a time in a copy of the port's sources and count the
 ``cuda`` tests of RMSNorm, the scan, the wire kernels, the double-buffered
-grouped SwiGLU and paged decoding that each fails, on one NVIDIA GPU.
+grouped SwiGLU, paged decoding and the replayed Mamba decode step that
+each fails, on one NVIDIA GPU.
 
     python3 scripts/plant_faults.py [FAULT ...]
 
 Each fault (all of ``FAULTS``, or those named) is a one-line edit of
 ``csrc/mamba_scan.cu``, ``csrc/dequantize.cu``, ``csrc/rmsnorm.cu``,
 ``csrc/gather_quantize.cu``, ``csrc/grouped_swiglu_db.cu``,
-``csrc/decode_attention_paged.cu`` or the decoders' shared body
-``csrc/decode_common.cuh`` in a copy of ``src/`` and ``tests/`` under a
+``csrc/decode_attention_paged.cu``, the decoders' shared body
+``csrc/decode_common.cuh`` or ``launch/serve.py`` (the cache reset after
+a decode step's capture) in a copy of ``src/`` and ``tests/`` under a
 temporary directory (the repository is never edited); the copy builds its
 own kernels and runs ``pytest --noconftest -m cuda -k TESTS
 tests/test_torch_cuda.py``.  One JSON line
@@ -29,7 +31,8 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 CSRC = "src/repro_torch/csrc/"
-TESTS = "rmsnorm or scan or quantize or swiglu_db or paged"
+TESTS = ("rmsnorm or scan or quantize or swiglu_db or paged or "
+         "graph_matches_eager_mamba")
 # name: (file, text, the text that replaces it)
 FAULTS = {
     "scan_drops_carry": (
@@ -92,6 +95,10 @@ FAULTS = {
         CSRC + "decode_common.cuh",
         "const bool in = (c0 + j) * p.chunk < n_live;",
         "const bool in = (c0 + j + 1) * p.chunk < n_live;"),
+    # the capture's warm-up steps leave their conv and ssm states behind
+    "serve_skips_cache_reset": (
+        "src/repro_torch/launch/serve.py", "        Z.reset_cache(cache)\n",
+        "        pass\n"),
 }
 
 

@@ -2,9 +2,11 @@
 
 72L d_model=8192 64H (GQA kv=8) d_ff=24576 vocab=65536, MoE 16e top-2 every
 2nd layer; one attention layer per 8 (offset 4), rest Mamba; factored
-second-moment optimizer.  The port runs it only reduced (``reduced_config``):
-at full width it does not fit one card -- one MoE layer alone holds
-16 x 3 x 8192 x 24576 = 9.66B expert parameters, 155 GB of fp32 AdamW state.
+second-moment optimizer.  The port trains it only reduced
+(``reduced_config``): at full width it does not fit one card -- one MoE layer
+alone holds 16 x 3 x 8192 x 24576 = 9.66B expert parameters, 155 GB of fp32
+AdamW state.  At full width it serves cut in depth: the first 5 layers (two
+MoE layers, the first attention layer) are 24.0B parameters, 48.1 GB in bf16.
 """
 from repro_torch.configs.base import MambaConfig, ModelConfig, MoEConfig
 

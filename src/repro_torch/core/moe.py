@@ -35,17 +35,25 @@ def padded_experts_static(cfg: ModelConfig) -> int:
     return _round_up(e, 32) if e >= 32 else _round_up(e, 16)
 
 
-def moe_init(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
+def moe_init(cfg: ModelConfig, gen: torch.Generator, device,
+             dtype: Optional[torch.dtype] = None) -> dict:
+    """With ``dtype``, each expert weight is cast as soon as it is made, so
+    that the fp32 peak is one weight, not the layer's three (at jamba's
+    widths one fp32 weight is 12.9 GB)."""
     m = cfg.moe
     e_pad = padded_experts_static(cfg)
     d, f = cfg.d_model, m.d_expert
     s, so = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
     r = router_init(d, e_pad, gen, m.router_aux_free_bias, device)
+
+    def mk(shape, sc):
+        w = torch.randn(shape, generator=gen, device=device).mul_(sc)
+        return w if dtype is None else w.to(dtype)
     out = {
         "router_w": r.w,
-        "w_gate": torch.randn((e_pad, d, f), generator=gen, device=device) * s,
-        "w_up": torch.randn((e_pad, d, f), generator=gen, device=device) * s,
-        "w_down": torch.randn((e_pad, f, d), generator=gen, device=device) * so,
+        "w_gate": mk((e_pad, d, f), s),
+        "w_up": mk((e_pad, d, f), s),
+        "w_down": mk((e_pad, f, d), so),
     }
     if r.bias is not None:
         out["router_b"] = r.bias

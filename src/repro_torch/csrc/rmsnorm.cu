@@ -40,6 +40,12 @@ using bf16 = __nv_bfloat16;
 constexpr int kRowsThreads = 256;   // block of rmsnorm_rows_kernel
 constexpr int kRowMaxThreads = 512; // largest block of rmsnorm_row_kernel
 constexpr int kRowsMaxItems = 8;    // vectors a rows-kernel thread holds
+// lanes a row in rmsnorm_rows_kernel (a power of two between the two), so
+// that a row of kRowsMinLanes * kRowsMaxItems vectors fits at every lane
+// count: the widest row the wrapper sends it
+// (norm_attention.RMSNORM_ROWS_MAX_VECTORS)
+constexpr int kRowsMinLanes = 4;
+constexpr int kRowsMaxLanes = 32;
 constexpr int kRowMaxItems = 4;     // vectors a row-kernel thread holds
 
 // V bf16 values moved as one load: 16 bytes for V = 8, 8 bytes for V = 4
@@ -246,7 +252,8 @@ template <int V>
 int rows_launch(const bf16* x, const float* scale, bf16* out, long long rows, int D, float eps,
                 int T, int sms, cudaStream_t s) {
   const int items = (D / V + T - 1) / T;
-  if (T < 4 || T > 32 || (T & (T - 1)) || items > kRowsMaxItems) return cudaErrorInvalidValue;
+  if (T < kRowsMinLanes || T > kRowsMaxLanes || (T & (T - 1)) || items > kRowsMaxItems)
+    return cudaErrorInvalidValue;
   if (items <= 1) launch_rows<V, 1>(x, scale, out, rows, D, eps, T, sms, s);
   else if (items <= 2) launch_rows<V, 2>(x, scale, out, rows, D, eps, T, sms, s);
   else if (items <= 4) launch_rows<V, 4>(x, scale, out, rows, D, eps, T, sms, s);

@@ -5,6 +5,8 @@
       --mesh local --local-model-axis 4 --batch 4 --prompt-len 256 --gen 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_4b \\
       --batch 4 --prompt-len 2048 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon_mamba_7b \\
+      --batch 4 --prompt-len 64 --gen 32
 
 Runs on ``cuda`` unless ``--device cpu``.  Prefill and decode run their
 norms and attention through the RMSNorm, flash attention and flash
@@ -15,8 +17,11 @@ local`` the MoE layers run expert parallel over a rank-stacked world of
 ``--local-model-axis`` ranks on the one device, and, as in the reference,
 whose cache is then sharded over the model axis, the prompt runs through
 decode steps (LL) and no TTFT is reported; ``--mesh none`` prefills in one
-batched pass (the MoE layers through the dense oracle).  Decode goes token
-by token through LL.
+batched pass (the MoE layers through the dense oracle).  A model with
+Mamba layers (falcon-mamba, the jamba hybrid) always runs its prompt
+through decode steps, as the reference's does: a batched prefill would
+need the recurrent state after the prompt.  Decode goes token by token
+through LL.
 """
 from __future__ import annotations
 
@@ -29,6 +34,33 @@ from typing import Optional
 WARMUP_STEPS = 2    # eager decode steps before a capture
 
 
+class CapturedStep:
+    """A decode step captured in a CUDA graph (:func:`capture_decode_step`):
+    ``step(tok, t)`` copies ``tok`` and ``t`` into the static buffers,
+    replays the graph, and returns clones of its static outputs ``(logits,
+    aux)`` (the next replay overwrites them); ``replays`` counts the
+    replays.  It holds no reference to itself, so the graph is destroyed
+    when the last reference to the step goes, never by the cyclic garbage
+    collector at some later moment, which may fall inside another
+    capture: destroying a graph there invalidates that capture."""
+
+    def __init__(self, graph, tok_s, pos_s, logits_s, aux_s):
+        self.graph, self.tok_s, self.pos_s = graph, tok_s, pos_s
+        self.logits_s, self.aux_s = logits_s, aux_s
+        self.replays = 0
+
+    def __call__(self, tok, t):
+        import torch
+        # the static buffers are inference tensors: written under its mode
+        with torch.inference_mode():
+            self.tok_s.copy_(tok)
+            self.pos_s.fill_(t)
+            self.graph.replay()
+            self.replays += 1
+            return self.logits_s.clone(), {k: v.clone()
+                                           for k, v in self.aux_s.items()}
+
+
 def capture_decode_step(cfg, params, cache, tokens, *, dist=None):
     """``Z.decode_step`` captured once in a CUDA graph: the port's
     counterpart of the reference's ``jax.jit(decode_step)``
@@ -37,14 +69,15 @@ def capture_decode_step(cfg, params, cache, tokens, *, dist=None):
     caller fills it in place (the prefill writes ``cache[:, :S]``).  The
     warm-up steps (first launches, one-time kernel attributes, the
     allocator's growth) and the capture run at position 0 with
-    ``tokens``: they write row 0 of every layer's cache, which the prefill
-    or the first decode step writes again.
+    ``tokens``, and so update the cache: a K/V row the prefill or the first
+    decode step would write again, but also the Mamba layers' conv history
+    and ssm state, which every step carries on.  So the cache is zeroed in
+    place after the capture (``model_zoo.reset_cache``), as
+    ``init_cache`` made it.
 
-    Returns ``(step, captured)``: ``step(tok, t)`` copies ``tok`` and ``t``
-    into the static buffers, replays the graph, and returns clones of its
-    static outputs ``(logits, aux)`` (the next replay overwrites them);
-    ``captured`` maps each kernel to the launches one replay makes.  A
-    capture that fails raises."""
+    Returns ``(step, captured)``: ``step`` a :class:`CapturedStep`,
+    ``captured`` the launches one replay makes of each kernel.  A capture
+    that fails raises."""
     import torch
 
     from repro_torch.kernels import ops
@@ -75,20 +108,10 @@ def capture_decode_step(cfg, params, cache, tokens, *, dist=None):
             logits_s, aux_s = run()
         finally:
             graph.capture_end()
+        Z.reset_cache(cache)
     torch.cuda.current_stream(dev).wait_stream(side)
     captured = {n: c - before[n] for n, c in ops.launch_counts().items()}
-
-    def step(tok, t):
-        # the static buffers are inference tensors: written under its mode
-        with torch.inference_mode():
-            tok_s.copy_(tok)
-            pos_s.fill_(t)
-            graph.replay()
-            step.replays += 1
-            return logits_s.clone(), {k: v.clone() for k, v in aux_s.items()}
-
-    step.replays = 0
-    return step, captured
+    return CapturedStep(graph, tok_s, pos_s, logits_s, aux_s), captured
 
 
 def generate(cfg, params, prompts, n_gen, *, dist=None,
@@ -99,8 +122,9 @@ def generate(cfg, params, prompts, n_gen, *, dist=None,
     reference's rule (repro/launch/serve.py): one batched HT prefill unless
     the model has Mamba layers or ``dist`` has a model axis; otherwise the
     prompt runs through S - 1 LL decode steps, as the reference prefills
-    its model-sharded cache, and there is no TTFT (``ttft_s`` None).
-    True forces the batched prefill.
+    its model-sharded cache, and there is no TTFT (``ttft_s`` None);
+    ``prompt_s`` is the prompt's time either way.  True forces the batched
+    prefill.
 
     ``cuda_graph`` None means yes on the card and no on the CPU: the decode
     step is captured once (:func:`capture_decode_step`) before the clock
@@ -172,6 +196,7 @@ def generate(cfg, params, prompts, n_gen, *, dist=None,
                  .mean(0).tolist() if prefill else [])
     return {"tokens": torch.cat(out, dim=1), "logits": logits,
             "ttft_s": t_prompt if batched_prefill else None,
+            "prompt_s": t_prompt,
             "total_s": dt, "tokens_per_s": total / dt,
             "decode_tokens_per_s": (B * len(dropped) / (dt - t_prompt)
                                     if dropped else None),

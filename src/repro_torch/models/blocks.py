@@ -2,10 +2,13 @@
 local-cache prefill and decode of ``repro.models.blocks``.
 
 A layer's parameters are a dict in the JAX layout (``ln1``, ``ln2``,
-``attn`` or ``mamba``, ``moe`` or ``mlp``); its decode cache is a dict
-``{"k", "v"}`` of ``(B, S_max, Hkv, hd)`` tensors, which prefill and decode
-update in place.  Training (``block_apply``) computes its norms and
-attention in the model's own tensor code, as the reference does; prefill
+``attn`` or ``mamba``, ``moe`` or ``mlp``).  Its decode cache is a dict
+too: an attention layer's ``{"k", "v"}``, two ``(B, S_max, Hkv, hd)``
+tensors, a Mamba layer's ``{"conv", "ssm"}`` (``mamba_init_cache``);
+prefill and decode update it in place.  (The reference's ``BlockCache``
+carries both kinds in every layer, the unused ones as placeholders.)
+Training (``block_apply``) computes its norms and attention in the
+model's own tensor code, as the reference does; prefill
 and decode run them through ``kernels.ops`` (RMSNorm, flash attention,
 flash decoding), whose CUDA kernels have no backward.  The reference's
 mesh constraints and its ``sp_islands`` shard_map islands place tensors on
@@ -24,13 +27,17 @@ from repro_torch.kernels import ops
 from repro_torch.models.layers import (_qkv, attention, attn_init, decode_qkv,
                                        mlp_init, rmsnorm, rmsnorm_init,
                                        swiglu)
-from repro_torch.models.mamba import mamba_apply, mamba_init
+from repro_torch.models.mamba import (MambaCache, mamba_apply,
+                                      mamba_decode_step, mamba_init,
+                                      mamba_init_cache)
 
 Tensor = torch.Tensor
 
 
 def block_init(cfg: ModelConfig, layer_idx: int, gen: torch.Generator,
-               device) -> dict:
+               device, dtype: Optional[torch.dtype] = None) -> dict:
+    """Layer ``layer_idx``'s parameters in fp32; with ``dtype``, the MoE
+    experts' weights are made in it (``moe_init``)."""
     p: dict = {"ln1": rmsnorm_init(cfg.d_model, device),
                "ln2": rmsnorm_init(cfg.d_model, device)}
     if cfg.is_attn_layer(layer_idx):
@@ -38,17 +45,22 @@ def block_init(cfg: ModelConfig, layer_idx: int, gen: torch.Generator,
     elif cfg.mamba.enabled:
         p["mamba"] = mamba_init(cfg, gen, device)
     if cfg.is_moe_layer(layer_idx):
-        p["moe"] = moe_init(cfg, gen, device)
+        p["moe"] = moe_init(cfg, gen, device, dtype)
     elif cfg.d_ff:
         p["mlp"] = mlp_init(cfg.d_model, cfg.d_ff, gen, device)
     return p
 
 
-def block_init_cache(cfg: ModelConfig, batch: int, max_len: int,
-                     dtype=torch.bfloat16, device="cuda") -> dict:
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim_)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+def block_init_cache(cfg: ModelConfig, layer_idx: int, batch: int,
+                     max_len: int, dtype=torch.bfloat16,
+                     device="cuda") -> dict:
+    """Layer ``layer_idx``'s decode cache: ``{"k", "v"}`` for an attention
+    layer, ``{"conv", "ssm"}`` for a Mamba layer (no KV cache)."""
+    if cfg.is_attn_layer(layer_idx):
+        shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim_)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    return mamba_init_cache(cfg, batch, dtype, device)._asdict()
 
 
 def _ffn(cfg, dist, p, h, mode, chunks):
@@ -81,6 +93,10 @@ def block_prefill(cfg: ModelConfig, dist: Optional[DistCtx], p: dict,
                   moe_chunks: int = 1) -> tuple[Tensor, dict, dict]:
     """Batched prompt prefill: x (B, S, D) -> (x', cache, aux); the
     projected k/v land in ``cache[:, :S]``."""
+    if "mamba" in p:
+        raise NotImplementedError(
+            "batched prefill needs the post-prompt recurrent state; mamba "
+            "layers prefill through the per-token decode loop")
     h = ops.rmsnorm(x, p["ln1"], cfg.norm_eps)
     q, k_new, v_new = _qkv(cfg, p["attn"], h, positions, norm=ops.rmsnorm)
     S = x.shape[1]
@@ -99,15 +115,22 @@ def block_decode(cfg: ModelConfig, dist: Optional[DistCtx], p: dict,
                  moe_mode: str = "ll") -> tuple[Tensor, dict, dict]:
     """One-token decode: x (B, 1, D) at position ``pos``, a 0-d int32
     tensor on x's device that nothing here reads on the host (so a CUDA
-    graph can capture the step and replay it at any position)."""
+    graph can capture the step and replay it at any position).  A Mamba
+    layer reads no position: its state is the step count."""
     h = ops.rmsnorm(x, p["ln1"], cfg.norm_eps)
-    q, k_new, v_new = decode_qkv(cfg, p["attn"], h, pos, norm=ops.rmsnorm)
-    row = pos.reshape(1).to(torch.int64)
-    cache["k"].index_copy_(1, row, k_new.to(cache["k"].dtype))
-    cache["v"].index_copy_(1, row, v_new.to(cache["v"].dtype))
-    # the whole cache: the kernel reads only positions 0..pos
-    o = ops.decode_attention(q[:, 0], cache["k"], cache["v"], pos)[:, None]
-    h = torch.einsum("bshk,hkd->bsd", o, p["attn"]["wo"].to(h.dtype))
+    if "attn" in p:
+        q, k_new, v_new = decode_qkv(cfg, p["attn"], h, pos,
+                                     norm=ops.rmsnorm)
+        row = pos.reshape(1).to(torch.int64)
+        cache["k"].index_copy_(1, row, k_new.to(cache["k"].dtype))
+        cache["v"].index_copy_(1, row, v_new.to(cache["v"].dtype))
+        # the whole cache: the kernel reads only positions 0..pos
+        o = ops.decode_attention(q[:, 0], cache["k"], cache["v"],
+                                 pos)[:, None]
+        h = torch.einsum("bshk,hkd->bsd", o, p["attn"]["wo"].to(h.dtype))
+    elif "mamba" in p:
+        h, _ = mamba_decode_step(cfg, p["mamba"], h,
+                                 MambaCache(cache["conv"], cache["ssm"]))
     x = x + h
     h, aux = _ffn(cfg, dist, p, ops.rmsnorm(x, p["ln2"], cfg.norm_eps),
                   moe_mode, 1)

@@ -1,17 +1,21 @@
-"""Mamba-1 block for training (falcon-mamba / jamba mamba layers): init and
-the sequence apply, the port of ``repro.models.mamba`` (``mamba_dims``,
-``mamba_init``, ``_ssm_inputs``, ``mamba_apply``).
+"""Mamba-1 block (falcon-mamba / jamba mamba layers): init, the sequence
+apply for training, and the one-token decode step with a carried (conv,
+ssm) state, the port of ``repro.models.mamba`` (``mamba_dims``,
+``mamba_init``, ``_ssm_inputs``, ``mamba_apply``, ``MambaCache``,
+``mamba_init_cache``, ``mamba_decode_step``).
 
 The dtypes are those of the reference: the projections and the causal
 depthwise conv run in the compute dtype; the step sizes ``dts``, ``A``,
 ``Bs``, ``Cs`` and the scan input are fp32; the scan output is cast back,
-then gated by ``silu(z)``.  The scan is ``kernels.ops.mamba_scan``.
-Decoding with a carried (conv, ssm) state waits for the slice that serves
-Mamba models.
+then gated by ``silu(z)``.  The scan is ``kernels.ops.mamba_scan``.  The
+decode step keeps the conv history in the cache dtype and the ssm state in
+fp32, and updates both in place, so that a CUDA graph that captured the
+step replays it on the same cache.
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -85,3 +89,46 @@ def mamba_apply(cfg: ModelConfig, p: dict, x: Tensor) -> Tensor:
     y = kops.mamba_scan(xc.to(torch.float32), dts, A, Bs, Cs, p["D"])
     y = y.to(dt) * F.silu(z)
     return y @ p["out_proj"].to(dt)
+
+
+class MambaCache(NamedTuple):
+    conv: Tensor   # (B, d_conv - 1, Di) trailing conv inputs, cache dtype
+    ssm: Tensor    # (B, Di, N) recurrent state, fp32
+
+
+def mamba_init_cache(cfg: ModelConfig, batch: int, dtype=torch.bfloat16,
+                     device="cuda") -> MambaCache:
+    _, di, _, n = mamba_dims(cfg)
+    return MambaCache(
+        conv=torch.zeros((batch, cfg.mamba.d_conv - 1, di), dtype=dtype,
+                         device=device),
+        ssm=torch.zeros((batch, di, n), dtype=torch.float32, device=device))
+
+
+def mamba_decode_step(cfg: ModelConfig, p: dict, x: Tensor,
+                      cache: MambaCache) -> tuple[Tensor, MambaCache]:
+    """x (B, 1, d_model), one token -> (y (B, 1, d_model), cache), the
+    cache's two tensors updated in place.  The conv dot over the d_conv
+    taps sums in fp32 and rounds once to the compute dtype."""
+    dt = x.dtype
+    f32 = torch.float32
+    xi = x[:, 0] @ p["in_proj"].to(dt)                           # (B, Di)
+    z = x[:, 0] @ p["z_proj"].to(dt)
+    hist = torch.cat([cache.conv, xi[:, None]], dim=1)          # (B,dc,Di)
+    xc = ((hist.to(f32) * p["conv_w"].to(dt).to(f32)).sum(1).to(dt)
+          + p["conv_b"].to(dt))
+    xc = F.silu(xc)
+    dts, A, Bs, Cs = _ssm_inputs(cfg, p, xc[:, None])
+    dts, Bs, Cs = dts[:, 0], Bs[:, 0], Cs[:, 0]                  # (B,Di)/(B,N)
+    xf = xc.to(f32)
+    dA = torch.exp(dts[..., None] * A)                           # (B,Di,N)
+    dBx = dts[..., None] * Bs[:, None, :] * xf[..., None]
+    h = dA * cache.ssm + dBx
+    y = torch.einsum("bdn,bn->bd", h, Cs) + xf * p["D"]
+    y = y.to(dt) * F.silu(z)
+    out = (y @ p["out_proj"].to(dt))[:, None]
+    # hist is a new tensor: the shift copies from it, never a slice of the
+    # cache onto itself
+    cache.conv.copy_(hist[:, 1:])
+    cache.ssm.copy_(h)
+    return out, cache

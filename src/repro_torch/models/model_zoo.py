@@ -53,7 +53,9 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
                 dtype: Optional[torch.dtype] = None) -> dict:
     """Random parameters from ``seed`` (a torch.Generator; the numbers
     differ from the JAX package's).  With ``dtype``, each layer is cast as
-    soon as it is made, which keeps the fp32 peak to one layer."""
+    soon as it is made, and each MoE expert weight as soon as it is made,
+    which keeps the fp32 peak to one layer's dense weights or one expert
+    weight."""
     device = torch.device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     d, vp = cfg.d_model, cfg.padded_vocab()
@@ -70,7 +72,7 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
         params["lm_head"] = done(torch.randn((d, vp), generator=gen,
                                              device=device) / math.sqrt(d),
                                  "lm_head")
-    params["blocks"] = [done(B.block_init(cfg, i, gen, device))
+    params["blocks"] = [done(B.block_init(cfg, i, gen, device, dtype))
                         for i in range(cfg.n_layers)]
     return params
 
@@ -162,8 +164,20 @@ def _chunked_xent(cfg: ModelConfig, x: Tensor, head: Tensor, labels: Tensor,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device="cuda") -> list:
-    return [B.block_init_cache(cfg, batch, max_len, dtype, device)
-            for _ in range(cfg.n_layers)]
+    """Each layer's decode cache (:func:`blocks.block_init_cache`): K/V for
+    an attention layer, the conv history and ssm state for a Mamba one."""
+    return [B.block_init_cache(cfg, i, batch, max_len, dtype, device)
+            for i in range(cfg.n_layers)]
+
+
+def reset_cache(cache: list) -> list:
+    """Zero every tensor of ``cache`` in place, KV and recurrent state
+    alike: a cache as :func:`init_cache` made it, at the same addresses (a
+    captured decode step's)."""
+    for layer in cache:
+        for t in layer.values():
+            t.zero_()
+    return cache
 
 
 def _dropped(auxes: list, device) -> dict:
@@ -183,11 +197,11 @@ def prefill(cfg: ModelConfig, params: dict, cache: list, tokens: Tensor, *,
     """Batched prompt prefill: ONE forward pass over tokens (B, S) that
     fills ``cache[:, :S]`` of every layer.  Returns the last position's
     logits (B, V_pad) fp32, the cache, and ``{"dropped",
-    "dropped_per_layer"}`` (see :func:`_dropped`).  Attention-only stacks
-    (serving Mamba models is a later slice)."""
+    "dropped_per_layer"}`` (see :func:`_dropped`).  Attention-only stacks:
+    a model with Mamba layers runs its prompt through :func:`decode_step`,
+    as the reference's does."""
     if cfg.mamba.enabled:
-        raise NotImplementedError("serving Mamba layers (mamba_decode_step) "
-                                  "is not ported yet")
+        raise NotImplementedError("mamba prefill goes through decode_step")
     x = B.vocab_embed(params["embed"], tokens)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None].expand(x.shape[0], S)
@@ -208,8 +222,10 @@ def decode_step(cfg: ModelConfig, params: dict, cache: list, tokens: Tensor,
     batch), an int or a 0-d int32 tensor on the tokens' device, as the
     reference's takes ``jnp.int32(t)``.  Nothing of the step reads ``pos``
     on the host, so a CUDA graph captures it with ``pos`` in a static
-    buffer (``launch.serve.capture_decode_step``).  Returns (logits (B,
-    V_pad) fp32, cache, ``{"dropped", "dropped_per_layer"}``)."""
+    buffer (``launch.serve.capture_decode_step``).  Runs any stack of
+    attention and Mamba layers, each with its own cache (:func:`init_cache`),
+    updated in place.  Returns (logits (B, V_pad) fp32, cache, ``{"dropped",
+    "dropped_per_layer"}``)."""
     x = B.vocab_embed(params["embed"], tokens)
     if not isinstance(pos, Tensor):
         # a fill on the device: no copy from the host, no synchronise

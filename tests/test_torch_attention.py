@@ -5,6 +5,8 @@ decoding kernels against the JAX Pallas kernels in interpret mode,
 prefill + decode against the JAX ``model_zoo``; and that the three ops
 refuse a device they have no kernel for."""
 import dataclasses
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -83,6 +85,7 @@ RMSNORM_SERVED = {   # (rows, D): threads a row
     (4, 2560): 320,      # the decode step's ln1: a vector a thread
     (128, 128): 16,      # its q_norm: a vector a lane
     (32, 128): 16,       # its k_norm
+    (4, 4096): 512,      # falcon-mamba-7b's decode ln1, ln2 and final_ln
 }
 
 
@@ -116,6 +119,31 @@ def test_rmsnorm_threads_per_row_is_a_launch_the_kernel_takes(rows, D):
         assert t % 32 == 0 and t <= na.RMSNORM_ROW_MAX_THREADS
         assert t == na.RMSNORM_ROW_MAX_THREADS or -(-vecs // t) == per
         assert t >= 32 and (t == 32 or -(-vecs // (t - 32)) > per)
+
+
+def _rmsnorm_c_constants() -> dict:
+    src = (Path(ops.__file__).resolve().parents[1] / "csrc"
+           / "rmsnorm.cu").read_text()
+    return {k: int(v) for k, v in
+            re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+
+
+def test_rmsnorm_limits_are_the_kernels():
+    """The wrapper's two launch limits are the CUDA source's, read from it
+    (so the two cannot drift apart): the one-row-a-block kernel's largest
+    block, and the widest row the several-rows kernel takes at every lane
+    count it allows (its fewest lanes times the vectors a lane holds); and
+    the wrapper's rule gives that kernel only lane counts it allows."""
+    from repro_torch.kernels import norm_attention as na
+    c = _rmsnorm_c_constants()
+    assert na.RMSNORM_ROW_MAX_THREADS == c["kRowMaxThreads"]
+    assert na.RMSNORM_ROWS_MAX_VECTORS == c["kRowsMinLanes"] * c[
+        "kRowsMaxItems"]
+    for vecs in range(1, na.RMSNORM_ROWS_MAX_VECTORS + 1):
+        for rows in (1, 4, 132, 8192, 262144):
+            t = na.rmsnorm_threads_per_row(rows, 8 * vecs, 132)
+            assert c["kRowsMinLanes"] <= t <= c["kRowsMaxLanes"]
+            assert -(-vecs // t) <= c["kRowsMaxItems"]
 
 
 # -------------------------------------------------------- flash attention --

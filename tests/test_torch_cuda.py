@@ -438,10 +438,11 @@ def _bf16(rng, shape, device, s=1.0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,D", [(37, 128), (5, 2560), (9, 1024),
-                                    (3, 1028), (300, 200)])
+                                    (3, 1028), (300, 200), (4, 4096)])
 def test_cuda_rmsnorm_matches_plain(cuda_device, rows, D):
-    """One warp a row up to D = 1024, one block a row above; bf16 x with
-    rows of very different scales, fp32 scale."""
+    """One warp a row up to D = 1024, one block a row above (4 x 4096:
+    falcon-mamba-7b's decode norms, 512 threads a row); bf16 x with rows of
+    very different scales, fp32 scale."""
     rng = np.random.default_rng(D)
     x = _bf16(rng, (rows, D), cuda_device) * torch.from_numpy(
         rng.uniform(0.01, 50, (rows, 1)).astype(np.float32)).to(
@@ -853,6 +854,40 @@ def test_cuda_generate_graph_matches_eager(cuda_device, arch, world):
     assert graph["captured_launches"]["decode_attention"] == cfg.n_layers
     assert graph["graph_replays"] == (n_gen - 1 if world is None
                                       else S - 1 + n_gen)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,world", [("falcon_mamba_7b", None),
+                                        ("jamba_1_5_large_398b", 2)])
+def test_cuda_generate_graph_matches_eager_mamba(cuda_device, arch, world):
+    """A Mamba model (and the jamba hybrid over an EP world of 2) served
+    through the captured decode step and through the eager step: the same
+    tokens and last logits bit for bit.  The capture's warm-up steps
+    advance the conv and ssm states; without the reset after the capture
+    the replayed steps would start from them."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.distributed.sharding import make_dist_ctx
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model_zoo as Z
+    cfg = reduced_config(get_config(arch), n_layers=2, d_model=512,
+                         vocab=512)
+    dist = make_dist_ctx(cfg, model=world) if world else None
+    params = Z.init_params(cfg, seed=0, device=cuda_device,
+                           dtype=Z.compute_dtype(cfg))
+    B, S, n_gen = 4, 24, 8
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=torch.
+                            Generator().manual_seed(0)).to(cuda_device)
+    eager = generate(cfg, params, prompts, n_gen, dist=dist,
+                     cuda_graph=False)
+    graph = generate(cfg, params, prompts, n_gen, dist=dist)
+    assert graph["cuda_graph"] and not graph["batched_prefill"]
+    assert graph["tokens"].shape == (B, n_gen)
+    assert torch.equal(graph["tokens"], eager["tokens"])
+    assert torch.equal(graph["logits"], eager["logits"])
+    attn = sum(cfg.is_attn_layer(i) for i in range(cfg.n_layers))
+    assert graph["captured_launches"]["rmsnorm"] == 2 * cfg.n_layers + 1
+    assert graph["captured_launches"]["decode_attention"] == attn
+    assert graph["graph_replays"] == S - 1 + n_gen
 
 
 def _range_close(got, ref, tol=1e-2):

@@ -291,3 +291,39 @@ def test_generate_cuda_graph_on_the_cpu():
         assert r["graph_replays"] == 0 and r["captured_launches"] is None
     assert torch.equal(default["tokens"], eager["tokens"])
 
+
+
+def test_captured_step_goes_with_its_last_reference():
+    """A captured step (``serve.CapturedStep``) replays its graph with the
+    token and position in its static buffers, counts the replays, and
+    holds no reference cycle: its graph is destroyed when the step is
+    dropped, not by the cyclic collector at a later moment that may fall
+    inside another capture (destroying a graph there invalidates it)."""
+    import gc
+    import weakref
+
+    class Graph:
+        replayed = 0
+
+        def replay(self):
+            Graph.replayed += 1
+
+    graph = Graph()
+    gone = weakref.ref(graph)
+    tok_s = torch.zeros((2, 1), dtype=torch.int64)
+    pos_s = torch.zeros((), dtype=torch.int32)
+    logits_s = torch.arange(8.0).reshape(2, 4)
+    step = serve.CapturedStep(graph, tok_s, pos_s, logits_s,
+                              {"dropped": torch.zeros(())})
+    del graph
+    logits, aux = step(torch.tensor([[5], [7]]), 9)
+    assert step.replays == 1 and Graph.replayed == 1
+    assert tok_s.tolist() == [[5], [7]] and int(pos_s) == 9
+    assert torch.equal(logits, logits_s) and logits is not logits_s
+    assert set(aux) == {"dropped"}
+    gc.disable()
+    try:
+        del step
+        assert gone() is None
+    finally:
+        gc.enable()
