@@ -155,9 +155,37 @@ Phases, each printed as one JSON line:
    five), eager and replayed bit for bit, the logits through the kernels
    against the plain versions (the plain run taking the kernel run's MoE
    routing choices), one decode step profiled, and the five kernels on
-   the fp8 run's recorded inputs against their plain versions.
+   the fp8 run's recorded inputs against their plain versions;
+15. serve_backward_launches: the launches of the four EP backward kernels
+   over all the serving phases above, which must be 0 (serving calls the
+   forward wrappers under inference mode, never an autograd Function);
+16. train-qwen2moe-ep (expert-parallel training; after phase 10, the
+   falcon model freed): qwen2-moe-a2.7b at full width (d_model 2048, 60
+   experts padded to 64, top-4, d_expert 1408, shared SwiGLU 5632, vocab
+   151,936) and 4 of its 24 layers (fp32 AdamW state), random fp32 weights
+   from a seed, over a rank-stacked EP world of 4 (``--mesh local``), HT on
+   the fp32 wire at capacity factor 2.0: 5 AdamW steps (peak lr 3e-4,
+   warm-up 1) on batch 4 x 1024 synthetic tokens through ``train_loop``.
+   Per step: loss, grad norm, the dropped fraction and seconds; tokens/s
+   over steps 2-5; peak device memory; the launch counts of the EP kernels
+   and their backward kernels, set to 0 just before and read just after
+   (``gather_swiglu_scatter`` and its backward > 0).  Then, on the same
+   state, 2 steps with LL (``grouped_swiglu`` and its backward launch) and
+   2 HT steps on the fp8 wire (``gather_quantize``, ``dequantize`` and
+   both wire backwards launch), each counted the same way.  Every loss and
+   grad norm finite, the 5 HT steps' last loss below the first.  Then
+   train_qwen2moe_ep_profile: one HT step under the profiler, and one AdamW
+   update of every parameter timed;
+17. kernel (EP backward): each of the four backward kernels on the inputs
+   of its first call of each kind in phase 16, against its plain backward
+   (``KERNEL_TOL``) and timed as the kernels of phase 6, and against
+   ``torch.autograd.grad`` through the plain forward on the same inputs
+   in fp32 (``autograd_rel_err``, within the same tolerance); then each
+   of the four EP forwards on the inputs of its first call of each kind in
+   phase 16 (the training shapes), against its plain version within its
+   ``KERNEL_TOL`` and timed, the cases joining its entry of phase 6.
 
-Then the kernels line ``{"kernels": [...]}`` (all thirteen kernels), the
+Then the kernels line ``{"kernels": [...]}`` (all seventeen kernels), the
 nvidia-smi line, and as the last line ``{"ok": true, "device": {...}}``.
 Any failed check raises and the exit code is not 0.  Without a CUDA
 device, or without the rest of the repository beside it, it exits
@@ -180,6 +208,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 FP32_FLOP_PER_S = 67e12
+# the L2 (50 MB): repeated calls on one input may find this much of it there
+L2_BYTES = 50 * 2 ** 20
 # input sets a cold timing cycles through (cold_device_ms), and the
 # arguments it draws afresh for each: the cache, the rows, the parts, the
 # pools
@@ -216,7 +246,19 @@ KERNEL_INFO = {  # name: (source, the TPU kernel it replaces)
                        "src/repro/kernels/combine_reduce.py:22"),
     "decode_attention_paged": ("src/repro_torch/csrc/decode_attention_paged.cu",
                                "src/repro/kernels/decode_attention.py:149"),
+    # the TPU package has no backward kernels: its training differentiates
+    # the oracles of the kernels below, which these replace on the card
+    "grouped_swiglu_bwd": ("src/repro_torch/csrc/swiglu_bwd.cu",
+                           "src/repro/kernels/grouped_matmul.py:179"),
+    "gather_swiglu_scatter_bwd": ("src/repro_torch/csrc/swiglu_bwd.cu",
+                                  "src/repro/kernels/grouped_matmul.py:368"),
+    "gather_quantize_bwd": ("src/repro_torch/csrc/wire_bwd.cu",
+                            "src/repro/kernels/quantize_pack.py:105"),
+    "dequantize_bwd": ("src/repro_torch/csrc/wire_bwd.cu",
+                       "src/repro/kernels/quantize_pack.py:161"),
 }
+EP_BWD_KERNELS = ("gather_swiglu_scatter_bwd", "grouped_swiglu_bwd",
+                  "gather_quantize_bwd", "dequantize_bwd")
 EP_KERNELS = ("grouped_swiglu", "gather_swiglu_scatter", "gather_quantize",
               "dequantize")
 NORM_ATTN_KERNELS = ("rmsnorm", "flash_attention", "decode_attention")
@@ -253,6 +295,17 @@ KERNEL_TOL = {
     # so they agree bit for bit; one rounding of the output may differ)
     "combine_reduce": "ulp",
     "decode_attention_paged": 2e-2,
+    # per gradient: the same bf16 roundings as the plain backward (h, dy,
+    # dg, du) after fp32 sums in another order, dx's atomics in any order;
+    # against autograd through the plain forward in fp32 (no bf16 rounding
+    # of h, dh, dg or du), the same limit
+    "grouped_swiglu_bwd": 1e-2,
+    "gather_swiglu_scatter_bwd": 1e-2,
+    # fp32 sums of 128 products in another order
+    "dequantize_bwd": 1e-5,
+    # the same values at the same absmax elements; fp32 atomics add a row's
+    # slots in any order
+    "gather_quantize_bwd": 1e-5,
 }
 # kernels held row by row (a normed row; one query's head): a causal row
 # averages the values of every key it sees, so its magnitude falls with
@@ -302,6 +355,14 @@ JAMBA_LAYERS = 5
 JAMBA_BATCH, JAMBA_PROMPT, JAMBA_GEN = 4, 16, 8
 JAMBA_KERNELS = ("rmsnorm", "decode_attention", "grouped_swiglu",
                  "gather_quantize", "dequantize")
+# expert-parallel training: qwen2-moe at full width (d_model 2048, 60
+# experts padded to 64, top-4, d_expert 1408, shared 5632, vocab 151,936),
+# 4 of its 24 layers (the depth whose fp32 AdamW state fits the card), over
+# a rank-stacked EP world of 4, HT on the fp32 wire, capacity factor 2.0;
+# batch 4 x 1024, 5 AdamW steps; then 2 steps each with LL and on the fp8
+# wire
+EP_TRAIN_LAYERS, EP_TRAIN_BATCH, EP_TRAIN_SEQ, EP_TRAIN_STEPS = 4, 4, 1024, 5
+EP_TRAIN_MORE_STEPS = 2
 # paged decoding at qwen3-4b's decode shape: ragged per-sequence positions
 # and 16-token blocks; a CUDA graph captured there is replayed with the
 # table rows in PAGED_REPLAY_ORDER and these positions, each at most that
@@ -371,30 +432,62 @@ def cuda_ms(fn, n: int = 20, warmup: int = 3) -> float:
     return t[n // 2]
 
 
-def device_ms(fn, n: int = 10, tries: int = 3):
-    """Device time of one ``fn()``: the summed time of the device
-    activities of ``n`` calls under torch.profiler, over ``n``.  Where the
-    host takes longer to issue a call than the card to run it, CUDA events
-    around the call (``cuda_ms``) read the host; this reads the card.  A
-    trace that holds no device activity (the profiler lost its records) is
-    taken again, up to ``tries`` times, then reported as None: not
-    measured."""
+def device_ms(fn, n: int = 10, tries: int = 3, floor_ms: float = 0.0):
+    """Device time of one ``fn()`` from ``n`` calls under torch.profiler.
+    Where the host takes longer to issue a call than the card to run it,
+    CUDA events around the call (``cuda_ms``) read the host; this reads
+    the card.
+
+    The profiler can lose device records: late in a long process every
+    trace lacks the same few (3, later 7, whatever its length), so a sum
+    over the trace reads short.  So each kind of device activity (by name)
+    counts ``round(count / n)`` a call, at the mean time of the records
+    kept; where records were lost, these must account for every launch,
+    copy and fill call the host made (``LAUNCH_CALLS``).  A trace that
+    does not, or that reads under ``floor_ms`` (``hbm_floor_ms``: no call
+    can be faster), is taken again with twice the calls, up to ``tries``
+    times, then reported as None: not measured.  ``device_ms.last`` holds
+    each trace's calls, device records, host launches and reading."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    device_ms.last = []
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        total = sum(e.self_device_time_total for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA)
-        if total > 0:
-            return total / 1e3 / n
+        launches = sum(e.name.startswith(LAUNCH_CALLS) for e in prof.events()
+                       if e.device_type == DeviceType.CPU)
+        kinds = [(e.count, e.self_device_time_total, round(e.count / n))
+                 for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA]
+        ms = sum(m * us / c for c, us, m in kinds) / 1e3
+        device_ms.last.append({"calls": n, "records": sum(c for c, _, _ in
+                                                          kinds),
+                               "launches": launches, "ms": ms})
+        whole = all(c == m * n for c, _, m in kinds)
+        if (kinds and all(m > 0 for _, _, m in kinds)
+                and (whole or n * sum(m for _, _, m in kinds) == launches)
+                and ms >= floor_ms):
+            return ms
+        n *= 2
     return None
+
+
+device_ms.last = []
+# the host's calls that each make one device activity
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemcpyAsync",
+                "cudaMemsetAsync")
+
+
+def hbm_floor_ms(nbytes: int) -> float:
+    """The least time a call that moves ``nbytes`` can take when repeated
+    on the same inputs: what does not fit the L2 comes from memory."""
+    return max(0, nbytes - L2_BYTES) / HBM_BYTES_PER_S * 1e3
 
 
 def bound(name: str, args, kwargs) -> tuple[float, str, dict]:
@@ -405,6 +498,8 @@ def bound(name: str, args, kwargs) -> tuple[float, str, dict]:
     import torch
     if name in NORM_ATTN_KERNELS + ("decode_attention_paged",):
         return norm_attn_bound(name, args, kwargs)
+    if name in EP_BWD_KERNELS:
+        return ep_bwd_bound(name, args, kwargs)
     if name == "grouped_matmul":
         x, w, counts = args
         G, M, K = x.shape
@@ -437,11 +532,7 @@ def bound(name: str, args, kwargs) -> tuple[float, str, dict]:
             C = src.shape[0] // G
             out_bytes = (x_ext.shape[0] - 1) * D * 4
         E, _, F = wg.shape
-        cnt = (torch.full((G, 1), C, device=wg.device) if counts is None
-               else counts.reshape(G, -1).clamp(max=C // counts.reshape(
-                   G, -1).shape[1]))
-        rows = int(cnt.sum())
-        experts = int((cnt.sum(1) > 0).sum())
+        rows, experts = occupied_rows(counts, G, C, wg.device)
         nbytes = (rows * D * 2 + experts * 3 * D * F * 2 + out_bytes
                   + rows * 8)
         flops = 6.0 * D * F * rows
@@ -452,18 +543,11 @@ def bound(name: str, args, kwargs) -> tuple[float, str, dict]:
         # that fills several slots, as HT's and LL's do, is one read), the
         # indices of the occupied slots and the counts; every slot's bytes
         # and scales written
-        from repro_torch.core.plan import occupancy_mask
         x_ext, src, counts = args
         D = x_ext.shape[1]
         n = src.shape[0]
         nb = -(-D // 128)
-        occ = (torch.ones(n, dtype=torch.bool, device=src.device)
-               if counts is None else occupancy_mask(
-                   counts.reshape(-1), counts.numel(),
-                   n // counts.numel()).reshape(-1))
-        rows = int(occ.sum())
-        table_rows = int(torch.unique(src[occ].clamp(
-            0, x_ext.shape[0] - 1)).numel())
+        rows, table_rows = named_table_rows(x_ext, src, counts)
         nbytes = (table_rows * D * 4 + rows * 4
                   + (0 if counts is None else counts.numel() * 4)
                   + n * D + n * nb * 4)
@@ -477,6 +561,78 @@ def bound(name: str, args, kwargs) -> tuple[float, str, dict]:
         work = {"elements": q.numel()}
     t_bytes = nbytes / HBM_BYTES_PER_S
     work["bytes"] = nbytes
+    if t_bytes >= t_ops:
+        return t_bytes * 1e3, "bytes", work
+    return t_ops * 1e3, "operations", work
+
+
+def occupied_rows(counts, G: int, C: int, device) -> tuple[int, int]:
+    """(occupied rows, groups with one) of G groups of C rows under flat
+    (G,) or bucketed (G, B) counts (None: all)."""
+    import torch
+    cnt = (torch.full((G, 1), C, device=device) if counts is None
+           else counts.reshape(G, -1).clamp(max=C // counts.reshape(
+               G, -1).shape[1]))
+    return int(cnt.sum()), int((cnt.sum(1) > 0).sum())
+
+
+def named_table_rows(x_ext, src, counts) -> tuple[int, int]:
+    """(occupied slots, distinct table rows they name) of a wire gather:
+    a token that fills several slots, as HT's and LL's do, is one read."""
+    import torch
+
+    from repro_torch.kernels.quantize_pack import _occupied_slots
+    occ = _occupied_slots(src, counts)
+    return int(occ.sum()), int(torch.unique(src[occ].clamp(
+        0, x_ext.shape[0] - 1)).numel())
+
+
+def ep_bwd_bound(name: str, args, kwargs) -> tuple[float, str, dict]:
+    """Least time for one call of an EP backward kernel.  The SwiGLU
+    backwards: 16 D F flops an occupied row on the bf16 tensor cores (the
+    gate and up products recomputed, 4 D F; dH, dX, dWg, dWu and dWd, 12
+    D F), beside the bytes of the occupied rows (token and upstream rows
+    read, slot indices and weights), the occupied experts' weights read,
+    dX and every expert's weight gradients written.  The wire backwards:
+    bytes, as the forwards count them (dequantize_bwd reads q and dy and
+    writes a scale a block; gather_quantize_bwd reads the occupied slots'
+    scale gradients and the table rows they name, each once, and writes
+    the table's gradient), and a few fp32 operations an element."""
+    if name in ("grouped_swiglu_bwd", "gather_swiglu_scatter_bwd"):
+        if name == "grouped_swiglu_bwd":
+            x, wg, wu, wd, counts, dy = args
+            G, C, D = x.shape
+            row_bytes = 2 * D + dy.element_size() * D
+            dx_bytes = x.numel() * x.element_size()
+        else:
+            x_ext, src, w_slot, wg, wu, wd, counts, dout = args
+            D = x_ext.shape[1]
+            G = wg.shape[0]
+            C = src.shape[0] // G
+            row_bytes = 2 * D + 4 * D + 8
+            dx_bytes = x_ext.numel() * x_ext.element_size() + src.shape[0] * 4
+        E, _, F = wg.shape
+        rows, experts = occupied_rows(counts, G, C, wg.device)
+        nbytes = (rows * row_bytes + experts * 3 * D * F * 2 + dx_bytes
+                  + E * 3 * D * F * 2)
+        t_ops = 16.0 * D * F * rows / BF16_FLOP_PER_S
+        work = {"occupied_rows": rows, "occupied_experts": experts,
+                "flops": 16.0 * D * F * rows}
+    elif name == "dequantize_bwd":
+        q, scales, dy = args
+        nbytes = q.numel() * 5 + scales.numel() * 4
+        t_ops = 2.0 * q.numel() / FP32_FLOP_PER_S
+        work = {"elements": q.numel()}
+    else:
+        x_ext, src, counts, d_scales = args
+        rows, table_rows = named_table_rows(x_ext, src, counts)
+        D = x_ext.shape[1]
+        nbytes = (table_rows * D * 4 + rows * (4 + d_scales.shape[1] * 4)
+                  + x_ext.numel() * 4)
+        t_ops = 3.0 * rows * D / FP32_FLOP_PER_S
+        work = {"occupied_slots": rows, "table_rows_read": table_rows}
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    work.update(bytes=nbytes, bytes_ms=t_bytes * 1e3, ops_ms=t_ops * 1e3)
     if t_bytes >= t_ops:
         return t_bytes * 1e3, "bytes", work
     return t_ops * 1e3, "operations", work
@@ -622,9 +778,11 @@ def check_case(name, args, kwargs) -> dict:
     bound_ms, bound_by, work = bound(name, args, kwargs)
     ms = cuda_ms(lambda: cuda(*args, **kwargs))
     lib = library_call(name, args, kwargs)
+    dev_ms = device_ms(lambda: cuda(*args, **kwargs),
+                       floor_ms=hbm_floor_ms(work["bytes"]))
     case = {"shapes": [list(a.shape) for a in args if hasattr(a, "shape")],
             "max_abs_err": err, "max_rel_err": rel, "ms": ms,
-            "device_ms": device_ms(lambda: cuda(*args, **kwargs)),
+            "device_ms": dev_ms, "device_traces": device_ms.last,
             "plain_ms": cuda_ms(lambda: plain(*args, **kwargs)),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "bound_share": bound_ms / ms,
@@ -707,8 +865,11 @@ DEVICE_KINDS = (("scan kernels", ("scan_fwd_kernel", "scan_bwd_kernel")),
                 # the contiguous one, <rep, TableRows> the paged one
                 ("attention and norm kernels", (
                     "flash_fwd_kernel", "decode_kernel", "rmsnorm_row")),
+                ("wire backward kernels", ("gather_quantize_bwd",
+                                           "dequantize_bwd")),
                 ("wire kernels", ("gather_quantize", "dequantize_kernel")),
                 ("EP kernels", ("swiglu_tiles",)),
+                ("EP backward kernels", ("bwd_up", "bwd_dx", "bwd_dw_")),
                 ("cuBLAS GEMM", ("nvjet", "gemm", "cutlass", "xmma")),
                 ("copies and casts", ("copy", "Memcpy", "Memset")),
                 ("reductions", ("reduce", "Reduce", "softmax", "Softmax")),
@@ -1534,7 +1695,9 @@ def check_scan(rec, launches: dict) -> list:
                 "states_max_abs_ref": errs["states"][1],
                 "ms": cuda_ms(lambda: ms._scan_fwd(*args, save_states=True)),
                 "device_ms": device_ms(
-                    lambda: ms._scan_fwd(*args, save_states=True)),
+                    lambda: ms._scan_fwd(*args, save_states=True),
+                    floor_ms=hbm_floor_ms(work["bytes"])),
+                "device_traces": device_ms.last,
                 "plain_ms": cuda_ms(lambda: ms.mamba_scan_plain(*args), n=5,
                                     warmup=1),
                 "bound_ms": bound_ms, "bound_by": bound_by, "work": work,
@@ -1561,7 +1724,9 @@ def check_scan(rec, launches: dict) -> list:
             "per_gradient": per,
             "ms": cuda_ms(lambda: ms.mamba_scan_bwd_cuda(*args, states, dy)),
             "device_ms": device_ms(
-                lambda: ms.mamba_scan_bwd_cuda(*args, states, dy)),
+                lambda: ms.mamba_scan_bwd_cuda(*args, states, dy),
+                floor_ms=hbm_floor_ms(work["bytes"])),
+            "device_traces": device_ms.last,
             # the plain version's backward alone, its graph built once
             "plain_ms": cuda_ms(lambda: torch.autograd.grad(
                 y_plain, ins, dy, retain_graph=True), n=5, warmup=1),
@@ -1690,6 +1855,212 @@ def train_phase(dev) -> tuple[list, "Recorder", dict]:
         params, zeros, opt, lr=torch.tensor(0.0)), n=3, warmup=1)
     lines.append(prof)
     return lines, rec, launches
+
+
+def ep_train_setup():
+    """The EP training path's (config, hyper-parameters, batch, EP world):
+    qwen2-moe at full width and ``EP_TRAIN_LAYERS`` layers, HT on the fp32
+    wire, ``EP_TRAIN_STEPS`` AdamW steps on one seeded batch of
+    ``EP_TRAIN_BATCH`` x ``EP_TRAIN_SEQ`` tokens, an EP world of 4."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.distributed.sharding import make_dist_ctx
+    from repro_torch.training.train_loop import HParams
+
+    cfg = dataclasses.replace(get_config("qwen2_moe_a2_7b"),
+                              n_layers=EP_TRAIN_LAYERS)
+    hp = HParams(peak_lr=3e-4, warmup=1, total_steps=EP_TRAIN_STEPS,
+                 moe_mode="ht")
+    batch = synth_batch(DataConfig(vocab_size=cfg.vocab_size,
+                                   batch=EP_TRAIN_BATCH,
+                                   seq_len=EP_TRAIN_SEQ, seed=0), 0)
+    return cfg, hp, batch, make_dist_ctx(cfg, model=4)
+
+
+def train_ep_phase(dev) -> tuple[list, dict, dict]:
+    """The expert-parallel training path (``ep_train_setup``): 5 HT steps
+    through ``train_loop`` (the fused HT kernel and its backward), then 2
+    steps with LL (``grouped_swiglu`` and its backward) and 2 HT steps on
+    the fp8 wire (the wire kernels and their backwards) on the same state,
+    each run's launch counts set to 0 just before and read just after; one
+    more HT step under the profiler, and one AdamW update timed.  The
+    first calls of each kind of the four EP kernels and their backward
+    kernels are recorded.  Returns (phase lines, their Recorders, their
+    launches over the three runs)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.optim.adamw import apply_updates, tree_leaves, tree_map
+    from repro_torch.training.train_loop import (Watchdog, init_state,
+                                                 train_loop, train_step)
+
+    cfg, hp, batch, dist = ep_train_setup()
+    B, S, STEPS = EP_TRAIN_BATCH, EP_TRAIN_SEQ, EP_TRAIN_STEPS
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_state(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in tree_leaves(state.params))
+    names = EP_KERNELS + EP_BWD_KERNELS
+    cudas = {n: ops.KERNELS[n][0] for n in names}
+    recs, restore = recording(names)
+    runs = {}
+    try:
+        wd = Watchdog()
+        (state, hist), runs["ht"] = counted(cudas, lambda: train_loop(
+            cfg, hp, dist, lambda step: batch, steps=STEPS, state=state,
+            watchdog=wd, log_every=0, device=dev))
+        secs = list(wd.history)
+        more = []
+        for what, c, h in (
+                ("ll", cfg, dataclasses.replace(hp, moe_mode="ll")),
+                ("fp8", dataclasses.replace(cfg, moe=dataclasses.replace(
+                    cfg.moe, wire_dtype="fp8")), hp)):
+            def steps(c=c, h=h):
+                out = []
+                for _ in range(EP_TRAIN_MORE_STEPS):
+                    t1 = time.perf_counter()
+                    holder[0], m = train_step(c, h, dist, holder[0], batch)
+                    torch.cuda.synchronize()
+                    out.append({"loss": float(m["loss"]),
+                                "grad_norm": float(m["grad_norm"]),
+                                "dropped": float(m["dropped"]),
+                                "seconds": time.perf_counter() - t1})
+                return out
+            holder = [state]
+            detail, runs[what] = counted(cudas, steps)
+            state = holder[0]
+            more.append({"run": what, "moe_mode": h.moe_mode,
+                         "wire": c.moe.wire_dtype, "steps_detail": detail,
+                         "launches": runs[what]})
+    finally:
+        restore()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [h["loss"] for h in hist]
+    gnorms = [h["grad_norm"] for h in hist]
+    needed = {"ht": ("gather_swiglu_scatter", "gather_swiglu_scatter_bwd"),
+              "ll": ("grouped_swiglu", "grouped_swiglu_bwd"),
+              "fp8": ("gather_quantize", "dequantize", "gather_quantize_bwd",
+                      "dequantize_bwd")}
+    for run, ks in needed.items():
+        for k in ks:
+            if runs[run][k] <= 0:
+                raise AssertionError(f"kernel {k} was not launched by the "
+                                     f"{run} training steps")
+    extra = [d for m in more for d in m["steps_detail"]]
+    if not all(map(math.isfinite, losses + gnorms
+                   + [d[k] for d in extra for k in ("loss", "grad_norm")])):
+        raise AssertionError(f"non-finite loss or grad norm: {losses} "
+                             f"{gnorms} {extra}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    launches = {k: sum(r[k] for r in runs.values()) for k in names}
+    lines = [{"phase": "train-qwen2moe-ep", "model": "qwen2_moe_a2_7b",
+              "width": "full", "d_model": cfg.d_model,
+              "experts": cfg.moe.n_experts, "top_k": cfg.moe.top_k,
+              "d_expert": cfg.moe.d_expert, "d_shared": cfg.moe.d_shared,
+              "vocab": cfg.vocab_size, "layers": cfg.n_layers,
+              "layers_published": get_config("qwen2_moe_a2_7b").n_layers,
+              "params": n_params, "ep_world": "model=4", "moe_mode": "ht",
+              "wire": cfg.moe.wire_dtype,
+              "capacity_factor": cfg.moe.capacity_factor, "batch": B,
+              "seq": S, "steps": STEPS, "optimizer": "adamw",
+              "peak_lr": hp.peak_lr, "warmup": hp.warmup, "remat": cfg.remat,
+              "steps_detail": [{"step": i, "loss": h["loss"],
+                                "grad_norm": h["grad_norm"],
+                                "dropped": h["dropped"], "seconds": t}
+                               for i, (h, t) in enumerate(zip(hist, secs))],
+              "tokens_per_s_steps_2_5": (B * S * (STEPS - 1)
+                                         / sum(secs[1:STEPS])),
+              "init_params_s": init_s, "peak_mem_gb": peak_gb,
+              "launches": runs["ht"]},
+             {"phase": "train_qwen2moe_ep_more", "runs": more}]
+    holder = [state]
+    del state
+
+    def step():
+        holder[0], _ = train_step(cfg, hp, dist, holder[0], batch)
+
+    prof = profile_step(f"one HT train step (qwen2_moe_a2_7b, {cfg.n_layers} "
+                        f"layers, batch {B} x {S}, EP world 4)", step)
+    prof["phase"] = "train_qwen2moe_ep_profile"
+    params, opt = holder[0]
+    zeros = tree_map(torch.zeros_like, params)
+    prof["adamw_update_ms"] = cuda_ms(lambda: apply_updates(
+        params, zeros, opt, lr=torch.tensor(0.0)), n=3, warmup=1)
+    lines.append(prof)
+    return lines, recs, launches
+
+
+def autograd_grads(name: str, args, kwargs) -> tuple:
+    """The gradients ``name`` (an EP backward kernel) computes, by
+    ``torch.autograd.grad`` through the plain forward on the same inputs,
+    in fp32 (for the SwiGLU kernels: the exact gradient of the function,
+    where autograd through the bf16 forward would also sum a duplicated
+    token's slot gradients in bf16)."""
+    import torch
+
+    from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.kernels import quantize_pack as qp
+
+    def grad(fwd, ins, at, dy):
+        ins = [a.detach().float().requires_grad_(True) if i in at else a
+               for i, a in enumerate(ins)]
+        return torch.autograd.grad(fwd(*ins), [ins[i] for i in at],
+                                   dy.float())
+    if name == "grouped_swiglu_bwd":
+        return grad(gm.grouped_swiglu_plain, args[:5], (0, 1, 2, 3), args[5])
+    if name == "gather_swiglu_scatter_bwd":
+        return grad(gm.gather_swiglu_scatter_plain, args[:7],
+                    (0, 2, 3, 4, 5), args[7])
+    if name == "dequantize_bwd":
+        return grad(qp.dequantize_plain, args[:2], (1,), args[2])
+    return grad(lambda x, s, c: qp.gather_quantize_plain(
+        x, s, c, **kwargs)[1], args[:3], (0,), args[3])
+
+
+def check_ep_bwd(recs: dict, launches: dict) -> list:
+    """Each EP backward kernel on every kind of call the training phase
+    made, against its plain backward and timed (``check_kernel``), and
+    against ``torch.autograd.grad`` through the plain forward
+    (``autograd_grads``), each gradient within ``KERNEL_TOL`` of its
+    largest."""
+    import torch
+
+    from repro_torch.kernels import ops
+    out = []
+    for name in EP_BWD_KERNELS:
+        entry = check_kernel(name, recs[name], launches)
+        cuda = ops.KERNELS[name][0]
+        rels = []
+        for (args, kwargs), case in zip(recs[name].cases.values(),
+                                        entry["cases"]):
+            got = cuda(*args, **kwargs)
+            got = got if isinstance(got, tuple) else (got,)
+            ref = autograd_grads(name, args, kwargs)
+            torch.cuda.synchronize()
+            per = []
+            for g, r in zip(got, ref):
+                err = float((g.float() - r).abs().max())
+                scale = float(r.abs().max())
+                per.append(err / max(scale, 1e-30))
+                if not err <= KERNEL_TOL[name] * scale:
+                    raise AssertionError(
+                        f"{name}: gradient {len(per) - 1} against autograd "
+                        f"through the plain forward: |err| {err} > "
+                        f"{KERNEL_TOL[name]} * {scale}")
+            case["autograd_rel_err"] = per
+            rels += per
+            del got, ref
+        entry["autograd_max_rel_err"] = max(rels)
+        out.append(entry)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 def paged_pools(k, v, pos, bs):
@@ -2311,6 +2682,10 @@ def main() -> int:
           "nvcc_seconds": build.last_build_seconds, "library": so.name,
           "sources": [p.name for p in build.sources()]})
 
+    from repro_torch.kernels import ops
+    bwd = {n: ops.KERNELS[n][0] for n in EP_BWD_KERNELS}
+    for c in bwd.values():
+        c.launches = 0
     kernels = serve_phases(dev)
     # the serving model and the recorded EP inputs have left the card
     gc.collect()
@@ -2329,6 +2704,11 @@ def main() -> int:
           "decode rows",
           **{k: v for k, v in rms.items() if k != "cases"},
           "cases": rms["cases"][-len(rmsnorm_cases):]})
+    served = {n: c.launches for n, c in bwd.items()}
+    emit({"phase": "serve_backward_launches", **served})
+    if any(served.values()):
+        raise AssertionError(f"the serving paths launched backward kernels: "
+                             f"{served}")
     gc.collect()
     torch.cuda.empty_cache()
     lines, scan_rec, scan_launches = train_phase(dev)
@@ -2340,6 +2720,32 @@ def main() -> int:
     for k in scan_kernels:
         emit({"phase": "kernel", **k})
     kernels += scan_kernels
+    del scan_rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    lines, ep_recs, ep_launches = train_ep_phase(dev)
+    for line in lines:
+        emit(line)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ep_kernels = check_ep_bwd(ep_recs, ep_launches)
+    for k in ep_kernels:
+        emit({"phase": "kernel", "path": "qwen2_moe_a2_7b training", **k})
+    # the forwards at the training shapes, held in their serving entries
+    for n in EP_KERNELS:
+        cases = list(ep_recs.pop(n).cases.values())
+        if not cases:
+            raise RuntimeError(f"{n}: the training path never called it")
+        entry = next(k for k in kernels if k["name"] == n)
+        add_cases(entry, cases)
+        emit({"phase": "kernel", "path": "qwen2_moe_a2_7b training",
+              **{k: v for k, v in entry.items() if k != "cases"},
+              "training_launches": ep_launches[n],
+              "cases": entry["cases"][-len(cases):]})
+        del cases
+        gc.collect()
+        torch.cuda.empty_cache()
+    kernels += ep_kernels
 
     emit({"kernels": [{k: v for k, v in kk.items()
                        if k not in ("tolerance", "cases", "max_rel_err")}

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Plant one fault at a time in a copy of the port's sources and count the
 ``cuda`` tests of RMSNorm, the scan, the wire kernels, the double-buffered
-grouped SwiGLU, paged decoding and the replayed Mamba decode step that
-each fails, on one NVIDIA GPU.
+grouped SwiGLU, paged decoding, the replayed Mamba decode step and the EP
+backward kernels that each fails, on one NVIDIA GPU.
 
     python3 scripts/plant_faults.py [FAULT ...]
 
@@ -10,7 +10,8 @@ Each fault (all of ``FAULTS``, or those named) is a one-line edit of
 ``csrc/mamba_scan.cu``, ``csrc/dequantize.cu``, ``csrc/rmsnorm.cu``,
 ``csrc/gather_quantize.cu``, ``csrc/grouped_swiglu_db.cu``,
 ``csrc/decode_attention_paged.cu``, the decoders' shared body
-``csrc/decode_common.cuh`` or ``launch/serve.py`` (the cache reset after
+``csrc/decode_common.cuh``, ``csrc/swiglu_bwd.cu``, ``csrc/wire_bwd.cu``
+or ``launch/serve.py`` (the cache reset after
 a decode step's capture) in a copy of ``src/`` and ``tests/`` under a
 temporary directory (the repository is never edited); the copy builds its
 own kernels and runs ``pytest --noconftest -m cuda -k TESTS
@@ -32,7 +33,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[1]
 CSRC = "src/repro_torch/csrc/"
 TESTS = ("rmsnorm or scan or quantize or swiglu_db or paged or "
-         "graph_matches_eager_mamba")
+         "graph_matches_eager_mamba or bwd or train_through")
 # name: (file, text, the text that replaces it)
 FAULTS = {
     "scan_drops_carry": (
@@ -95,6 +96,30 @@ FAULTS = {
         CSRC + "decode_common.cuh",
         "const bool in = (c0 + j) * p.chunk < n_live;",
         "const bool in = (c0 + j + 1) * p.chunk < n_live;"),
+    # the EP backward kernels: HT's slot weight left out of dH; the odd
+    # rows' dX never added; every sub-bucket reduced over the first one's
+    # count; the wire's gradient at every element (straight through), or
+    # unshared between tied elements; a lane's products left out
+    "swiglu_bwd_unweighted": (
+        CSRC + "swiglu_bwd.cu",
+        "const float wv = HT && occ ? p.w[slot] : 1.f;",
+        "const float wv = 1.f;"),
+    "swiglu_bwd_drops_odd_rows": (
+        CSRC + "swiglu_bwd.cu", "        if (!occ) continue;\n        float* dst",
+        "        if (!occ || r % 2) continue;\n        float* dst"),
+    "swiglu_bwd_first_bucket_count": (
+        CSRC + "swiglu_bwd.cu",
+        "lim = b * p.Cg + min(max(p.cnt[e * p.B + b], 0), p.Cg);",
+        "lim = b * p.Cg + min(max(p.cnt[e * p.B], 0), p.Cg);"),
+    "wire_bwd_straight_through": (
+        CSRC + "wire_bwd.cu", "if (j < D && fabsf(v[i]) == m) atomicAdd",
+        "if (j < D) atomicAdd"),
+    "wire_bwd_unshared_ties": (
+        CSRC + "wire_bwd.cu", "__fdiv_rn(d * qinv, ties)", "d * qinv"),
+    "dequantize_bwd_drops_lane": (
+        CSRC + "wire_bwd.cu",
+        "if (j < D) acc += dy[r * D + j]",
+        "if (j < D && lane) acc += dy[r * D + j]"),
     # the capture's warm-up steps leave their conv and ssm states behind
     "serve_skips_cache_reset": (
         "src/repro_torch/launch/serve.py", "        Z.reset_cache(cache)\n",

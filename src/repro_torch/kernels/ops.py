@@ -8,14 +8,19 @@ plain version, and the TPU's VMEM size gates (``GSS_VMEM_BYTES`` and the
 ``gather_quantize`` table gate) have no counterpart here.
 
 Gradients: a CPU tensor takes the plain version, which autograd
-differentiates.  On CUDA only the kernels in ``WITH_BACKWARD`` have a
-backward kernel (behind a ``torch.autograd.Function``); the others launch
-through ``ctypes`` and their outputs carry no ``grad_fn``, so they refuse
-a CUDA input that requires a gradient while grad mode is on, rather than
-let the gradients to it vanish.
+differentiates.  On CUDA only the scan and the kernels of ``TRAIN`` have
+a backward kernel.  The scan's wrapper is its ``torch.autograd.Function``;
+each kernel of ``TRAIN`` takes its Function (over its forward wrapper and
+the backward kernel's, as registered here) only when grad mode is on and
+an input requires a gradient, so serving (under ``inference_mode``, or
+inside a captured graph) calls the ``ctypes`` wrapper as it would without
+a backward.  The other kernels' outputs carry no ``grad_fn``, so they
+refuse a CUDA input that requires a gradient while grad mode is on,
+rather than let the gradients to it vanish.
 """
 from __future__ import annotations
 
+import functools
 import os
 
 import torch
@@ -27,16 +32,24 @@ from repro_torch.kernels import norm_attention as _na
 from repro_torch.kernels import quantize_pack as _qp
 
 # the kernels by name: (CUDA wrapper, plain); the scan's CUDA wrapper is
-# differentiable, and its backward kernel is registered beside it
+# differentiable, and the backward kernels are registered beside their
+# forwards
 KERNELS = {
     "grouped_matmul": (_gm.grouped_matmul_cuda, _gm.grouped_matmul_plain),
     "grouped_swiglu": (_gm.grouped_swiglu_cuda, _gm.grouped_swiglu_plain),
+    "grouped_swiglu_bwd": (_gm.grouped_swiglu_bwd_cuda,
+                           _gm.grouped_swiglu_bwd_plain),
     "grouped_swiglu_db": (_gm.grouped_swiglu_db_cuda,
                           _gm.grouped_swiglu_db_plain),
     "gather_swiglu_scatter": (_gm.gather_swiglu_scatter_cuda,
                               _gm.gather_swiglu_scatter_plain),
+    "gather_swiglu_scatter_bwd": (_gm.gather_swiglu_scatter_bwd_cuda,
+                                  _gm.gather_swiglu_scatter_bwd_plain),
     "gather_quantize": (_qp.gather_quantize_cuda, _qp.gather_quantize_plain),
+    "gather_quantize_bwd": (_qp.gather_quantize_bwd_cuda,
+                            _qp.gather_quantize_bwd_plain),
     "dequantize": (_qp.dequantize_cuda, _qp.dequantize_plain),
+    "dequantize_bwd": (_qp.dequantize_bwd_cuda, _qp.dequantize_bwd_plain),
     "mamba_scan": (_ms.mamba_scan_cuda, _ms.mamba_scan_plain),
     "mamba_scan_bwd": (_ms.mamba_scan_bwd_cuda, _ms.mamba_scan_bwd_plain),
     "rmsnorm": (_na.rmsnorm_cuda, _na.rmsnorm_plain),
@@ -47,8 +60,16 @@ KERNELS = {
                                _na.decode_attention_paged_plain),
     "combine_reduce": (_cr.combine_reduce_cuda, _cr.combine_reduce_plain),
 }
-# kernels whose CUDA wrapper is differentiable on the card
-WITH_BACKWARD = frozenset({"mamba_scan"})
+# kernels differentiable on the card through an autograd Function over
+# their forward and backward wrappers: (the Function's ``apply``, taking
+# the two wrappers first, the backward kernel's name)
+TRAIN = {
+    "grouped_swiglu": (_gm.GroupedSwiGLU.apply, "grouped_swiglu_bwd"),
+    "gather_swiglu_scatter": (_gm.GatherSwiGLUScatter.apply,
+                              "gather_swiglu_scatter_bwd"),
+    "gather_quantize": (_qp.gather_quantize_train, "gather_quantize_bwd"),
+    "dequantize": (_qp.Dequantize.apply, "dequantize_bwd"),
+}
 # the CUDA wrappers as registered, whose ``.launches`` count their kernels'
 # launches whatever stands in ``KERNELS`` for them
 _WRAPPERS = {n: cuda for n, (cuda, _) in KERNELS.items()}
@@ -59,15 +80,28 @@ def launch_counts() -> dict:
     return {n: w.launches for n, w in _WRAPPERS.items()}
 
 
+def train_function(name: str, cuda):
+    """Kernel ``name`` of ``TRAIN`` as its autograd Function over the
+    forward wrapper ``cuda`` and its backward kernel's wrapper as
+    registered in ``KERNELS``."""
+    apply, bwd = TRAIN[name]
+    return functools.partial(apply, cuda, KERNELS[bwd][0])
+
+
 def _pick(name: str, *tensors):
     """The CUDA wrapper or the plain version of ``name``, by the device of
-    the first tensor; refuses a gradient the CUDA kernel cannot give."""
+    the first tensor; on CUDA under grad with an input that requires one,
+    the kernel's autograd Function, or a refusal where it has none."""
     cuda, plain = KERNELS[name]
     t = tensors[0]
     if t.is_cuda:
-        if (name not in WITH_BACKWARD and torch.is_grad_enabled()
+        if not (torch.is_grad_enabled()
                 and any(isinstance(a, torch.Tensor) and a.requires_grad
                         for a in tensors)):
+            return cuda
+        if name in TRAIN:
+            return train_function(name, cuda)
+        if name != "mamba_scan":          # the scan's wrapper differentiates
             raise NotImplementedError(
                 f"{name}: the CUDA kernel has no backward kernel yet, and an "
                 "input requires a gradient; run it under torch.no_grad(), or "

@@ -8,10 +8,14 @@ family-faithful small config (``--layers``, ``--d-model``, ``--vocab``
 act only with it); without it the published config trains as it is.
 ``--mesh none`` runs MoE layers through the dense oracle; ``--mesh local``
 runs them expert parallel over a rank-stacked world of
-``--local-model-axis`` ranks, which on CUDA raises ``NotImplementedError``
-until the EP kernels have backward kernels.  The reference's TPU mesh
-choices (``single``, ``multi``) and its ``--xla-pipelining`` preset have
-no counterpart on one card.
+``--local-model-axis`` ranks (``--moe-mode ht`` or ``ll``, ``--wire-dtype``),
+on the card through the EP kernels and their backward kernels:
+
+  python -m repro_torch.launch.train --arch qwen2_moe_a2_7b --reduced \\
+      --mesh local --local-model-axis 4 --steps 20 --batch 4 --seq 64
+
+The reference's TPU mesh choices (``single``, ``multi``) and its
+``--xla-pipelining`` preset have no counterpart on one card.
 """
 from __future__ import annotations
 

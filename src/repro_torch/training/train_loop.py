@@ -58,20 +58,6 @@ def init_state(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> TrainState:
         params, factored=(cfg.optimizer == "adafactor")))
 
 
-def check_trainable(cfg: ModelConfig, hp: HParams, dist: Optional[DistCtx],
-                    device) -> None:
-    """Expert-parallel MoE training on the card needs backward kernels for
-    the EP kernels, which do not exist yet: refuse it up front."""
-    if (torch.device(device).type == "cuda" and cfg.moe.enabled
-            and dist is not None and dist.ep_axes and hp.moe_mode != "ref"):
-        raise NotImplementedError(
-            "expert-parallel MoE training on CUDA is the next slice of the "
-            "port (ROADMAP Queue 1, 'EP training'): grouped_swiglu, "
-            "gather_swiglu_scatter and the wire kernels have no backward "
-            "kernels yet; train with --mesh none (the dense MoE oracle) or on "
-            "the CPU")
-
-
 @torch.no_grad()
 def _update_router_biases(cfg: ModelConfig, params: dict, loads: dict,
                           lr: float) -> dict:
@@ -189,7 +175,6 @@ def train_loop(cfg: ModelConfig, hp: HParams, dist, data, *,
     host clock around work that ends in a device synchronise."""
     dev = (torch.device(device) if state is None
            else state.params["embed"].device)
-    check_trainable(cfg, hp, dist, dev)
     if state is None:
         state = init_state(cfg, seed=hp.seed, device=dev)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)

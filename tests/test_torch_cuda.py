@@ -4,6 +4,8 @@ so that it runs where only the port is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -388,33 +390,379 @@ def test_cuda_kernel_without_backward_refuses_grad(cuda_device):
     """A CUDA kernel with no backward kernel raises rather than return an
     output without grad_fn; under torch.no_grad (serving) it launches."""
     rng = np.random.default_rng(6)
-    T, E, C, D, F = 16, 2, 8, 64, 64
-    x_ext = torch.from_numpy(rng.standard_normal((T + 1, D)).astype(np.float32))
-    x_ext[T] = 0
-    ws = [torch.from_numpy(a) for a in _w(rng, E, D, F)]
-    x_ext, *ws = [t.to(cuda_device, torch.bfloat16) for t in [x_ext, *ws]]
-    src = torch.arange(E * C, device=cuda_device, dtype=torch.int32) % T
-    w = torch.ones(E * C, device=cuda_device)
+    E, C, D, F = 2, 8, 64, 64
+    x = _bf16(rng, (E, C, D), cuda_device)
+    ws = [torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+          for a in _w(rng, E, D, F)]
     for t in ws:
         t.requires_grad_(True)
-    before = gm.gather_swiglu_scatter_cuda.launches
-    with pytest.raises(NotImplementedError, match="no backward kernel"):
-        ops.gather_swiglu_scatter(x_ext, src, w, *ws)
-    assert gm.gather_swiglu_scatter_cuda.launches == before
-    with torch.no_grad():
-        out = ops.gather_swiglu_scatter(x_ext, src, w, *ws)
-    assert out.shape == (T, D)
-    assert gm.gather_swiglu_scatter_cuda.launches == before + 1
+    before = gm.grouped_swiglu_db_cuda.launches
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("REPRO_SWIGLU_DB", "1")
+        with pytest.raises(NotImplementedError, match="no backward kernel"):
+            ops.grouped_swiglu(x, *ws)
+        assert gm.grouped_swiglu_db_cuda.launches == before
+        with torch.no_grad():
+            out = ops.grouped_swiglu(x, *ws)
+    assert out.shape == (E, C, D)
+    assert gm.grouped_swiglu_db_cuda.launches == before + 1
+
+
+# ------------------------------------------------ EP backward kernels -----
+# the kernels against their plain backward (the same rounding points, fp32
+# sums in another order, dx's atomics in any order) and against autograd
+# through the plain forward on the same values in fp32 (no bf16 rounding of
+# h, dh, dg or du; autograd through the bf16 forward would also sum a
+# duplicated token's slot gradients in bf16): each gradient within 1e-2 of
+# its largest, chip_smoke.py's limit for them
+BWD_TOL = 1e-2
+BWD_DIMS = {"ragged": (136, 200), "served": (2048, 1408)}
+
+
+def _bwd_close(got, ref, tol=BWD_TOL):
+    """Each gradient of ``got`` against ``ref``'s: max |err| within tol of
+    max |ref|; the failures name the gradients."""
+    bad = []
+    for i, (g, r) in enumerate(zip(got, ref)):
+        assert g.shape == r.shape, i
+        assert torch.isfinite(g).all(), i
+        err, scale = float((g.float() - r.float()).abs().max()), float(
+            r.float().abs().max())
+        if err > tol * scale:
+            bad.append((i, err, scale))
+    assert not bad, bad
+
+
+def _bf16_weights(rng, E, D, F, device):
+    return [torch.from_numpy(a).to(device, torch.bfloat16)
+            for a in _w(rng, E, D, F, D ** -0.5)]
+
+
+def _autograd_plain(fwd, args, grad_at, dy):
+    """Gradients of the plain forward ``fwd(*args)`` to the arguments at
+    positions ``grad_at`` (taken in fp32), for the upstream ``dy``."""
+    args = [a.detach().float().requires_grad_(True) if i in grad_at else a
+            for i, a in enumerate(args)]
+    return torch.autograd.grad(fwd(*args), [args[i] for i in grad_at],
+                               dy.float())
 
 
 @pytest.mark.cuda
-def test_cuda_train_ep_mesh_local_raises(cuda_device):
-    """Expert-parallel MoE training on the card is refused up front."""
+@pytest.mark.parametrize("counts_kind,dims", [
+    ("none", "ragged"), ("flat", "ragged"), ("bucketed", "ragged"),
+    ("bucketed", "served")])
+def test_cuda_grouped_swiglu_bwd_matches_plain(cuda_device, counts_kind,
+                                               dims):
+    """LL's expert backward: flat counts (one expert empty, one full) and
+    LL's (E, B) sub-bucket counts; rows past the counts get exact zeros,
+    an empty expert's weights zero gradients."""
+    rng = np.random.default_rng(21)
+    (D, F), E, C = BWD_DIMS[dims], 5, 48
+    x = _bf16(rng, (E, C, D), cuda_device)
+    ws = _bf16_weights(rng, E, D, F, cuda_device)
+    counts = {"none": None, "flat": np.array([0, 1, 48, 17, 33]),
+              "bucketed": rng.integers(0, 13, (E, 4))}[counts_kind]
+    if counts is not None:
+        counts[0] = 0
+        counts = torch.from_numpy(counts).to(cuda_device, torch.int32)
+    dy = _bf16(rng, (E, C, D), cuda_device)
+    before = gm.grouped_swiglu_bwd_cuda.launches
+    _poisoned_allocation((E, C, D), torch.bfloat16, cuda_device)
+    got = gm.grouped_swiglu_bwd_cuda(x, *ws, counts, dy)
+    assert gm.grouped_swiglu_bwd_cuda.launches == before + 1
+    _bwd_close(got, gm.grouped_swiglu_bwd_plain(x, *ws, counts, dy))
+    _bwd_close(got, _autograd_plain(gm.grouped_swiglu_plain,
+                                    (x, *ws, counts), (0, 1, 2, 3), dy))
+    if counts is not None:
+        assert (got[0][~gm.occupancy_mask(counts, E, C)] == 0).all()
+        assert all((g[0] == 0).all() for g in got[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", ["ragged", "served"])
+@pytest.mark.parametrize("counts", [None, (0, 40, 13, 1, 128)])
+def test_cuda_gather_swiglu_scatter_bwd_matches_plain(cuda_device, dims,
+                                                      counts):
+    """HT's expert backward: a token in 40 slots (its gradient sums them),
+    slots on the scratch row (its upstream is 0), an empty expert and a
+    full one."""
+    rng = np.random.default_rng(22)
+    (D, F), T, E, C = BWD_DIMS[dims], 300, 5, 128
+    x_ext = _bf16(rng, (T + 1, D), cuda_device)
+    x_ext[T] = 0
+    src = rng.integers(0, T + 1, E * C).astype(np.int32)
+    src[:40] = 7
+    src[C:C + 5] = T
+    src = torch.from_numpy(src).to(cuda_device)
+    w = torch.from_numpy(rng.random(E * C).astype(np.float32)).to(cuda_device)
+    ws = _bf16_weights(rng, E, D, F, cuda_device)
+    cnt = (None if counts is None
+           else torch.tensor(counts, dtype=torch.int32, device=cuda_device))
+    dout = torch.from_numpy(rng.standard_normal((T, D)).astype(
+        np.float32)).to(cuda_device)
+    before = gm.gather_swiglu_scatter_bwd_cuda.launches
+    got = gm.gather_swiglu_scatter_bwd_cuda(x_ext, src, w, *ws, cnt, dout)
+    assert gm.gather_swiglu_scatter_bwd_cuda.launches == before + 1
+    _bwd_close(got, gm.gather_swiglu_scatter_bwd_plain(x_ext, src, w, *ws,
+                                                       cnt, dout))
+    _bwd_close(got, _autograd_plain(
+        lambda x, s, ww, *rest: gm.gather_swiglu_scatter_plain(x, s, ww,
+                                                               *rest),
+        (x_ext, src, w, *ws, cnt), (0, 2, 3, 4, 5), dout))
+    if cnt is not None:
+        assert (got[1].reshape(E, C)[~gm.occupancy_mask(cnt, E, C)] == 0).all()
+        assert all((g[0] == 0).all() for g in got[2:])
+
+
+def _wire_case(rng, D, device, with_counts):
+    """The wire table of _wire_table with a tied absmax (row 5's first
+    block holds +m and -m, row 6's m three times), 4 buckets of 32 slots
+    naming rows at random, duplicates and the scratch row among them."""
+    T, E, C = 64, 4, 32
+    x = _wire_table(rng, T, D, device)
+    x[5, :128].clamp_(-1.0, 1.0)
+    x[5, 3], x[5, 70] = 2.0, -2.0
+    x[6, :128].clamp_(-1.0, 1.0)
+    x[6, [0, 9, 127]] = 3.0
+    src = rng.integers(0, T + 1, E * C).astype(np.int32)
+    src[:12] = [0, 1, 2, 3, 5, 6, 5, 6, T, 5, 3, 6]
+    counts = (torch.tensor([0, 32, 7, 19], dtype=torch.int32, device=device)
+              if with_counts else None)
+    return x, torch.from_numpy(src).to(device), counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["fp8", "int8"])
+@pytest.mark.parametrize("D", [130, 200, 2048])
+@pytest.mark.parametrize("with_counts", [False, True])
+def test_cuda_wire_bwd_matches_plain(cuda_device, wire, D, with_counts):
+    """The wire's gradient through the scales alone: dequantize_bwd's
+    d_scales (fp32 sums of 128 products in another order: 1e-5 of their
+    largest) and gather_quantize_bwd's table gradient, nonzero exactly at
+    each occupied block's absmax element(s) (ties shared), the same
+    elements as the plain version's; and the chain against autograd
+    through the plain forward as core/ep.py chains it (the bytes through
+    a uint8 view)."""
+    rng = np.random.default_rng(23 + D)
+    x, src, counts = _wire_case(rng, D, cuda_device, with_counts)
+    q, s = qp.gather_quantize_cuda(x, src, counts, wire_dtype=wire)
+    dy = torch.from_numpy(rng.standard_normal((src.shape[0], D)).astype(
+        np.float32)).to(cuda_device)
+    b0, g0 = qp.dequantize_bwd_cuda.launches, qp.gather_quantize_bwd_cuda.launches
+    ds = qp.dequantize_bwd_cuda(q, s, dy)
+    ds_ref = qp.dequantize_bwd_plain(q, s, dy)
+    _range_close(ds, ds_ref, 1e-5)
+    dx = qp.gather_quantize_bwd_cuda(x, src, counts, ds_ref, wire_dtype=wire)
+    dx_ref = qp.gather_quantize_bwd_plain(x, src, counts, ds_ref,
+                                          wire_dtype=wire)
+    assert (qp.dequantize_bwd_cuda.launches, qp.gather_quantize_bwd_cuda.launches
+            ) == (b0 + 1, g0 + 1)
+    assert torch.equal(dx != 0, dx_ref != 0)
+    _range_close(dx, dx_ref, 1e-6)
+    xin = x.detach().requires_grad_(True)
+    qp_, sp_ = qp.gather_quantize_plain(xin, src, counts, wire_dtype=wire)
+    out = qp.dequantize_plain(qp_.view(torch.uint8).view(qp_.dtype), sp_)
+    auto, = torch.autograd.grad(out, xin, dy)
+    chain = qp.gather_quantize_bwd_cuda(x, src, counts, ds, wire_dtype=wire)
+    assert torch.equal(chain != 0, auto != 0)
+    _range_close(chain, auto, 1e-5)
+    # one nonzero a tie at most, a tied block splits its gradient equally
+    if not with_counts:
+        assert int((chain[5, :128] != 0).sum()) in (0, 2)
+        assert int((chain[6, :128] != 0).sum()) in (0, 3)
+        assert (chain[0] == 0).all() and (chain[3, :128] == 0).all()
+
+
+@pytest.mark.cuda
+def test_cuda_ep_kernels_train_through_their_functions(cuda_device):
+    """Under grad with an input that requires one, ops takes each kernel's
+    autograd Function: the forward and the backward kernel launch once a
+    call, and the gradients are autograd's through the plain forward."""
+    rng = np.random.default_rng(24)
+    T, E, C, D, F = 40, 4, 32, 136, 200
+    x_ext = _bf16(rng, (T + 1, D), cuda_device)
+    x_ext[T] = 0
+    src = torch.from_numpy(rng.integers(0, T, E * C).astype(np.int32)).to(
+        cuda_device)
+    w = torch.rand(E * C, device=cuda_device)
+    ws = _bf16_weights(rng, E, D, F, cuda_device)
+    cnt = torch.tensor([3, 32, 0, 17], dtype=torch.int32, device=cuda_device)
+    leaves = [t.clone().requires_grad_(True) for t in (x_ext, w, *ws)]
+    counters = (gm.gather_swiglu_scatter_cuda,
+                gm.gather_swiglu_scatter_bwd_cuda)
+    before = [c.launches for c in counters]
+    out = ops.gather_swiglu_scatter(leaves[0], src, leaves[1], *leaves[2:],
+                                    cnt)
+    dout = torch.randn_like(out)
+    grads = torch.autograd.grad(out, leaves, dout)
+    assert [c.launches for c in counters] == [b + 1 for b in before]
+    _bwd_close(grads, gm.gather_swiglu_scatter_bwd_plain(
+        x_ext, src, w, *ws, cnt, dout))
+    xb = _bf16(rng, (E, C, D), cuda_device).requires_grad_(True)
+    y = ops.grouped_swiglu(xb, *leaves[2:], cnt)
+    dy = torch.randn_like(y)
+    b0 = gm.grouped_swiglu_bwd_cuda.launches
+    grads = torch.autograd.grad(y, [xb, *leaves[2:]], dy)
+    assert gm.grouped_swiglu_bwd_cuda.launches == b0 + 1
+    _bwd_close(grads, gm.grouped_swiglu_bwd_plain(xb.detach(), *ws, cnt, dy))
+    xf, src_w, counts = _wire_case(rng, 256, cuda_device, True)
+    xf.requires_grad_(True)
+    q, s = ops.gather_quantize(xf, src_w, counts, wire_dtype="fp8")
+    assert not q.requires_grad and s.requires_grad
+    deq = ops.dequantize_tokens(q, s)
+    dy = torch.randn_like(deq)
+    auto_in = xf.detach().requires_grad_(True)
+    qp_, sp_ = qp.gather_quantize_plain(auto_in, src_w, counts,
+                                        wire_dtype="fp8")
+    ref, = torch.autograd.grad(qp.dequantize_plain(qp_.view(torch.uint8).view(
+        qp_.dtype), sp_), auto_in, dy)
+    got, = torch.autograd.grad(deq, xf, dy)
+    _range_close(got, ref, 1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_ep_kernels_serve_without_their_functions(cuda_device):
+    """Under inference mode (serving, and a captured decode step) the EP
+    kernels take their ctypes wrappers as before: no Function, no graph,
+    no backward launch, the same bits as a call under no_grad."""
+    rng = np.random.default_rng(25)
+    T, E, C, D, F = 16, 2, 8, 64, 64
+    x_ext = _bf16(rng, (T + 1, D), cuda_device)
+    x_ext[T] = 0
+    ws = [t.requires_grad_(True) for t in _bf16_weights(rng, E, D, F,
+                                                        cuda_device)]
+    src = torch.arange(E * C, device=cuda_device, dtype=torch.int32) % T
+    w = torch.ones(E * C, device=cuda_device)
+    counters = (gm.gather_swiglu_scatter_cuda,
+                gm.gather_swiglu_scatter_bwd_cuda)
+    before = [c.launches for c in counters]
+    with torch.inference_mode():
+        out = ops.gather_swiglu_scatter(x_ext, src, w, *ws)
+    assert out.grad_fn is None and not out.requires_grad
+    assert [c.launches for c in counters] == [before[0] + 1, before[1]]
+    with torch.no_grad():
+        again = ops.gather_swiglu_scatter(x_ext, src, w, *ws)
+    torch.testing.assert_close(out, again, rtol=1e-6, atol=1e-6)
+
+
+# a reduced qwen2-moe's gradients on the card against the CPU's, as a
+# share of each leaf's norm: bf16 on both sides, every product summed in
+# another order, so h, the expert outputs and the activations round apart;
+# on the fp8 wire a token value that lands on the other side of a code
+# boundary also moves by 2^-4 of itself
+EP_TRAIN_TOL = 0.05
+
+
+def _ep_train_setup(device, mode, wire):
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.training import train_loop as T
+    cfg = reduced_config(get_config("qwen2_moe_a2_7b"), n_layers=2,
+                         d_model=128, vocab=512)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, wire_dtype=wire))
+    return cfg, T.init_state(cfg, seed=0, device="cpu"), T.HParams(
+        peak_lr=1e-3, warmup=1, total_steps=3, moe_mode=mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,wire", [("ht", "fp32"), ("ll", "fp32"),
+                                       ("ht", "fp8")])
+def test_cuda_train_ep_mesh_local(cuda_device, mode, wire):
+    """``train_step`` over ``--mesh local`` (a rank-stacked EP world of 2)
+    on a reduced qwen2-moe through the EP kernels and their backward
+    kernels, against the same step on the CPU through the plain versions,
+    from the same parameters, the CPU run taking the card's routing
+    choices: the loss and the grad norm within bf16 rounding, and every
+    gradient leaf within ``EP_TRAIN_TOL`` of its norm; the backward
+    kernels launched."""
+    from repro_torch.core import moe as tmoe
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.distributed.sharding import make_dist_ctx
+    from repro_torch.models import model_zoo as Z
+    from repro_torch.optim import adamw
+    from repro_torch.training import train_loop as T
+    cfg, cpu_state, hp = _ep_train_setup(cuda_device, mode, wire)
+    dist = make_dist_ctx(cfg, model=2)
+    batch = synth_batch(DataConfig(vocab_size=cfg.vocab_size, batch=2,
+                                   seq_len=32, seed=1), 0)
+    gpu_params = adamw.tree_map(
+        lambda t: t.detach().to(cuda_device).requires_grad_(True),
+        cpu_state.params)
+    grads = []
+    names = (("gather_swiglu_scatter_bwd",) if mode == "ht"
+             else ("grouped_swiglu_bwd",))
+    if wire != "fp32":
+        names += ("gather_quantize_bwd", "dequantize_bwd")
+    before = {n: ops.KERNELS[n][0].launches for n in names}
+    route, taken = tmoe.route, []
+
+    def record(mcfg, rp, t, n):
+        out = route(mcfg, rp, t, n)
+        taken.append(out.top_idx.cpu())
+        return out
+
+    def replay(mcfg, rp, t, n):
+        """The card's choices (bf16 near-ties round apart on the two
+        devices; each call of the forward and of its recompute in turn),
+        weights and aux loss from this run's own probabilities"""
+        out = route(mcfg, rp, t, n)
+        top = taken.pop(0).to(t.device).long()
+        top_p = torch.gather(out.probs, -1, top)
+        onehot = torch.nn.functional.one_hot(top, out.probs.shape[-1]).to(
+            torch.float32).sum(-2)
+        aux = n * (onehot.mean(-2) * out.probs.mean(-2)).sum(-1) * (
+            mcfg.aux_loss_weight)
+        return out._replace(top_idx=top.to(torch.int32), aux_loss=aux,
+                            top_w=(top_p / torch.clamp(top_p.sum(
+                                -1, keepdim=True), min=1e-9)).to(
+                                out.top_w.dtype))
+    for params, router in ((gpu_params, record), (cpu_state.params, replay)):
+        dev = params["embed"].device
+        try:
+            tmoe.route = router
+            loss, _ = Z.loss_fn(cfg, params, torch.as_tensor(
+                batch["tokens"], device=dev).long(), torch.as_tensor(
+                batch["labels"], device=dev).long(), dist=dist, moe_mode=mode)
+            loss.backward()
+        finally:
+            tmoe.route = route
+        grads.append((float(loss.detach()), adamw.tree_map(
+            lambda p: (p.grad if p.grad is not None
+                       else torch.zeros_like(p)).detach().float().cpu(),
+            params)))
+        adamw.tree_map(lambda p: setattr(p, "grad", None), params)
+    assert not taken
+    assert all(ops.KERNELS[n][0].launches > before[n] for n in names)
+    (l_gpu, g_gpu), (l_cpu, g_cpu) = grads
+    assert abs(l_gpu - l_cpu) <= 2e-2 * abs(l_cpu)
+    rel = []
+    adamw.tree_map(lambda g, r: rel.append(
+        (float((g - r).norm()) / max(float(r.norm()), 1e-6), tuple(r.shape),
+         bool(torch.isfinite(g).all()))), g_gpu, g_cpu)
+    assert all(f for _, _, f in rel)
+    assert max(e for e, _, _ in rel) <= EP_TRAIN_TOL, sorted(
+        rel, reverse=True)[:4]
+    gpu_state = T.TrainState(gpu_params, adamw.init_state(gpu_params))
+    _, m_gpu = T.train_step(cfg, hp, dist, gpu_state, batch)
+    _, m_cpu = T.train_step(cfg, hp, dist, cpu_state, batch)
+    assert abs(float(m_gpu["grad_norm"]) - float(m_cpu["grad_norm"])) <= (
+        0.05 * float(m_cpu["grad_norm"]))
+
+
+@pytest.mark.cuda
+def test_cuda_train_cli_mesh_local_qwen2moe(cuda_device, capsys):
+    """``launch.train --mesh local`` trains a reduced qwen2-moe expert
+    parallel on the card: HT through the fused kernel and its backward."""
     from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match="EP training"):
-        train.main(["--arch", "qwen2_moe_a2_7b", "--reduced", "--mesh",
-                    "local", "--local-model-axis", "2", "--steps", "1",
-                    "--batch", "2", "--seq", "16"])
+    f0 = gm.gather_swiglu_scatter_cuda.launches
+    b0 = gm.gather_swiglu_scatter_bwd_cuda.launches
+    assert train.main(["--arch", "qwen2_moe_a2_7b", "--reduced", "--mesh",
+                       "local", "--local-model-axis", "2", "--steps", "2",
+                       "--batch", "2", "--seq", "16", "--log-every", "1"]) == 0
+    assert "[train] finished: loss" in capsys.readouterr().out
+    # 2 layers x 2 steps; the forward runs again under recomputation
+    assert gm.gather_swiglu_scatter_cuda.launches - f0 == 8
+    assert gm.gather_swiglu_scatter_bwd_cuda.launches - b0 == 4
 
 
 @pytest.mark.cuda

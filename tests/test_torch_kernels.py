@@ -158,14 +158,20 @@ def test_ops_dispatch_cpu_takes_plain_version():
                                 "gather_quantize", "dequantize",
                                 "mamba_scan", "mamba_scan_bwd", "rmsnorm",
                                 "flash_attention", "decode_attention",
-                                "decode_attention_paged", "combine_reduce"}
+                                "decode_attention_paged", "combine_reduce",
+                                "grouped_swiglu_bwd",
+                                "gather_swiglu_scatter_bwd",
+                                "gather_quantize_bwd", "dequantize_bwd"}
 
 
 @pytest.mark.parametrize("name", ["grouped_swiglu", "gather_swiglu_scatter",
                                   "gather_quantize", "dequantize", "rmsnorm",
                                   "flash_attention", "decode_attention",
                                   "grouped_matmul", "grouped_swiglu_db",
-                                  "combine_reduce", "decode_attention_paged"])
+                                  "combine_reduce", "decode_attention_paged",
+                                  "grouped_swiglu_bwd",
+                                  "gather_swiglu_scatter_bwd",
+                                  "gather_quantize_bwd", "dequantize_bwd"])
 def test_cuda_wrapper_refuses_cpu_tensors(name):
     """A CUDA wrapper launches its kernel or raises: on CPU tensors it
     raises before touching the kernel library and counts no launch."""
@@ -195,6 +201,16 @@ def test_cuda_wrapper_refuses_cpu_tensors(name):
                 (4, 16, 2, 128), dtype=torch.bfloat16)] * 2,
             torch.zeros((1, 2), dtype=torch.int32),
             torch.zeros(1, dtype=torch.int32)),
+        "grouped_swiglu_bwd": lambda: cuda(x, wg, wu, wd, None, x),
+        "gather_swiglu_scatter_bwd": lambda: cuda(
+            x[0], torch.zeros(16, dtype=torch.int32), torch.zeros(16),
+            wg, wu, wd, None, torch.zeros((7, 16))),
+        "gather_quantize_bwd": lambda: cuda(
+            x[0].float(), torch.arange(8), None, torch.zeros((8, 1)),
+            wire_dtype="int8"),
+        "dequantize_bwd": lambda: cuda(torch.zeros((4, 16), dtype=torch.int8),
+                                       torch.ones((4, 1)),
+                                       torch.zeros((4, 16))),
     }[name]
     with pytest.raises(ValueError):
         args()
