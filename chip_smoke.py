@@ -178,7 +178,9 @@ Phases, each printed as one JSON line:
    update of every parameter timed;
 17. kernel (EP backward): each of the four backward kernels on the inputs
    of its first call of each kind in phase 16, against its plain backward
-   (``KERNEL_TOL``) and timed as the kernels of phase 6, and against
+   (``KERNEL_TOL``) and timed as the kernels of phase 6 (the two SwiGLU
+   backwards also by pass, ``pass_device_ms``, as the profiled HT step's
+   ``ep_backward_passes``), and against
    ``torch.autograd.grad`` through the plain forward on the same inputs
    in fp32 (``autograd_rel_err``, within the same tolerance); then each
    of the four EP forwards on the inputs of its first call of each kind in
@@ -868,8 +870,10 @@ DEVICE_KINDS = (("scan kernels", ("scan_fwd_kernel", "scan_bwd_kernel")),
                 ("wire backward kernels", ("gather_quantize_bwd",
                                            "dequantize_bwd")),
                 ("wire kernels", ("gather_quantize", "dequantize_kernel")),
+                # before the forwards: the backward's passes are the tile
+                # loop's too, and their names hold "swiglu_tiles::Args"
+                ("EP backward kernels", ("swiglu_bwd::",)),
                 ("EP kernels", ("swiglu_tiles",)),
-                ("EP backward kernels", ("bwd_up", "bwd_dx", "bwd_dw_")),
                 ("cuBLAS GEMM", ("nvjet", "gemm", "cutlass", "xmma")),
                 ("copies and casts", ("copy", "Memcpy", "Memset")),
                 ("reductions", ("reduce", "Reduce", "softmax", "Softmax")),
@@ -881,6 +885,25 @@ def device_kind(name: str) -> str:
         if any(f in name for f in frags):
             return kind
     return "other"
+
+
+def bwd_passes(device_by_name: dict) -> dict:
+    """The SwiGLU backwards' device time per call by pass, from a profile's
+    ``device_by_name`` (``profile_step(..., by_name=True)``) over calls
+    that each launch every pass once: each kernel of ``csrc/swiglu_bwd.cu``
+    by its name there (``pass<swiglu_bwd::dw_up>`` -> ``dw_up``; the
+    prepasses ``gather_rows``, ``compact_rows``), the mean of its records
+    (a late trace loses a few; ``device_ms``) and their number."""
+    import re
+    out = {}
+    for name, (ms, n) in device_by_name.items():
+        m = re.search(r"swiglu_bwd::(\w+)(?:>|\()", name)
+        if m and n:
+            d = out.setdefault(m.group(1), {"device_ms": 0.0, "records": 0})
+            d["device_ms"] = (d["device_ms"] * d["records"] + ms) / (
+                d["records"] + n)
+            d["records"] += n
+    return out
 
 
 def profile_step(what: str, step, by_name: bool = False) -> dict:
@@ -1986,8 +2009,11 @@ def train_ep_phase(dev) -> tuple[list, dict, dict]:
         holder[0], _ = train_step(cfg, hp, dist, holder[0], batch)
 
     prof = profile_step(f"one HT train step (qwen2_moe_a2_7b, {cfg.n_layers} "
-                        f"layers, batch {B} x {S}, EP world 4)", step)
+                        f"layers, batch {B} x {S}, EP world 4)", step,
+                        by_name=True)
     prof["phase"] = "train_qwen2moe_ep_profile"
+    # the HT backward's passes over the step's calls (one a layer)
+    prof["ep_backward_passes"] = bwd_passes(prof.pop("device_by_name"))
     params, opt = holder[0]
     zeros = tree_map(torch.zeros_like, params)
     prof["adamw_update_ms"] = cuda_ms(lambda: apply_updates(
@@ -2036,6 +2062,12 @@ def check_ep_bwd(recs: dict, launches: dict) -> list:
     for name in EP_BWD_KERNELS:
         entry = check_kernel(name, recs[name], launches)
         cuda = ops.KERNELS[name][0]
+        if name in ("grouped_swiglu_bwd", "gather_swiglu_scatter_bwd"):
+            # the lead (first) call's device time by pass, over 5 calls
+            args, kwargs = next(iter(recs[name].cases.values()))
+            entry["pass_device_ms"] = bwd_passes(profile_step(
+                name, lambda: [cuda(*args, **kwargs) for _ in range(5)],
+                by_name=True)["device_by_name"])
         rels = []
         for (args, kwargs), case in zip(recs[name].cases.values(),
                                         entry["cases"]):

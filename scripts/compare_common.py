@@ -1,9 +1,10 @@
 """What the kernel comparison scripts (``flash_compare.py``,
-``tiles_compare.py``, ``decode_compare.py``, ``rmsnorm_compare.py``,
-``scan_compare.py``) share: building an earlier
-version of a kernel's sources out of tree and binding its C entry points,
-ptxas's and cuobjdump's report on the current sources, and timing versions
-in turns.
+``tiles_compare.py``, ``decode_compare.py``, ``paged_compare.py``,
+``rmsnorm_compare.py``, ``scan_compare.py``, ``dequantize_compare.py``,
+``quantize_compare.py``, ``swiglu_bwd_compare.py``) share: building an
+earlier version of a kernel's sources out of tree and binding its C entry
+points, ptxas's and cuobjdump's report on the current sources, and timing
+versions in turns.
 
 An earlier source is compiled with the package's nvcc flags into a
 temporary directory outside the repository and loaded through ctypes under

@@ -10,9 +10,10 @@ Each fault (all of ``FAULTS``, or those named) is a one-line edit of
 ``csrc/mamba_scan.cu``, ``csrc/dequantize.cu``, ``csrc/rmsnorm.cu``,
 ``csrc/gather_quantize.cu``, ``csrc/grouped_swiglu_db.cu``,
 ``csrc/decode_attention_paged.cu``, the decoders' shared body
-``csrc/decode_common.cuh``, ``csrc/swiglu_bwd.cu``, ``csrc/wire_bwd.cu``
-or ``launch/serve.py`` (the cache reset after
-a decode step's capture) in a copy of ``src/`` and ``tests/`` under a
+``csrc/decode_common.cuh``, the tile loop's backward passes in
+``csrc/swiglu_tiles.cuh``, ``csrc/swiglu_bwd.cu``, ``csrc/wire_bwd.cu``
+or ``launch/serve.py``
+(the cache reset after a decode step's capture) in a copy of ``src/`` and ``tests/`` under a
 temporary directory (the repository is never edited); the copy builds its
 own kernels and runs ``pytest --noconftest -m cuda -k TESTS
 tests/test_torch_cuda.py``.  One JSON line
@@ -99,18 +100,22 @@ FAULTS = {
     # the EP backward kernels: HT's slot weight left out of dH; the odd
     # rows' dX never added; every sub-bucket reduced over the first one's
     # count; the wire's gradient at every element (straight through), or
-    # unshared between tied elements; a lane's products left out
+    # unshared between tied elements; a lane's products left out.  The
+    # SwiGLU backward's passes run on the tile loop (swiglu_tiles.cuh;
+    # these lines are the backward's alone), LL's sub-buckets are packed
+    # by its prepass (swiglu_bwd.cu)
     "swiglu_bwd_unweighted": (
-        CSRC + "swiglu_bwd.cu",
-        "const float wv = HT && occ ? p.w[slot] : 1.f;",
+        CSRC + "swiglu_tiles.cuh",
+        "const float wv = occ && p.s_w != nullptr ? p.s_w[slot] : 1.f;",
         "const float wv = 1.f;"),
     "swiglu_bwd_drops_odd_rows": (
-        CSRC + "swiglu_bwd.cu", "        if (!occ) continue;\n        float* dst",
-        "        if (!occ || r % 2) continue;\n        float* dst"),
+        CSRC + "swiglu_tiles.cuh",
+        "const float wv = EPI == kDownScatter ? p.s_w[slot] : 1.f;",
+        "const float wv = EPI == kDownScatter ? p.s_w[slot] : (r % 2 ? 0.f : 1.f);"),
     "swiglu_bwd_first_bucket_count": (
         CSRC + "swiglu_bwd.cu",
-        "lim = b * p.Cg + min(max(p.cnt[e * p.B + b], 0), p.Cg);",
-        "lim = b * p.Cg + min(max(p.cnt[e * p.B], 0), p.Cg);"),
+        "const int n = min(max(cnt[e * B + k], 0), Cg);",
+        "const int n = min(max(cnt[e * B], 0), Cg);"),
     "wire_bwd_straight_through": (
         CSRC + "wire_bwd.cu", "if (j < D && fabsf(v[i]) == m) atomicAdd",
         "if (j < D) atomicAdd"),

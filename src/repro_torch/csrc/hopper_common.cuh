@@ -1,7 +1,9 @@
 // Hopper building blocks shared by the kernels that feed wgmma from a TMA
-// ring (flash_attention.cu, swiglu_tiles.cuh): mbarriers, TMA and cp.async
-// loads into shared memory, the 128-byte-swizzle matrix descriptor, the
-// m64n128k16 bf16 wgmma forms, and the tensor-map encoder.
+// ring (flash_attention.cu, swiglu_tiles.cuh and through it swiglu_bwd.cu):
+// mbarriers, TMA and cp.async loads into shared memory (and TMA stores out
+// of it), the 128-byte-swizzle matrix descriptor, the
+// m64n128k16 bf16 wgmma forms (A and B each K- or MN-major from shared
+// memory, or A from registers), and the tensor-map encoder.
 //
 // The encoder is cuTensorMapEncodeTiled, got from the driver through
 // cudaGetDriverEntryPoint, so the library needs no link against libcuda.
@@ -74,6 +76,31 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// one box of shared memory at ``src`` out to a 3-D tensor map's box at
+// (c0, c1, c2), in this thread's bulk group (elements past the tensor's
+// edges are not written)
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// this thread's bulk stores but the newest N have read their shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// ... and have written device memory
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // 16 bytes global -> shared; ``src_bytes`` 0 reads nothing and writes zeros
 __device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
@@ -121,16 +148,18 @@ __device__ __forceinline__ void fence_regs(float (&r)[64]) {
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
-// d (64 x 128 fp32) (+)= A (64 x 16, shared, K-major) B (16 x 128, shared;
-// K-major, or MN-major when TransB is 1); scale_d 0 overwrites d
-template <int TransB = 0>
+// d (64 x 128 fp32) (+)= A (64 x 16, shared; K-major, or MN-major when
+// TransA is 1) B (16 x 128, shared; K-major, or MN-major when TransB is 1);
+// scale_d 0 overwrites d.  An MN-major operand's k-steps advance by rows of
+// the stored matrix (16 rows of 128 bytes), a K-major one's by 32 bytes
+template <int TransB = 0, int TransA = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
       "setp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, %67;\n"
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, %67, %68;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
@@ -148,7 +177,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t d
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TransB));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TransA), "n"(TransB));
 }
 
 // d (64 x 128 fp32) += A (64 x 16 bf16, registers) B (16 x 128, shared,

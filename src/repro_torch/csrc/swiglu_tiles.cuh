@@ -1,5 +1,6 @@
 // Shared tile loop of the grouped expert kernels (grouped_matmul.cu,
-// grouped_swiglu.cu, grouped_swiglu_db.cu, gather_swiglu_scatter.cu).
+// grouped_swiglu.cu, grouped_swiglu_db.cu, gather_swiglu_scatter.cu) and of
+// their backward (swiglu_bwd.cu, whose header describes its six passes).
 //
 // The TPU kernels keep a (bm, D) fp32 accumulator in VMEM and stream the
 // hidden dim F through it.  At D = 2048 and bm = 128 that is 1 MB, far over
@@ -79,6 +80,20 @@
 //   more SMs, but halve each TMA box and double the A reads at the HT
 //   shapes; the measured decode time is in PERF.md.
 //
+// The backward's passes (swiglu_bwd.cu) run this loop with two more operand
+// forms: a K-major weight tile (the weight's transpose, stored K
+// contiguous: box 64 K x 128 N), and an MN-major A for the weight
+// gradients, whose reduction runs over an expert's occupied rows (box 64 M x
+// 64 rows).  Those passes walk an expert's rows (compacted by the
+// backward: one count an expert) in steps of 64; in the last, partial step
+// the consumers write zeros over the rows past the count in the stage's A
+// and B boxes (then fence the async proxy and meet on a named barrier),
+// since there every row enters the sum.  Their blocks are persistent, each
+// walking tiles, and store their outputs by TMA from shared memory past
+// the ring (store_tile), so that the stores run under the next tile's
+// products.  Pass (b) takes its K from two sources in turn (DG with Wg,
+// then DU with Wu).
+//
 // Unchanged from the loop before it: tiles wholly past the count load
 // nothing (kDownStore still writes their zeros); rows past the count are
 // written as exact zeros (kDownStore), left unwritten in h (kUp: pass (b)
@@ -108,16 +123,54 @@ constexpr int kStageBytes = kABytes + 2 * kBBytes;  // A and two weight tiles
 constexpr int kStages = 4;
 constexpr int kOffBar = kStages * kStageBytes;
 constexpr int kSmem = kOffBar + 16 * kStages + 1024;  // + alignment
+// the weight gradients' passes: each consumer's 64 x 128 bf16 output
+// staged for TMA stores, after the barriers
+constexpr int kOutBytes = 64 * BT * 2;
+constexpr int kOffOut = kOffBar + 1024;
+constexpr int kSmemRK = kOffOut + 2 * kOutBytes + 1024;
+static_assert(kSmemRK <= 232448, "a block's shared memory");
 constexpr int kGatherLag = 3;       // stages a gathering producer keeps open
 static_assert(kStages > kGatherLag, "the gathering producer needs the lag");
 
-enum Epilogue { kUp = 0, kDownStore = 1, kDownScatter = 2 };
+// the passes: the forwards' three, then the backward's (swiglu_bwd.cu)
+enum Epilogue {
+  kUp = 0,         // h = bf16(silu(x Wg) * (x Wu))
+  kDownStore = 1,  // y = h Wd, bf16, exact zeros past the counts
+  kDownScatter = 2,  // w_slot * (h Wd) added into the token rows
+  kDHu = 3,        // (a1) DHu = bf16(DY) Wd^T, fp32 out
+  kBwdUp = 4,      // (a2) G, U recomputed; H, DG, DU out (HT: dw_slot)
+  kDxStore = 5,    // (b) dX = DG Wg^T + DU Wu^T, bf16 into rows s_rows (LL)
+  kDxScatter = 6,  // (b) the same added into the token rows (HT)
+  kDWUp = 7,       // (c) dWg = X^T DG, dWu = X^T DU
+  kDWDown = 8,     // (d) dWd = H^T bf16(w DY)
+};
 
-// output columns a block: kUp's two weight tiles are gate and up of the
-// same columns, kDown's are two neighbouring column tiles
+// the weight gradients' passes: A MN-major, K over an expert's occupied rows
+template <int EPI>
+__host__ __device__ constexpr bool rows_k() {
+  return EPI == kDWUp || EPI == kDWDown;
+}
+// B stored K contiguous (a weight's transpose): one 64 x 128 box a tile
+template <int EPI>
+__host__ __device__ constexpr bool b_kmajor() {
+  return EPI == kDHu || EPI == kDxStore || EPI == kDxScatter;
+}
+// K from two (A, B) sources in turn
+template <int EPI>
+__host__ __device__ constexpr bool split_k() {
+  return EPI == kDxStore || EPI == kDxScatter;
+}
+// the two weight tiles are two matrices' same columns (kUp: gate and up),
+// else two neighbouring column tiles of one
+template <int EPI>
+__host__ __device__ constexpr bool same_cols() {
+  return EPI == kUp || EPI == kBwdUp || EPI == kDWUp;
+}
+
+// output columns a block
 template <int EPI>
 __host__ __device__ constexpr int block_cols() {
-  return EPI == kUp ? BT : 2 * BT;
+  return same_cols<EPI>() ? BT : 2 * BT;
 }
 
 struct Args {
@@ -126,12 +179,22 @@ struct Args {
   int a_nrows;         // rows in A's table (gathered indices are clamped)
   const int* cnt;      // (E * B,) occupied prefix of each sub-bucket
   int C, B, Cg;        // rows an expert = B sub-buckets of Cg
-  int K, N;            // reduce, output columns
-  int a_box;           // rows of a TMA A box: min(64, C rounded up to 8)
-  bf16* out_bf16;      // kUp: h (E*C, N);  kDownStore: y (E*C, N)
-  float* out_f32;      // kDownScatter: (s_nrows, N) fp32, atomically added
-  const int* s_rows;   // kDownScatter: token row per slot
-  const float* s_w;    // kDownScatter: combine weight per slot
+  int K, N;            // reduce (a split pass: each source's), output columns
+  int M;               // kDW*: output rows (D or F) of an expert's gradient
+  int E, tm, tn;       // kDW*: experts, and tiles of an expert's gradient
+  int a_box;           // rows of a TMA activation box: min(64, C rounded up to 8)
+  bf16* out_bf16;      // kUp: h;  kDownStore: y;  kDxStore: dx (rows s_rows);
+                       // kBwdUp: H;
+                       // kDW*: the (E, M, N) weight gradient (kDWUp: dWg)
+  bf16* out2_bf16;     // kBwdUp: DG;  kDWUp: dWu
+  bf16* out3_bf16;     // kBwdUp: DU
+  float* out_f32;      // kDownScatter, kDxScatter: (s_nrows, N), atomically
+                       // added;  kDHu: DHu (E*C, N)
+  const float* in_f32; // kBwdUp: DHu
+  float* dw;           // kBwdUp, HT: (E*C,) slot weights' gradient, added
+  const int* s_rows;   // kDownScatter, kDxScatter: token row per slot;
+                       // kDxStore: dx row per (compacted) slot
+  const float* s_w;    // kDownScatter, kBwdUp (HT): combine weight per slot
   int s_nrows;
 };
 
@@ -146,14 +209,49 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// the K steps of a pass over expert e's occupied rows 0 .. cnt[e] - 1 (the
+// backward's rows are compacted: one count an expert) in steps of BK,
+// ``live`` of a step's rows below the count
+struct RowSteps {
+  int j0 = 0;
+  __device__ __forceinline__ bool next(const Args& p, int e, int& r0, int& live) {
+    const int n = min(max(p.cnt[e], 0), p.C);
+    if (j0 >= n) return false;
+    r0 = j0;
+    live = min(BK, n - j0);
+    j0 += BK;
+    return true;
+  }
+};
+
+// Rows [live, BK) of consumer w's A box and of weight tile w's two boxes
+// in stage ``st`` to zeros: rows past the count (whatever the buffer holds
+// there, NaN included) must add nothing to a sum over rows.  Whole
+// 128-byte rows, so the swizzle inside a row does not matter
+__device__ __forceinline__ void clear_rows(uint32_t st, int w, int live, int t128) {
+  const int per = (BK - live) * (kRowBytes / 16);  // 16-byte chunks a box
+  for (int i = t128; i < 3 * per; i += 128) {
+    const int box = i / per, c = i - box * per;
+    const uint32_t at = (box == 0 ? st + w * kAHalf
+                                  : st + kABytes + w * kBBytes + (box - 1) * kBHalf) +
+                        (live + c / 8) * kRowBytes + (c % 8) * 16;
+    asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};\n" ::"r"(at), "r"(0) : "memory");
+  }
+}
+
 // the producer: one thread (TMA rows) or one warp (gathered rows) filling
-// the ring for the consumers marked in act0 / act1
+// the ring for the consumers marked in act0 / act1 with one tile's steps,
+// the first of them the ring's step j0; returns the ring's next step
 template <int EPI, bool GATHER>
-__device__ __forceinline__ void produce(const CUtensorMap* ta, const CUtensorMap* tw0,
-                                        const CUtensorMap* tw1, const Args& p, uint32_t base,
-                                        uint32_t full, uint32_t empty, int e, int m0, int n0,
-                                        bool act0, bool act1, int nk, int lane) {
+__device__ __forceinline__ int produce(const CUtensorMap* ta0, const CUtensorMap* ta1,
+                                       const CUtensorMap* tb0, const CUtensorMap* tb1,
+                                       const Args& p, uint32_t base, uint32_t full,
+                                       uint32_t empty, int e, int m0, int n0, bool act0,
+                                       bool act1, int nkh, int nk, int j0, int lane) {
+  constexpr bool RK = rows_k<EPI>(), SPLIT = split_k<EPI>(), SAME = same_cols<EPI>();
   const uint32_t a_bytes = GATHER ? 0u : (int(act0) + int(act1)) * p.a_box * kRowBytes;
+  // weight tiles, or (RK) four activation boxes of a_box rows
+  const uint32_t b_bytes = RK ? 4u * p.a_box * kRowBytes : 2u * kBBytes;
   // gathered: this lane's rows lane + 32 q (q 0, 1: consumer 0; 2, 3: 1)
   const bf16* rowp[4] = {nullptr, nullptr, nullptr, nullptr};
   if (GATHER) {
@@ -166,7 +264,16 @@ __device__ __forceinline__ void produce(const CUtensorMap* ta, const CUtensorMap
       }
     }
   }
-  for (int j = 0; j < nk; ++j) {
+  RowSteps rs;
+  int i = 0;  // this tile's step; the ring's is j0 + i
+  for (;; ++i) {
+    int r0 = 0, live = BK;
+    if (RK) {
+      if (!rs.next(p, e, r0, live)) break;
+    } else if (i >= nk) {
+      break;
+    }
+    const int j = j0 + i;
     if (GATHER && j >= kGatherLag) {  // stage j - lag has landed: mark it full
       cp_async_wait<kGatherLag - 1>();
       fence_proxy_async();
@@ -175,20 +282,34 @@ __device__ __forceinline__ void produce(const CUtensorMap* ta, const CUtensorMap
     const int s = j % kStages;
     if (j >= kStages) mbar_wait(empty + 8 * s, ((j / kStages) - 1) & 1);
     const uint32_t st = base + s * kStageBytes;
-    const int k0 = j * BK;
+    const bool second = SPLIT && i >= nkh;
+    const int k0 = RK ? r0 : (i - (second ? nkh : 0)) * BK;
     if (lane == 0) {
-      mbar_expect_tx(full + 8 * s, a_bytes + 2 * kBBytes);
+      mbar_expect_tx(full + 8 * s, a_bytes + b_bytes);
       if (!GATHER) {
-        if (act0) tma_load_3d(st, ta, full + 8 * s, k0, m0, e);
-        if (act1) tma_load_3d(st + kAHalf, ta, full + 8 * s, k0, m0 + 64, e);
+        const CUtensorMap* ta = second ? ta1 : ta0;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (!(h ? act1 : act0)) continue;
+          if (RK)  // (M, rows) box: the rows are K
+            tma_load_3d(st + h * kAHalf, ta, full + 8 * s, m0 + 64 * h, k0, e);
+          else
+            tma_load_3d(st + h * kAHalf, ta, full + 8 * s, k0, m0 + 64 * h, e);
+        }
       }
 #pragma unroll
-      for (int w = 0; w < 2; ++w)
+      for (int w = 0; w < 2; ++w) {
+        const CUtensorMap* tb = SAME ? (w ? tb1 : tb0) : (second ? tb1 : tb0);
+        const int col = n0 + (SAME ? 0 : BT * w);
+        const uint32_t dst = st + kABytes + w * kBBytes;
+        if (b_kmajor<EPI>()) {
+          tma_load_3d(dst, tb, full + 8 * s, k0, col, e);
+        } else {
 #pragma unroll
-        for (int half = 0; half < 2; ++half)
-          tma_load_3d(st + kABytes + w * kBBytes + half * kBHalf,
-                      EPI == kUp && w ? tw1 : tw0, full + 8 * s,
-                      n0 + (EPI == kUp ? 0 : BT * w) + 64 * half, k0, e);
+          for (int half = 0; half < 2; ++half)
+            tma_load_3d(dst + half * kBHalf, tb, full + 8 * s, col + 64 * half, k0, e);
+        }
+      }
     }
     if (GATHER) {
 #pragma unroll
@@ -198,114 +319,171 @@ __device__ __forceinline__ void produce(const CUtensorMap* ta, const CUtensorMap
 #pragma unroll
         for (int c = 0; c < 8; ++c) {
           const int k = k0 + 8 * c;
-          const bool live = rowp[q] != nullptr && k < p.K;
+          const bool live_k = rowp[q] != nullptr && k < p.K;
           cp_async_16(st + lr * kRowBytes + ((c ^ (lr & 7)) << 4),
-                      live ? static_cast<const void*>(rowp[q] + k) : p.a, live ? 16 : 0);
+                      live_k ? static_cast<const void*>(rowp[q] + k) : p.a, live_k ? 16 : 0);
         }
       }
       cp_async_commit();
     }
   }
-  if (GATHER) {
+  if (GATHER) {  // one tile a block: j0 is 0
     cp_async_wait<0>();
     fence_proxy_async();
     for (int j = max(nk - kGatherLag, 0); j < nk; ++j) mbar_arrive(full + 8 * (j % kStages));
   }
+  return j0 + i;
 }
 
-template <int EPI, bool GATHER>
-__global__ void __launch_bounds__(kThreads, 1)
-    tile_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tw0,
-                const __grid_constant__ CUtensorMap tw1, const Args p) {
-  constexpr int BNB = block_cols<EPI>();
-  const int e = blockIdx.z, m0 = blockIdx.y * BM, n0 = blockIdx.x * BNB;
-  const int tid = threadIdx.x;
-
-  // which consumers' 64 rows hold an occupied row
-  const bool occ_row = tid < BM && occupied(p, e, m0 + tid);
-  const bool act0 = __syncthreads_or(occ_row && tid < 64);
-  const bool act1 = __syncthreads_or(occ_row && tid >= 64);
-  if (!act0 && !act1) {  // unoccupied tile: no loads, no products
-    if (EPI == kDownStore)
-      for (int i = tid; i < BM * (BNB / 8); i += kThreads) {
-        const int r = m0 + i / (BNB / 8), n = n0 + (i % (BNB / 8)) * 8;
-        if (r < p.C && n < p.N)
-          *reinterpret_cast<uint4*>(p.out_bf16 + ((size_t)e * p.C + r) * p.N + n) =
-              make_uint4(0, 0, 0, 0);
-      }
-    return;
-  }
-
-  extern __shared__ uint8_t smem_raw[];
-  const uint32_t raw = smem_u32(smem_raw);
-  const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms want 1024-byte alignment
-  const uint32_t full = base + kOffBar, empty = full + 8 * kStages;
-  const int nk = (p.K + BK - 1) / BK;
-
-  if (tid == 0) {
-    if (!GATHER) prefetch_tensormap(&ta);
-    prefetch_tensormap(&tw0);
-    if (EPI == kUp) prefetch_tensormap(&tw1);
-    for (int s = 0; s < kStages; ++s) {
-      // TMA: the producer's expect_tx; gathered: its 32 lanes arrive too
-      mbar_init(full + 8 * s, GATHER ? 33 : 1);
-      mbar_init(empty + 8 * s, 4 * (int(act0) + int(act1)));  // one a consumer warp
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  const int wg = tid / 128;
-  if (wg == 0) {
-    // ------------------------------------------------------- producer --
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
-    if (tid < (GATHER ? 32 : 1))
-      produce<EPI, GATHER>(&ta, &tw0, &tw1, p, base, full, empty, e, m0, n0, act0, act1, nk,
-                           tid);
-    return;
-  }
-
-  // ---------------------------------------------------------- consumers --
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n");
-  const int w = wg - 1;  // consumer 0 / 1: tile rows 64w .. 64w + 63
-  const bool active = w ? act1 : act0;
-  const int t128 = tid % 128;
+// a consumer's products of one tile, the first of its steps the ring's
+// step j0: every step's stage released once its products are done;
+// returns the ring's next step
+template <int EPI>
+__device__ __forceinline__ int consume(float (&acc)[2][64], const Args& p, uint32_t base,
+                                       uint32_t full, uint32_t empty, int e, int w, int nk,
+                                       int j0, int t128) {
+  constexpr bool RK = rows_k<EPI>(), BKM = b_kmajor<EPI>();
   const int lane = t128 % 32;
-  const int g = lane / 4, t = lane % 4;               // accumulator row group, column pair
-  const int r0 = m0 + 64 * w + 16 * (t128 / 32) + g;  // this thread's rows: r0, r0 + 8
-
-  float acc[2][64];
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int i = 0; i < 64; ++i) acc[m][i] = 0.f;
-
-  if (active) {
-    for (int j = 0; j < nk; ++j) {
-      const int s = j % kStages;
-      mbar_wait(full + 8 * s, (j / kStages) & 1);
-      const uint32_t st = base + s * kStageBytes;
-      wg_fence();
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        const uint64_t da = desc_sw128(st + w * kAHalf + kk * 32, 16, 1024);
-#pragma unroll
-        for (int m = 0; m < 2; ++m)
-          wgmma_ss<1>(acc[m], da,
-                      desc_sw128(st + kABytes + m * kBBytes + kk * 16 * kRowBytes, kBHalf, 1024),
-                      1);
-      }
-      wg_commit();
-      wg_wait<1>();  // the step before is done: release its stage
-      if (j > 0 && lane == 0) mbar_arrive(empty + 8 * ((j - 1) % kStages));
+  RowSteps rs;
+  int i = 0;
+  for (;; ++i) {
+    int k_row = 0, live = BK;
+    if (RK) {
+      if (!rs.next(p, e, k_row, live)) break;
+    } else if (i >= nk) {
+      break;
     }
-    wg_wait<0>();
-    fence_regs(acc[0]);
-    fence_regs(acc[1]);
-    if (nk > 0 && lane == 0) mbar_arrive(empty + 8 * ((nk - 1) % kStages));
+    const int j = j0 + i;
+    const int s = j % kStages;
+    mbar_wait(full + 8 * s, (j / kStages) & 1);
+    const uint32_t st = base + s * kStageBytes;
+    if (RK && live < BK) {  // the prefix ends inside this step
+      clear_rows(st, w, live, t128);
+      fence_proxy_async();
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");  // both consumers' rows
+    }
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint32_t at = st + w * kAHalf;
+      const uint64_t da = RK ? desc_sw128(at + kk * 16 * kRowBytes, kAHalf, 1024)
+                             : desc_sw128(at + kk * 32, 16, 1024);
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const uint32_t bt = st + kABytes + m * kBBytes;
+        const uint64_t db = BKM ? desc_sw128(bt + kk * 32, 16, 1024)
+                                : desc_sw128(bt + kk * 16 * kRowBytes, kBHalf, 1024);
+        wgmma_ss<BKM ? 0 : 1, RK ? 1 : 0>(acc[m], da, db, 1);
+      }
+    }
+    wg_commit();
+    wg_wait<1>();  // the step before is done: release its stage
+    if (i > 0 && lane == 0) mbar_arrive(empty + 8 * ((j - 1) % kStages));
   }
+  wg_wait<0>();
+  fence_regs(acc[0]);
+  fence_regs(acc[1]);
+  if (i > 0 && lane == 0) mbar_arrive(empty + 8 * ((j0 + i - 1) % kStages));
+  return j0 + i;
+}
 
-  // ---------------------------------------------------------- epilogue --
+// RK: a consumer's 64 rows of expert e's (M, N) gradient (rows row0 ..,
+// columns n0 .. of acc[0] and, beside them or in the second matrix, of
+// acc[1]) out through shared memory: each accumulator as bf16 into the
+// consumer's 16 KB staging, two 64 x 64 boxes in the 128-byte swizzle
+// (a quad's 8-column groups land in distinct banks), then two TMA stores
+// that run on while the consumers go on to the next tile; the staging is
+// written again once they have read it.  The stores clip rows and
+// columns past the gradient's edges
+template <bool SAME>
+__device__ __forceinline__ void store_tile(const float (&acc)[2][64], const CUtensorMap* to0,
+                                           const CUtensorMap* to1, uint32_t out, int e,
+                                           int row0, int n0, int w, int t128) {
+  const int lane = t128 % 32, g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    if (t128 == 0) bulk_wait_read<0>();  // the staging's last stores have read it
+    asm volatile("bar.sync %0, 128;\n" ::"r"(2 + w) : "memory");
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int rr = 16 * (t128 / 32) + g + 8 * hr;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const uint32_t at = out + (i / 8) * kBHalf + rr * kRowBytes +
+                            (((i % 8) ^ (rr % 8)) << 4) + 4 * t;
+        asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(at),
+                     "r"(pack_bf16(acc[m][4 * i + 2 * hr], acc[m][4 * i + 2 * hr + 1]))
+                     : "memory");
+      }
+    }
+    fence_proxy_async();
+    asm volatile("bar.sync %0, 128;\n" ::"r"(2 + w) : "memory");
+    if (t128 == 0) {
+      const CUtensorMap* map = SAME && m ? to1 : to0;
+      const int col = n0 + (SAME ? 0 : BT * m);
+      tma_store_3d(map, out, col, row0, e);
+      tma_store_3d(map, out + kBHalf, col + 64, row0, e);
+      bulk_commit();
+    }
+  }
+}
+
+// a tile's epilogue (not RK: store_tile): this consumer's rows r0, r0 + 8
+// of the expert's slots
+template <int EPI>
+__device__ __forceinline__ void epilogue(const Args& p, const float (&acc)[2][64], int e,
+                                         int n0, int r0, bool active, int lane) {
+  const int t = lane % 4;
+  if (EPI == kBwdUp) {
+    // H, DG, DU of the occupied rows; HT: each row's share of <DY, y_s>
+    // over these columns (the quad's lanes hold the row), added into dw
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = r0 + 8 * hr;
+      const bool occ = active && occupied(p, e, r);
+      const size_t slot = (size_t)e * p.C + r;
+      const float wv = occ && p.s_w != nullptr ? p.s_w[slot] : 1.f;
+      // the row's DHu first, all loads in flight together (the stores
+      // below could alias them for all the compiler knows)
+      float2 dhu_row[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int n = n0 + 8 * i + 2 * t;
+        dhu_row[i] = occ && n < p.N
+                         ? __ldg(reinterpret_cast<const float2*>(p.in_f32 + slot * p.N + n))
+                         : make_float2(0.f, 0.f);
+      }
+      float part = 0.f;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int n = n0 + 8 * i + 2 * t;
+        if (!occ || n >= p.N) continue;
+        const float2 dhu2 = dhu_row[i];
+        float hv[2], gd[2], ud[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const float gv = acc[0][4 * i + 2 * hr + u], uv = acc[1][4 * i + 2 * hr + u];
+          const float dhu = u ? dhu2.y : dhu2.x;
+          const float sg = 1.0f / (1.0f + expf(-gv));
+          const float a = gv * sg;
+          hv[u] = __bfloat162float(__float2bfloat16_rn(a * uv));
+          part += dhu * hv[u];
+          const float dh = wv * dhu;
+          ud[u] = dh * a;
+          gd[u] = dh * uv * sg * (1.0f + gv * (1.0f - sg));
+        }
+        *reinterpret_cast<uint32_t*>(p.out_bf16 + slot * p.N + n) = pack_bf16(hv[0], hv[1]);
+        *reinterpret_cast<uint32_t*>(p.out2_bf16 + slot * p.N + n) = pack_bf16(gd[0], gd[1]);
+        *reinterpret_cast<uint32_t*>(p.out3_bf16 + slot * p.N + n) = pack_bf16(ud[0], ud[1]);
+      }
+      if (p.dw != nullptr) {
+        part += __shfl_xor_sync(0xffffffffu, part, 1);
+        part += __shfl_xor_sync(0xffffffffu, part, 2);
+        if (occ && t == 0) atomicAdd(p.dw + slot, part);
+      }
+    }
+    return;
+  }
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const int r = r0 + 8 * hr;
@@ -327,6 +505,30 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
         *reinterpret_cast<uint32_t*>(dst + n) = pack_bf16(v[0], v[1]);
       }
+    } else if (EPI == kDHu) {
+      if (!occ) continue;
+      float* const dst = p.out_f32 + slot * p.N;
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          const int n = n0 + BT * m + 8 * i + 2 * t;
+          if (n < p.N)
+            *reinterpret_cast<float2*>(dst + n) =
+                make_float2(acc[m][4 * i + 2 * hr], acc[m][4 * i + 2 * hr + 1]);
+        }
+    } else if (EPI == kDxStore) {  // occupied rows into their own rows of dx
+      if (!occ) continue;
+      bf16* const dst = p.out_bf16 + (size_t)p.s_rows[slot] * p.N;
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          const int n = n0 + BT * m + 8 * i + 2 * t;
+          if (n < p.N)
+            *reinterpret_cast<uint32_t*>(dst + n) =
+                pack_bf16(acc[m][4 * i + 2 * hr], acc[m][4 * i + 2 * hr + 1]);
+        }
     } else if (EPI == kDownStore) {
       bf16* const dst = p.out_bf16 + slot * p.N;
 #pragma unroll
@@ -338,11 +540,11 @@ __global__ void __launch_bounds__(kThreads, 1)
           *reinterpret_cast<uint32_t*>(dst + n) =
               occ ? pack_bf16(acc[m][4 * i + 2 * hr], acc[m][4 * i + 2 * hr + 1]) : 0u;
         }
-    } else {
+    } else {  // kDownScatter, kDxScatter
       if (!occ) continue;
       const int tok = p.s_rows[slot];
       if (tok < 0 || tok >= p.s_nrows) continue;
-      const float wv = p.s_w[slot];
+      const float wv = EPI == kDownScatter ? p.s_w[slot] : 1.f;
       float* const dst = p.out_f32 + (size_t)tok * p.N;
 #pragma unroll
       for (int m = 0; m < 2; ++m)
@@ -357,6 +559,133 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// One block of pass EPI: the producer warpgroup, two consumer warpgroups and
+// the pass's epilogue.  ta0 / ta1: A (ta1 the second source of a split
+// pass), tb0 / tb1: the weight tiles (B) as the pass pairs them.  A block
+// takes one tile (x: N, y: rows, z: expert); a RK pass's blocks are
+// persistent, each walking tiles blockIdx.x, + gridDim.x, ... of E x tm x
+// tn (N fastest, then M, then the expert), so that the producer fills the
+// next tile's stages while the consumers store this one's
+template <int EPI, bool GATHER>
+__device__ __forceinline__ void tile_body(const CUtensorMap* ta0, const CUtensorMap* ta1,
+                                          const CUtensorMap* tb0, const CUtensorMap* tb1,
+                                          const CUtensorMap* to0, const CUtensorMap* to1,
+                                          const Args& p) {
+  constexpr bool RK = rows_k<EPI>(), SPLIT = split_k<EPI>(), SAME = same_cols<EPI>();
+  constexpr int BNB = block_cols<EPI>();
+  const int tid = threadIdx.x;
+  const int tiles = RK ? p.E * p.tm * p.tn : 1, stride = RK ? gridDim.x : 1;
+  const int first = RK ? blockIdx.x : 0;
+  int e = blockIdx.z, m0 = blockIdx.y * BM, n0 = blockIdx.x * BNB;
+  const auto place = [&](int tl) {
+    if (RK) {
+      n0 = tl % p.tn * BNB;
+      m0 = tl / p.tn % p.tm * BM;
+      e = tl / (p.tn * p.tm);
+    }
+  };
+
+  // which consumers' 64 rows hold an occupied row (RK: the rows are the
+  // gradient's, all live)
+  bool act0 = true, act1 = true;
+  if (!RK) {
+    const bool occ_row = tid < BM && occupied(p, e, m0 + tid);
+    act0 = __syncthreads_or(occ_row && tid < 64);
+    act1 = __syncthreads_or(occ_row && tid >= 64);
+    if (!act0 && !act1) {  // unoccupied tile: no loads, no products
+      if (EPI == kDownStore)
+        for (int i = tid; i < BM * (BNB / 8); i += kThreads) {
+          const int r = m0 + i / (BNB / 8), n = n0 + (i % (BNB / 8)) * 8;
+          if (r < p.C && n < p.N)
+            *reinterpret_cast<uint4*>(p.out_bf16 + ((size_t)e * p.C + r) * p.N + n) =
+                make_uint4(0, 0, 0, 0);
+        }
+      return;
+    }
+  }
+
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms want 1024-byte alignment
+  const uint32_t full = base + kOffBar, empty = full + 8 * kStages;
+  const int nkh = (p.K + BK - 1) / BK;  // K steps of a source (RK: from the counts)
+  const int nk = SPLIT ? 2 * nkh : nkh;
+
+  if (tid == 0) {
+    if (!GATHER) prefetch_tensormap(ta0);
+    if (SPLIT) prefetch_tensormap(ta1);
+    prefetch_tensormap(tb0);
+    if (SAME || SPLIT) prefetch_tensormap(tb1);
+    if (RK) prefetch_tensormap(to0);
+    if (RK && SAME) prefetch_tensormap(to1);
+    for (int s = 0; s < kStages; ++s) {
+      // TMA: the producer's expect_tx; gathered: its 32 lanes arrive too
+      mbar_init(full + 8 * s, GATHER ? 33 : 1);
+      mbar_init(empty + 8 * s, 4 * (int(act0) + int(act1)));  // one a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = tid / 128;
+  if (wg == 0) {
+    // ------------------------------------------------------- producer --
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
+    if (tid < (GATHER ? 32 : 1)) {
+      int j = 0;
+      for (int tl = first; tl < tiles; tl += stride) {
+        place(tl);
+        j = produce<EPI, GATHER>(ta0, ta1, tb0, tb1, p, base, full, empty, e, m0, n0, act0,
+                                 act1, nkh, nk, j, tid);
+      }
+    }
+    return;
+  }
+
+  // ---------------------------------------------------------- consumers --
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n");
+  const int w = wg - 1;  // consumer 0 / 1: tile rows 64w .. 64w + 63
+  const bool active = w ? act1 : act0;
+  const int t128 = tid % 128;
+  const int lane = t128 % 32;
+  float acc[2][64];
+  int j = 0;
+  for (int tl = first; tl < tiles; tl += stride) {
+    place(tl);
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[m][i] = 0.f;
+    if (active) j = consume<EPI>(acc, p, base, full, empty, e, w, nk, j, t128);
+    if (RK)
+      store_tile<SAME>(acc, to0, to1, base + kOffOut + w * kOutBytes, e, m0 + 64 * w, n0, w,
+                       t128);
+    else  // this thread's rows: r0, r0 + 8 (accumulator row group lane / 4)
+      epilogue<EPI>(p, acc, e, n0, m0 + 64 * w + 16 * (t128 / 32) + lane / 4, active, lane);
+  }
+  if (RK && t128 == 0) bulk_wait<0>();  // the last stores are out
+}
+
+// the forwards' kernel
+template <int EPI, bool GATHER>
+__global__ void __launch_bounds__(kThreads, 1)
+    tile_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tw0,
+                const __grid_constant__ CUtensorMap tw1, const Args p) {
+  tile_body<EPI, GATHER>(&ta, &ta, &tw0, &tw1, nullptr, nullptr, p);
+}
+
+// a 3-D map over a bf16 (d2, d1, d0) array, d0 contiguous: boxes of 64 x
+// box1, the 128-byte swizzle (hopper::encode_3d)
+static inline int map_3d(CUtensorMap* map, const void* ptr, long long d0, long long d1,
+                         long long d2, int box1) {
+  const long long dims[3] = {d0, d1, d2}, str[2] = {2 * d0, 2 * d0 * d1};
+  const int box[3] = {64, box1, 1};
+  return encode_3d(map, ptr, dims, str, box);
+}
+
+// rows of a TMA activation box over C rows an expert
+static inline int act_box(int C) { return C >= 64 ? 64 : (C + 7) / 8 * 8; }
+
 // One pass over E experts of C rows: A from ``p.a`` (gathered through
 // ``p.a_rows`` when it is set), weights w0 (and w1 for kUp) (E, K, N) bf16.
 // Returns cudaGetLastError() after the launch, or the tensor-map encoder's
@@ -370,19 +699,13 @@ static int launch(Args p, int E, const bf16* w0, const bf16* w1, cudaStream_t st
       cudaMemsetAsync(p.out_bf16, 0, (size_t)E * p.C * p.N * sizeof(bf16), st);
     return static_cast<int>(cudaGetLastError());
   }
-  p.a_box = p.C >= 64 ? 64 : (p.C + 7) / 8 * 8;
+  p.a_box = act_box(p.C);
   CUtensorMap ta{}, tw0, tw1;
-  const long long wdims[3] = {p.N, p.K, E}, wstr[2] = {2ll * p.N, 2ll * p.N * p.K};
-  const int wbox[3] = {64, BK, 1};
   int r = 0;
-  if (!GATHER) {
-    const long long adims[3] = {p.K, p.C, E}, astr[2] = {2ll * p.K, 2ll * p.K * p.C};
-    const int abox[3] = {BK, p.a_box, 1};
-    r = encode_3d(&ta, p.a, adims, astr, abox);
-  }
-  if (r == 0) r = encode_3d(&tw0, w0, wdims, wstr, wbox);
+  if (!GATHER) r = map_3d(&ta, p.a, p.K, p.C, E, p.a_box);
+  if (r == 0) r = map_3d(&tw0, w0, p.N, p.K, E, BK);
   if (EPI == kUp) {
-    if (r == 0) r = encode_3d(&tw1, w1, wdims, wstr, wbox);
+    if (r == 0) r = map_3d(&tw1, w1, p.N, p.K, E, BK);
   } else {
     tw1 = tw0;  // unread
   }

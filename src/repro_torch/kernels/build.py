@@ -7,7 +7,8 @@ library with a plain C interface that :func:`library` loads with
 at the repository root, keyed on a hash of the sources and flags, so a
 fresh checkout builds everything on its first kernel launch.  Nothing here
 runs at import.  The library links no driver library: the kernels fed by
-TMA (flash attention, the grouped-expert tile loop) take
+TMA (flash attention, the grouped-expert tile loop and the SwiGLU
+backward that runs on it) take
 ``cuTensorMapEncodeTiled`` (their tensor maps) from the driver at run
 time through ``cudaGetDriverEntryPoint`` (``csrc/hopper_common.cuh``).
 """
@@ -43,8 +44,8 @@ SIGNATURES = {
     "gather_quantize_launch": [_P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _F, _F, _I, _P],
     "dequantize_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "grouped_swiglu_bwd_launch": [_P] * 13 + [_I] * 5 + [_P],
-    "gather_swiglu_scatter_bwd_launch": [_P] * 16 + [_I] * 5 + [_P],
+    "grouped_swiglu_bwd_launch": [_P] * 18 + [_I] * 5 + [_P],
+    "gather_swiglu_scatter_bwd_launch": [_P] * 20 + [_I] * 5 + [_P],
     "dequantize_bwd_launch": [_P] * 3 + [_I] * 4 + [_P],
     "gather_quantize_bwd_launch": [_P] * 5 + [_I] * 5 + [_F, _P],
     "mamba_scan_fwd_launch": [_P] * 8 + [_I, _I, _I, _P],

@@ -399,7 +399,8 @@ def grouped_swiglu_bwd_cuda(x: Tensor, w_gate: Tensor, w_up: Tensor,
                             w_down: Tensor, counts: Tensor | None,
                             dy: Tensor) -> tuple[Tensor, ...]:
     """CUDA kernel for :func:`grouped_swiglu_bwd_plain`
-    (``csrc/swiglu_bwd.cu``): bf16 in and out, fp32 sums."""
+    (``csrc/swiglu_bwd.cu``: five passes of the grouped-expert tile loop):
+    bf16 in and out, fp32 sums."""
     name = "grouped_swiglu_bwd"
     E, C, D = x.shape
     F, cnt, B = _check_swiglu(name, x, w_gate, w_up, w_down, counts)
@@ -410,16 +411,24 @@ def grouped_swiglu_bwd_cuda(x: Tensor, w_gate: Tensor, w_up: Tensor,
                 torch.zeros_like(w_up), torch.zeros_like(w_down))
     dx = torch.empty_like(x)
     dwg, dwu, dwd = (torch.empty_like(w) for w in (w_gate, w_up, w_down))
+    # the prepass's scratch: each expert's occupied rows of x and dy packed
+    # to its first rows, the row each came from, the experts' counts; then
+    # h, dg, du and the fp32 dhu
+    xs, dys = torch.empty_like(x), torch.empty_like(x)
+    rows = torch.empty(E * C, dtype=torch.int32, device=x.device)
+    cnt_e = torch.empty(E, dtype=torch.int32, device=x.device)
     h, dg, du = (torch.empty((E * C, F), dtype=x.dtype, device=x.device)
                  for _ in range(3))
+    dhu = torch.empty((E * C, F), dtype=torch.float32, device=x.device)
     lib = build.library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.grouped_swiglu_bwd_launch(
             x.data_ptr(), cnt.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
-            w_down.data_ptr(), dy.data_ptr(), h.data_ptr(), dg.data_ptr(),
-            du.data_ptr(), dx.data_ptr(), dwg.data_ptr(), dwu.data_ptr(),
-            dwd.data_ptr(), E, C, B, D, F, stream)
+            w_down.data_ptr(), dy.data_ptr(), xs.data_ptr(), dys.data_ptr(),
+            rows.data_ptr(), cnt_e.data_ptr(), h.data_ptr(), dg.data_ptr(),
+            du.data_ptr(), dhu.data_ptr(), dx.data_ptr(), dwg.data_ptr(),
+            dwu.data_ptr(), dwd.data_ptr(), E, C, B, D, F, stream)
     build.check(err, name)
     grouped_swiglu_bwd_cuda.launches += 1
     return dx, dwg, dwu, dwd
@@ -450,15 +459,21 @@ def gather_swiglu_scatter_bwd_cuda(x_ext: Tensor, src_of_slot: Tensor,
                 torch.zeros_like(w_gate), torch.zeros_like(w_up),
                 torch.zeros_like(w_down))
     dwg, dwu, dwd = (torch.empty_like(w) for w in (w_gate, w_up, w_down))
+    # the prepass's gathered rows x_ext[src], bf16(dout[src]) and
+    # bf16(w_slot * dout[src]), then h, dg, du and the fp32 dhu
+    xs, dys, dyws = (torch.empty((n_slots, D), dtype=x_ext.dtype,
+                                 device=x_ext.device) for _ in range(3))
     h, dg, du = (torch.empty((n_slots, F), dtype=x_ext.dtype,
                              device=x_ext.device) for _ in range(3))
+    dhu = torch.empty((n_slots, F), dtype=torch.float32, device=x_ext.device)
     lib = build.library()
     with torch.cuda.device(x_ext.device):
         stream = torch.cuda.current_stream(x_ext.device).cuda_stream
         err = lib.gather_swiglu_scatter_bwd_launch(
             x_ext.data_ptr(), src.data_ptr(), ws.data_ptr(), cnt.data_ptr(),
             w_gate.data_ptr(), w_up.data_ptr(), w_down.data_ptr(),
-            dout.data_ptr(), h.data_ptr(), dg.data_ptr(), du.data_ptr(),
+            dout.data_ptr(), xs.data_ptr(), dys.data_ptr(), dyws.data_ptr(),
+            h.data_ptr(), dg.data_ptr(), du.data_ptr(), dhu.data_ptr(),
             dx.data_ptr(), dws.data_ptr(), dwg.data_ptr(), dwu.data_ptr(),
             dwd.data_ptr(), Tp1, E, C, D, F, stream)
     build.check(err, name)

@@ -447,52 +447,83 @@ def _autograd_plain(fwd, args, grad_at, dy):
                                dy.float())
 
 
+# LL's sub-bucket counts (E, 4) over 192-row sub-buckets whose occupied
+# prefixes span several 64-row steps of the weight gradients' reduction
+# over rows and end inside one (and one empty, one full)
+STEPS_COUNTS = np.array([[0, 0, 0, 0], [150, 64, 1, 191], [192, 100, 0, 130],
+                         [65, 129, 63, 2], [192, 192, 192, 192]])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("counts_kind,dims", [
     ("none", "ragged"), ("flat", "ragged"), ("bucketed", "ragged"),
-    ("bucketed", "served")])
+    ("bucketed", "served"), ("steps", "served")])
 def test_cuda_grouped_swiglu_bwd_matches_plain(cuda_device, counts_kind,
                                                dims):
     """LL's expert backward: flat counts (one expert empty, one full) and
     LL's (E, B) sub-bucket counts; rows past the counts get exact zeros,
-    an empty expert's weights zero gradients."""
+    an empty expert's weights zero gradients.  "steps": prefixes of
+    several 64-row steps ending inside one, and NaN in x and dy past the
+    counts, which must add nothing."""
     rng = np.random.default_rng(21)
-    (D, F), E, C = BWD_DIMS[dims], 5, 48
+    (D, F), E = BWD_DIMS[dims], 5
+    C = 4 * 192 if counts_kind == "steps" else 48
     x = _bf16(rng, (E, C, D), cuda_device)
     ws = _bf16_weights(rng, E, D, F, cuda_device)
     counts = {"none": None, "flat": np.array([0, 1, 48, 17, 33]),
-              "bucketed": rng.integers(0, 13, (E, 4))}[counts_kind]
+              "bucketed": rng.integers(0, 13, (E, 4)),
+              "steps": STEPS_COUNTS.copy()}[counts_kind]
     if counts is not None:
         counts[0] = 0
         counts = torch.from_numpy(counts).to(cuda_device, torch.int32)
     dy = _bf16(rng, (E, C, D), cuda_device)
+    dy_live = dy
+    if counts_kind == "steps":
+        dead = ~gm.occupancy_mask(counts, E, C)
+        x[dead] = float("nan")
+        dy_live = dy.clone()
+        dy[dead] = float("nan")
+        dy_live[dead] = 0
     before = gm.grouped_swiglu_bwd_cuda.launches
     _poisoned_allocation((E, C, D), torch.bfloat16, cuda_device)
     got = gm.grouped_swiglu_bwd_cuda(x, *ws, counts, dy)
     assert gm.grouped_swiglu_bwd_cuda.launches == before + 1
     _bwd_close(got, gm.grouped_swiglu_bwd_plain(x, *ws, counts, dy))
+    # the output rows past the counts are constant zeros, so their upstream
+    # is no part of the gradient; autograd would still multiply it by their
+    # zero rows (NaN x 0), so it takes those upstream rows as zeros
     _bwd_close(got, _autograd_plain(gm.grouped_swiglu_plain,
-                                    (x, *ws, counts), (0, 1, 2, 3), dy))
+                                    (x, *ws, counts), (0, 1, 2, 3), dy_live))
     if counts is not None:
         assert (got[0][~gm.occupancy_mask(counts, E, C)] == 0).all()
         assert all((g[0] == 0).all() for g in got[1:])
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dims", ["ragged", "served"])
-@pytest.mark.parametrize("counts", [None, (0, 40, 13, 1, 128)])
+@pytest.mark.parametrize("dims,counts", [
+    ("ragged", None), ("served", None), ("ragged", (0, 40, 13, 1, 128)),
+    ("served", (0, 40, 13, 1, 128)), ("served", (0, 200, 384, 65, 130))])
 def test_cuda_gather_swiglu_scatter_bwd_matches_plain(cuda_device, dims,
                                                       counts):
     """HT's expert backward: a token in 40 slots (its gradient sums them),
     slots on the scratch row (its upstream is 0), an empty expert and a
-    full one."""
+    full one.  At C 384 (counts spanning several 64-row steps of the
+    weight gradients' reduction over rows, ending inside one): the
+    scratch row holds NaN and every slot past a count names it, as the HT
+    plan fills empty slots; it must add nothing."""
     rng = np.random.default_rng(22)
-    (D, F), T, E, C = BWD_DIMS[dims], 300, 5, 128
+    steps = counts is not None and max(counts) > 128
+    (D, F), T, E = BWD_DIMS[dims], 300, 5
+    C = 384 if steps else 128
     x_ext = _bf16(rng, (T + 1, D), cuda_device)
-    x_ext[T] = 0
+    x_ext[T] = float("nan") if steps else 0
     src = rng.integers(0, T + 1, E * C).astype(np.int32)
     src[:40] = 7
-    src[C:C + 5] = T
+    if steps:
+        live = np.arange(C)[None, :] < np.array(counts)[:, None]
+        src = np.where(live.reshape(-1), src % T, T).astype(np.int32)
+    else:
+        src[C:C + 5] = T
     src = torch.from_numpy(src).to(cuda_device)
     w = torch.from_numpy(rng.random(E * C).astype(np.float32)).to(cuda_device)
     ws = _bf16_weights(rng, E, D, F, cuda_device)

@@ -191,3 +191,79 @@ def test_profile_gap_splits_the_difference_by_activity():
                      "gather_quantize_kernel", "index_kernel"]
     assert gap["activities"][0]["kind"] == "copies and casts"
     assert gap["activities"][1]["kind"] == "wire kernels"
+
+
+CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
+
+
+def _bwd_pass_tags():
+    """The pass tags of csrc/swiglu_bwd.cu, each the name of its kernel."""
+    import re
+    text = (CSRC / "swiglu_bwd.cu").read_text()
+    return re.findall(r"struct (\w+) \{ static constexpr int kEpi", text)
+
+
+def test_device_kinds_tell_the_swiglu_backward_from_the_forwards():
+    """DEVICE_KINDS books the SwiGLU backward's kernels, which run the tile
+    loop of the forwards (``swiglu_tiles::Args`` in their names), as "EP
+    backward kernels", and the forwards' as "EP kernels", by the names the
+    profiler gives them; bwd_passes splits the backward by pass."""
+    tags = _bwd_pass_tags()
+    assert tags == ["dhu", "up", "dx", "dx_add", "dw_up", "dw_down"]
+    maps = ", ".join(["CUtensorMap_st"] * 4)
+    bwd = [f"void swiglu_bwd::pass<swiglu_bwd::{t}>({maps}, "
+           f"swiglu_tiles::Args)" for t in tags]
+    bwd.append("void swiglu_bwd::gather_rows(__nv_bfloat16 const*, int "
+               "const*, float const*, int const*, float const*, "
+               "__nv_bfloat16*, __nv_bfloat16*, __nv_bfloat16*, int, int, "
+               "int, int)")
+    bwd.append("void swiglu_bwd::compact_rows(__nv_bfloat16 const*, "
+               "__nv_bfloat16 const*, int const*, __nv_bfloat16*, "
+               "__nv_bfloat16*, int*, int*, __nv_bfloat16*, int, int, int, "
+               "int, int)")
+    fwd = [f"void swiglu_tiles::tile_kernel<{e}, {g}>(CUtensorMap_st, "
+           f"CUtensorMap_st, CUtensorMap_st, swiglu_tiles::Args)"
+           for e, g in ((0, "false"), (0, "true"), (1, "false"),
+                        (2, "false"))]
+    for name in bwd:
+        assert chip_smoke.device_kind(name) == "EP backward kernels", name
+    for name in fwd:
+        assert chip_smoke.device_kind(name) == "EP kernels", name
+    for name in ("void (anonymous namespace)::gather_quantize_bwd_kernel("
+                 "float const*, int const*, int const*, float const*, "
+                 "float*, int, int, int, int)",
+                 "void (anonymous namespace)::dequantize_bwd_kernel("
+                 "unsigned char const*, float const*, float*, int, int, "
+                 "int, int)"):
+        assert chip_smoke.device_kind(name) == "wire backward kernels"
+    # 4 calls, a record of some lost: each pass's mean over its records
+    by_name = {n: [0.5 * (i + 1), 4 - i % 2] for i, n in enumerate(bwd + fwd)}
+    passes = chip_smoke.bwd_passes(by_name)
+    assert list(passes) == tags + ["gather_rows", "compact_rows"]
+    for i, t in enumerate(tags + ["gather_rows", "compact_rows"]):
+        assert passes[t] == {
+            "device_ms": pytest.approx(0.5 * (i + 1) / (4 - i % 2)),
+            "records": 4 - i % 2}
+
+
+def _plant_faults():
+    import importlib.util
+    path = Path(__file__).resolve().parents[1] / "scripts" / "plant_faults.py"
+    spec = importlib.util.spec_from_file_location("plant_faults", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+PLANT = _plant_faults()
+
+
+@pytest.mark.parametrize("fault", sorted(PLANT.FAULTS))
+def test_planted_fault_anchor_occurs_once(fault):
+    """Each fault of scripts/plant_faults.py replaces text that occurs
+    exactly once in its file (its run() refuses anything else, but only
+    on the card), and the replacement changes the file."""
+    path, old, new = PLANT.FAULTS[fault]
+    text = (Path(__file__).resolve().parents[1] / path).read_text()
+    assert text.count(old) == 1
+    assert old != new
