@@ -357,6 +357,18 @@ JAMBA_LAYERS = 5
 JAMBA_BATCH, JAMBA_PROMPT, JAMBA_GEN = 4, 16, 8
 JAMBA_KERNELS = ("rmsnorm", "decode_attention", "grouped_swiglu",
                  "gather_quantize", "dequantize")
+# moonshot-v1-16b-a3b at full width and all 48 layers (28.06B parameters,
+# 56.1 GB in bf16: the card holds it whole), served as serve-fp32 serves
+# qwen2-moe: an EP world of 4 (16 experts a rank), batch 4, 256-token
+# prompts through the batched HT prefill, 16 greedy tokens from the
+# replayed decode step, fp32 wire; the plain check over the first 16
+# prompt positions' decode steps; placements of its 64 experts over 80
+# physical slots (greedy on the served load) and 128 (2 replicas each)
+MOONSHOT_BATCH, MOONSHOT_PROMPT, MOONSHOT_GEN = 4, 256, 16
+MOONSHOT_PLAIN_STEPS = 16
+MOONSHOT_PHYSICAL = 80
+MOONSHOT_KERNELS = ("gather_swiglu_scatter", "grouped_swiglu",
+                    "flash_attention", "decode_attention", "rmsnorm")
 # expert-parallel training: qwen2-moe at full width (d_model 2048, 60
 # experts padded to 64, top-4, d_expert 1408, shared 5632, vocab 151,936),
 # 4 of its 24 layers (the depth whose fp32 AdamW state fits the card), over
@@ -2344,11 +2356,13 @@ def serve_qwen3(dev) -> list:
     return kernels
 
 
-def serve_counted(cfg, params, prompts, n_gen, names, dist=None):
-    """``generate`` with the kernels ``names`` recorded (:class:`Recorder`)
-    and their launch counts set to 0 just before and read just after (a
-    captured kernel's at capture times the replays), each > 0; the tokens
-    of the right shape, inside the vocab, the logits finite.  Returns
+def serve_counted(cfg, params, prompts, n_gen, names, dist=None,
+                  batched_prefill=None):
+    """``generate`` (its ``batched_prefill`` as given) with the kernels
+    ``names`` recorded (:class:`Recorder`) and their launch counts set to 0
+    just before and read just after (a captured kernel's at capture times
+    the replays), each > 0; the tokens of the right shape, inside the
+    vocab, the logits finite.  Returns
     (result, launches, recorders, peak device GB, the last decode_attention
     call's arguments as :func:`record_last_decode` keeps them, or None)."""
     import torch
@@ -2365,7 +2379,8 @@ def serve_counted(cfg, params, prompts, n_gen, names, dist=None):
     torch.cuda.reset_peak_memory_stats()
     try:
         res, launches = counted(cudas, lambda: generate(
-            cfg, params, prompts, n_gen, dist=dist))
+            cfg, params, prompts, n_gen, dist=dist,
+            batched_prefill=batched_prefill))
     finally:
         restore()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2691,6 +2706,211 @@ def serve_jamba_reduced(dev) -> None:
                   **check_kernel(n, recs[n], fp8_launches, extra, lead)})
 
 
+def placement_checks(cfg, params, x, dist) -> dict:
+    """One MoE layer (layer 0) under replicated expert placements, at the
+    served HT shape (``x``: the prefill's recorded input, batch x prompt
+    tokens) and at the LL shape (one decode step: the batch's last tokens,
+    held by every rank): ``greedy_placement`` of the layer's routed load on
+    the served prompts over ``MOONSHOT_PHYSICAL`` slots, and two replicas
+    an expert (``replicate_uniform``).  The expert function gathers its
+    weights through ``phys_to_logical``; the capacity is lifted so that
+    nothing drops (a physical slot takes at most T choices from a source).
+    Each is held to the logical dense oracle ``moe_ref`` within
+    ``MOE_TOL["fp32"]`` and must launch its kernel (HT
+    ``gather_swiglu_scatter``, LL ``grouped_swiglu``).  The identity
+    placement against none: LL bit for bit, HT (whose fp32 atomics add in
+    any order) the same plan statistics bit for bit and outputs within
+    ``gather_swiglu_scatter``'s tolerance plus an ulp."""
+    import torch
+
+    from repro_torch.core import ep
+    from repro_torch.core import plan as planlib
+    from repro_torch.core.moe import _expert_fn, make_ep_spec, to_ranks
+    from repro_torch.core.routing import RouterParams, route
+    from repro_torch.kernels import ops
+
+    p = params["blocks"][0]["moe"]
+    wg, wu, wd = p["w_gate"], p["w_up"], p["w_down"]
+    E, K = wg.shape[0], cfg.moe.top_k
+    rp = RouterParams(p["router_w"], p.get("router_b"))
+    shapes = {"ht": to_ranks(dist, x), "ll": to_ranks(dist, x[:, -1:])}
+    routes = {m: route(cfg.moe, rp, t, cfg.moe.n_experts)
+              for m, t in shapes.items()}
+    load = planlib.expert_load(routes["ht"].top_idx, E)
+    refs = {m: ep.moe_ref(t.reshape(-1, t.shape[-1]),
+                          routes[m].top_idx.reshape(-1, K),
+                          routes[m].top_w.reshape(-1, K), wg, wu, wd)
+            for m, t in shapes.items()}
+    runs = {"ll": ep.dispatch_combine_ll, "ht": ep.dispatch_combine_ht}
+    kernel = {"ll": "grouped_swiglu", "ht": "gather_swiglu_scatter"}
+    cudas = {n: ops.KERNELS[n][0] for n in kernel.values()}
+
+    def run(mode, placement, fn):
+        n_phys = E if placement is None else placement.n_physical
+        spec = dataclasses.replace(
+            make_ep_spec(cfg, dist, mode=mode, dtype=x.dtype),
+            capacity_factor=n_phys / K,
+            placement=None if placement is None else placement.key())
+        t, r = shapes[mode], routes[mode]
+        return counted(cudas, lambda: runs[mode](spec, t, r.top_idx,
+                                                 r.top_w, fn))
+    cases = []
+    for name, pl in (("greedy", planlib.greedy_placement(
+            load, MOONSHOT_PHYSICAL, math.prod(dist.ep_sizes))),
+            ("uniform2", planlib.replicate_uniform(E, 2))):
+        p2l = torch.as_tensor(pl.phys_to_logical, device=x.device).long()
+        fn = _expert_fn(wg[p2l], wu[p2l], wd[p2l])
+        for mode in ("ht", "ll"):
+            res, launches = run(mode, pl, fn)
+            ref = refs[mode].float()
+            out = res.out.reshape(ref.shape).float()
+            err = float((out - ref).abs().max()) / float(ref.abs().max())
+            case = {"placement": name, "mode": mode,
+                    "physical_slots": pl.n_physical,
+                    "replicas_max": int(pl.n_replicas.max()),
+                    "tokens": int(ref.shape[0]), "rel_err": err,
+                    "tol": MOE_TOL["fp32"],
+                    "dropped": float(res.aux["dropped"].max()),
+                    "load_phys": res.aux["load_phys"].tolist(),
+                    "imbalance": float(res.aux["imbalance"]),
+                    "launches": launches,
+                    "ms": cuda_ms(lambda: run(mode, pl, fn), n=5, warmup=1)}
+            cases.append(case)
+            if (not err <= MOE_TOL["fp32"] or case["dropped"] != 0.0
+                    or len(case["load_phys"]) != pl.n_physical
+                    or launches[kernel[mode]] <= 0):
+                raise AssertionError(f"placement {name} {mode}: {case}")
+        del fn, p2l
+    ident = planlib.identity_placement(E)
+    fn = _expert_fn(wg, wu, wd)
+    identity = {}
+    for mode in ("ht", "ll"):
+        (a, _), (b, _), (c, _) = (run(mode, None, fn), run(mode, ident, fn),
+                                  run(mode, None, fn))
+        same = torch.equal(a.out, b.out)
+        stats = all(torch.equal(a.aux[k], b.aux[k]) for k in
+                    ("dropped", "occupancy", "load_phys", "imbalance"))
+        diff = (a.out.float() - b.out.float()).abs()
+        spread = float((a.out.float() - c.out.float()).abs().max())
+        scale = float(a.out.float().abs().max())
+        over = diff > KERNEL_TOL["gather_swiglu_scatter"] * scale + ulp(a.out)
+        identity[mode] = {"bit_identical": same, "stats_bit_identical": stats,
+                          "max_abs_diff": float(diff.max()),
+                          "two_runs_without_max_abs_diff": spread}
+        if not stats or (mode == "ll" and not same) or over.any():
+            raise AssertionError(f"identity placement {mode}: "
+                                 f"{identity[mode]}")
+    return {"phase": "placement", "model": cfg.arch_id, "layer": 0,
+            "experts": E, "top_k": K, "ep_world": math.prod(dist.ep_sizes),
+            "routed_load": load.tolist(), "cases": cases,
+            "identity_vs_none": identity}
+
+
+def serve_moonshot(dev) -> None:
+    """moonshot-v1-16b-a3b at full width and all 48 layers, served as
+    serve-fp32 serves qwen2-moe (``MOONSHOT_*``): the batched HT prefill
+    and the replayed LL decode step over an EP world of 4, each kernel's
+    launches counted; eager and replayed decode bit for bit from one
+    prefill; the decode steps through the kernels against their plain
+    versions (``plain_check``); the MoE layer against the dense oracle over
+    HT's kept choices (``moe_served``); the placements
+    (``placement_checks``); one prefill and one decode step profiled; and
+    the five kernels on the recorded inputs against their plain
+    versions."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import make_dist_ctx
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model_zoo as Z
+    from repro_torch.optim.adamw import tree_leaves
+
+    cfg = get_config("moonshot_v1_16b_a3b")
+    dist = make_dist_ctx(cfg, model=4)
+    B, S, N_GEN = MOONSHOT_BATCH, MOONSHOT_PROMPT, MOONSHOT_GEN
+    bwd = {n: ops.KERNELS[n][0] for n in EP_BWD_KERNELS}
+    bwd_before = {n: c.launches for n, c in bwd.items()}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = Z.init_params(cfg, seed=0, device=dev,
+                           dtype=Z.compute_dtype(cfg))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    leaves = tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    param_gb = sum(t.numel() * t.element_size() for t in leaves) / 1e9
+    gen = torch.Generator().manual_seed(0)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen).to(dev)
+    generate(cfg, params, prompts[:, :32], 2, dist=dist, batched_prefill=True)
+    torch.cuda.synchronize()
+    res, launches, recs, peak_gb, last = serve_counted(
+        cfg, params, prompts, N_GEN, MOONSHOT_KERNELS, dist,
+        batched_prefill=True)
+    eager = generate(cfg, params, prompts, N_GEN, dist=dist,
+                     batched_prefill=True, cuda_graph=False)
+    both = eager_vs_graph(cfg, params, prompts, N_GEN, dist)
+    m = cfg.moe
+    emit({"phase": "serve-moonshot", "model": cfg.arch_id, "width": "full",
+          "layers": cfg.n_layers, "d_model": cfg.d_model,
+          "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+          "head_dim": cfg.head_dim_, "experts": m.n_experts,
+          "top_k": m.top_k, "d_expert": m.d_expert, "d_shared": m.d_shared,
+          "vocab": cfg.vocab_size, "params": n_params, "param_gb": param_gb,
+          "ep_world": "model=4", "wire": m.wire_dtype, "batch": B,
+          "prompt": S, "generated": N_GEN,
+          "tokens_per_s": res["tokens_per_s"],
+          "decode_tokens_per_s": res["decode_tokens_per_s"],
+          "eager_decode_tokens_per_s": eager["decode_tokens_per_s"],
+          "ttft_s": res["ttft_s"], "eager_ttft_s": eager["ttft_s"],
+          "total_s": res["total_s"], "capture_s": res["capture_s"],
+          "graph_replays": res["graph_replays"],
+          "prefill_dropped": res["prefill_dropped"],
+          "prefill_dropped_per_layer": res["prefill_dropped_per_layer"],
+          "decode_dropped": res["decode_dropped"], "launches": launches,
+          "eager_vs_graph": both, "first_tokens": res["tokens"][0].tolist(),
+          "init_params_s": init_s, "init_peak_mem_gb": init_peak_gb,
+          "peak_mem_gb": peak_gb, "card": nvidia_smi()})
+    if not peak_gb < 80.0:
+        raise AssertionError(f"moonshot peak memory {peak_gb} GB")
+    del eager
+    emit({"phase": "serve_moonshot_plain",
+          **plain_check(cfg, params, prompts[:, :MOONSHOT_PLAIN_STEPS],
+                        MOONSHOT_KERNELS, dist)})
+    served, x0 = moe_served(cfg, params, prompts, dist)
+    emit({**served, "model": cfg.arch_id})
+    emit(placement_checks(cfg, params, x0, dist))
+    del x0
+    cache = Z.init_cache(cfg, B, S + 1, dtype=Z.compute_dtype(cfg),
+                         device=dev)
+    with torch.inference_mode():
+        prof = profile_step(f"one HT prefill (batch {B} x {S})",
+                            lambda: Z.prefill(cfg, params, cache, prompts,
+                                              dist=dist))
+    prof["phase"] = "serve_moonshot_profile"
+    emit(prof)
+    del cache
+    for prof in profile_decode(cfg, params, prompts, f"batch {B}, pos {S}",
+                               dist):
+        prof["phase"] = "serve_moonshot_profile"
+        emit(prof)
+    with torch.inference_mode():
+        for n in MOONSHOT_KERNELS:
+            extra, lead = (), (lambda a: a[0].numel())
+            if n == "decode_attention":     # the last step leads
+                extra = decode_cases(last, S)
+                lead = len(recs[n].cases)
+            elif n == "flash_attention":
+                lead = 0
+            emit({"phase": "kernel", "path": f"{cfg.arch_id} ({cfg.n_layers} layers)",
+                  **check_kernel(n, recs[n], launches, extra, lead)})
+    served_bwd = {n: c.launches - bwd_before[n] for n, c in bwd.items()}
+    if any(served_bwd.values()):
+        raise AssertionError(f"serving moonshot launched backward kernels: "
+                             f"{served_bwd}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2726,6 +2946,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     serve_jamba_reduced(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_moonshot(dev)
     gc.collect()
     torch.cuda.empty_cache()
     kernels += serve_qwen3(dev)

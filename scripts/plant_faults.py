@@ -100,7 +100,9 @@ FAULTS = {
     # the EP backward kernels: HT's slot weight left out of dH; the odd
     # rows' dX never added; every sub-bucket reduced over the first one's
     # count; the wire's gradient at every element (straight through), or
-    # unshared between tied elements; a lane's products left out.  The
+    # unshared between tied elements, or the rows no slot names left
+    # unwritten (the table's gradient has no memset); a lane's products
+    # left out.  The
     # SwiGLU backward's passes run on the tile loop (swiglu_tiles.cuh;
     # these lines are the backward's alone), LL's sub-buckets are packed
     # by its prepass (swiglu_bwd.cu)
@@ -117,10 +119,16 @@ FAULTS = {
         "const int n = min(max(cnt[e * B + k], 0), Cg);",
         "const int n = min(max(cnt[e * B], 0), Cg);"),
     "wire_bwd_straight_through": (
-        CSRC + "wire_bwd.cu", "if (j < D && fabsf(v[i]) == m) atomicAdd",
-        "if (j < D) atomicAdd"),
+        CSRC + "wire_bwd.cu",
+        "const bool at = m > 0.f && fabsf(v[g][i]) == m;",
+        "const bool at = m > 0.f;"),
     "wire_bwd_unshared_ties": (
-        CSRC + "wire_bwd.cu", "__fdiv_rn(d * qinv, ties)", "d * qinv"),
+        CSRC + "wire_bwd.cu", "__fdiv_rn(f, ties)", "f"),
+    "wire_bwd_skips_unnamed_rows": (
+        CSRC + "wire_bwd.cu",
+        "      for (int k = 0; k < n32; ++k) store4<kVec>(dr, b32 + k, lane, "
+        "D, zero);\n",
+        ""),
     "dequantize_bwd_drops_lane": (
         CSRC + "wire_bwd.cu",
         "if (j < D) acc += dy[r * D + j]",

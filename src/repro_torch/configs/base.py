@@ -106,7 +106,7 @@ class ModelConfig:
 
 
 ARCH_IDS = ("qwen2_moe_a2_7b", "falcon_mamba_7b", "jamba_1_5_large_398b",
-            "qwen3_4b", "qwen3_1_7b")
+            "qwen3_4b", "qwen3_1_7b", "moonshot_v1_16b_a3b")
 _ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
 
 

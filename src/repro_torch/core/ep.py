@@ -23,8 +23,16 @@ offset per rank), and each kernel launches once for all ranks: the token
 tables of all ranks flatten into one ``(R*N + 1, D)`` table whose last row
 is the shared zero scratch row every empty slot gathers.
 
+Replicated expert placement (``EPSpec.placement``): each source rank's
+logical choices are split over an expert's physical replicas
+(``plan.split_to_physical_world``) before any bucketing, and every bucket
+sizes from the physical slot count; the expert function's row blocks are
+then physical slots, whose weights the caller gathers through
+``phys_to_logical``.  An identity placement takes the path without one.
+
 Per-rank statistics (``dropped``, ``occupancy``) come back as ``(R,)``
-tensors; ``load_phys`` (the psum'd per-expert load) is one ``(E,)`` tensor.
+tensors; ``load_phys`` (the psum'd load of each physical slot) is one
+``(n_physical,)`` tensor.
 """
 from __future__ import annotations
 
@@ -47,7 +55,7 @@ class EPSpec:
 
     axes: tuple[str, ...]        # EP axes, outer -> inner
     sizes: tuple[int, ...]       # sizes of those axes
-    n_experts: int               # padded expert count
+    n_experts: int               # padded (logical, router-space) count
     top_k: int
     capacity_factor: float = 2.0
     chunks: int = 1              # HT pipeline chunks
@@ -57,13 +65,12 @@ class EPSpec:
     # "fp8" | "int8" (block-quantized with per-128-feature fp32 scales,
     # dequantized to fp32 at the receiver); combines stay full precision
     wire_dtype: str = "fp32"
-    # replicated expert placement: not ported yet
+    # replicated expert placement: the phys -> logical slot table as a
+    # tuple (``Placement.key()``), one entry a physical slot.  None, or the
+    # identity table, keeps the single-placement layout bit for bit;
+    # otherwise each logical expert's choices split over its replicas and
+    # every bucket sizes from ``n_physical``
     placement: Optional[tuple[int, ...]] = None
-
-    def __post_init__(self):
-        if self.placement is not None:
-            raise NotImplementedError(
-                "replicated expert placements are not ported yet")
 
     @property
     def degree(self) -> int:
@@ -73,6 +80,25 @@ class EPSpec:
     def experts_per_shard(self) -> int:
         assert self.n_experts % self.degree == 0
         return self.n_experts // self.degree
+
+    @property
+    def n_physical(self) -> int:
+        """Physical expert slots (``n_experts`` without a placement)."""
+        return (len(self.placement) if self.placement is not None
+                else self.n_experts)
+
+    @property
+    def physical_per_shard(self) -> int:
+        assert self.n_physical % self.degree == 0
+        return self.n_physical // self.degree
+
+    def placement_obj(self) -> Optional[planlib.Placement]:
+        """The Placement, or None for no placement or the identity one
+        (which take the same path)."""
+        if self.placement is None:
+            return None
+        pl = planlib.placement_from_table(self.placement)
+        return None if pl.is_identity else pl
 
     @property
     def two_level(self) -> bool:
@@ -161,11 +187,15 @@ def dispatch_combine_ll(spec: EPSpec, x: Tensor, top_idx: Tensor,
     x: (R, T, D); top_idx/top_w: (R, T, K).  expert_fn maps the stacked
     receive buffers of all ranks, (E, P*C, D) with expert e on rank
     e // eps, and their (E, P) per-source occupied counts to outputs of the
-    same shape — one call (one kernel launch) for the whole world.
+    same shape — one call (one kernel launch) for the whole world.  Under a
+    replicated ``spec.placement`` E counts physical slots.
     """
     R, T, D = x.shape
     K = spec.top_k
-    E, P, eps = spec.n_experts, spec.degree, spec.experts_per_shard
+    pl_obj = spec.placement_obj()
+    if pl_obj is not None:
+        top_idx = planlib.split_to_physical_world(pl_obj, top_idx)
+    E, P, eps = spec.n_physical, spec.degree, spec.physical_per_shard
     if R != P:
         raise ValueError(f"{R} ranks stacked for an EP world of {P}")
     dev = x.device
@@ -304,7 +334,7 @@ def _expert_apply(spec: EPSpec, x_in: Tensor, eid: Tensor, w: Tensor,
     """
     R, N, D = x_in.shape
     K = eid.shape[2]
-    eps = spec.experts_per_shard
+    eps = spec.physical_per_shard
     dev = x_in.device
     Ce = _cap(n_tokens_hint * K / eps, cf, hard_max=N * K)
     pl = planlib.make_world_plan(eid, eps, Ce)
@@ -356,6 +386,10 @@ def dispatch_combine_ht(spec: EPSpec, x: Tensor, top_idx: Tensor,
     R, T, D = x.shape
     if R != spec.degree:
         raise ValueError(f"{R} ranks stacked for an EP world of {spec.degree}")
+    pl_obj = spec.placement_obj()
+    if pl_obj is not None:
+        # one replica split for the whole table, not one a chunk
+        top_idx = planlib.split_to_physical_world(pl_obj, top_idx)
     n_chunks = planlib.effective_chunks(T, spec.chunks)
     Tc = T // n_chunks
     outs, occs = [], []
@@ -368,7 +402,7 @@ def dispatch_combine_ht(spec: EPSpec, x: Tensor, top_idx: Tensor,
         occs.append(occ)
         drops = drops + d
     out = torch.cat(outs, dim=1) if n_chunks > 1 else outs[0]
-    load_phys = planlib.group_counts(top_idx.reshape(-1), spec.n_experts,
+    load_phys = planlib.group_counts(top_idx.reshape(-1), spec.n_physical,
                                      (top_idx >= 0).reshape(-1))
     return DispatchResult(out.to(x.dtype),
                           {"dropped": drops / max(T * spec.top_k, 1),
@@ -380,9 +414,10 @@ def dispatch_combine_ht(spec: EPSpec, x: Tensor, top_idx: Tensor,
 
 def _ht_one_chunk(spec: EPSpec, x: Tensor, top_idx: Tensor, top_w: Tensor,
                   expert_fn):
+    # top_idx holds physical slots (dispatch_combine_ht split the replicas)
     R, T, D = x.shape
     K = spec.top_k
-    E, eps = spec.n_experts, spec.experts_per_shard
+    E, eps = spec.n_physical, spec.physical_per_shard
     cf = spec.capacity_factor
     valid = top_idx >= 0
 

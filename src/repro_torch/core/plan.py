@@ -10,6 +10,12 @@ no ``nonzero``, no ``.item()``.
 Rank-stacked world: :func:`make_world_plan` and :func:`dedup_entry_table`
 also take a leading rank axis ``(R, T, K)`` and plan every rank
 independently in one pass, by offsetting group ids per rank.
+
+Replicated expert placement (:class:`Placement`): a logical expert may own
+several physical slots; its tables are numpy arrays, built on the host as
+the reference builds them, and :func:`split_to_physical` /
+:func:`split_to_physical_world` map a routing tensor's logical choices to
+physical slots.
 """
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ import inspect
 import weakref
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
@@ -177,6 +184,175 @@ def make_world_plan(group_idx: Tensor, n_groups: int,
     keep = valid & (rank < capacity)
     n_dropped = (valid & ~keep).reshape(R, -1).sum(1)
     return DispatchPlan(rank, counts, valid, keep, n_dropped)
+
+
+# ------------------------------------------------- replicated placement ---
+def _rank_in_group_np(group_id: np.ndarray, n_groups: int,
+                      valid: np.ndarray) -> np.ndarray:
+    """:func:`rank_in_group` on numpy arrays (the placement tables are
+    built on the host): a stable sort, each row's sorted position minus
+    the start of its run."""
+    n = group_id.size
+    gid = np.where(valid, group_id, n_groups).astype(np.int64)
+    order = np.argsort(gid, kind="stable")
+    sg = gid[order]
+    is_start = np.empty(n, bool)
+    if n:
+        is_start[0] = True
+        np.not_equal(sg[1:], sg[:-1], out=is_start[1:])
+    run = np.cumsum(is_start) - 1
+    start = np.flatnonzero(is_start)
+    rank_sorted = np.arange(n, dtype=np.int64) - start[run] if n else start
+    rank = np.empty(n, np.int32)
+    rank[order] = rank_sorted.astype(np.int32)
+    return rank
+
+
+class Placement(NamedTuple):
+    """Logical -> physical expert placement (replicated expert groups).
+
+    Logical expert e owns ``n_replicas[e]`` physical slots; slot p computes
+    logical expert ``phys_to_logical[p]`` and lives on rank ``p //
+    (n_physical // n_ranks)``, the slot -> rank rule experts already
+    follow, so every bucket sizes from the physical slot space.  Replica j
+    of expert e is ``logical_to_phys[e, j]`` (ascending physical id; -1
+    pads)."""
+
+    phys_to_logical: np.ndarray   # (E_phys,) int32
+    logical_to_phys: np.ndarray   # (E_log, max_replicas) int32, -1 pad
+    n_replicas: np.ndarray        # (E_log,) int32, all >= 1
+
+    @property
+    def n_physical(self) -> int:
+        return int(self.phys_to_logical.shape[0])
+
+    @property
+    def n_logical(self) -> int:
+        return int(self.n_replicas.shape[0])
+
+    @property
+    def is_identity(self) -> bool:
+        """True iff this is the single-placement layout (one slot an
+        expert, in order), which takes the path without a placement."""
+        return (self.n_physical == self.n_logical and bool(
+            (self.phys_to_logical
+             == np.arange(self.n_logical, dtype=np.int32)).all()))
+
+    def key(self) -> tuple[int, ...]:
+        """Hashable form (what a frozen EPSpec carries)."""
+        return tuple(int(v) for v in self.phys_to_logical)
+
+
+def placement_from_table(phys_to_logical) -> Placement:
+    """A full Placement from its (E_phys,) phys -> logical table."""
+    p2l = np.ascontiguousarray(np.asarray(phys_to_logical).reshape(-1),
+                               np.int32)
+    assert p2l.size and p2l.min() >= 0
+    n_log = int(p2l.max()) + 1
+    reps = np.bincount(p2l, minlength=n_log).astype(np.int32)
+    assert (reps > 0).all(), "every logical expert needs >= 1 physical slot"
+    # replica order within a logical expert: ascending physical id
+    j = _rank_in_group_np(p2l, n_log, np.ones(p2l.size, bool))
+    l2p = np.full((n_log, int(reps.max())), -1, np.int32)
+    l2p[p2l, j] = np.arange(p2l.size, dtype=np.int32)
+    return Placement(p2l, l2p, reps)
+
+
+def identity_placement(n_experts: int) -> Placement:
+    return placement_from_table(np.arange(n_experts, dtype=np.int32))
+
+
+def replicate_uniform(n_logical: int, factor: int) -> Placement:
+    """``factor`` replicas an expert: replica j of expert e at physical slot
+    ``j * n_logical + e``, so that one expert's replicas land on distinct
+    ranks whenever the slots a rank holds divide ``n_logical``."""
+    return placement_from_table(
+        np.tile(np.arange(n_logical, dtype=np.int32), factor))
+
+
+def greedy_placement(loads, n_physical: int, n_ranks: int) -> Placement:
+    """Greedy bin-packing placement from observed per-logical-expert loads
+    (a numpy array or a tensor, read on the host).
+
+    Two deterministic passes: (1) grant the ``n_physical - E_log`` extra
+    replicas one at a time to the expert with the largest load a replica
+    (ties: the lowest id); (2) pack the replicas onto ranks, the heaviest
+    share first, each onto the least loaded rank with a free slot,
+    preferring ranks that hold no replica of that expert yet.  Slot p lands
+    on rank ``p // (n_physical // n_ranks)``."""
+    if isinstance(loads, torch.Tensor):
+        loads = loads.detach().cpu().numpy()
+    loads = np.asarray(loads, np.float64).reshape(-1)
+    E = loads.shape[0]
+    assert n_physical >= E, (n_physical, E)
+    assert n_physical % n_ranks == 0, (n_physical, n_ranks)
+    eps = n_physical // n_ranks
+    if not loads.any():
+        loads = np.ones(E, np.float64)
+    reps = np.ones(E, np.int64)
+    for _ in range(n_physical - E):
+        reps[int(np.argmax(loads / reps))] += 1
+    items = sorted(((loads[e] / reps[e], e, j)
+                    for e in range(E) for j in range(int(reps[e]))),
+                   key=lambda it: (-it[0], it[1], it[2]))
+    rank_load = np.zeros(n_ranks, np.float64)
+    rank_free = np.full(n_ranks, eps, np.int64)
+    rank_slots: list[list[int]] = [[] for _ in range(n_ranks)]
+    for share, e, _j in items:
+        best, best_key = -1, None
+        for r in range(n_ranks):
+            if not rank_free[r]:
+                continue
+            k = (e in rank_slots[r], rank_load[r], r)
+            if best_key is None or k < best_key:
+                best, best_key = r, k
+        rank_slots[best].append(e)
+        rank_load[best] += share
+        rank_free[best] -= 1
+    return placement_from_table(np.concatenate(
+        [np.asarray(s, np.int32) for s in rank_slots]))
+
+
+def _to_physical(placement: Placement, top_idx: Tensor, rank: Tensor,
+                 valid: Tensor) -> Tensor:
+    """Choice -> replica ``rank % n_replicas[e]`` of its expert e; pads
+    (-1) pass through."""
+    dev = top_idx.device
+    e_safe = torch.where(valid, top_idx, 0).to(torch.int64)
+    reps = torch.as_tensor(placement.n_replicas, device=dev).to(torch.int64)
+    l2p = torch.as_tensor(placement.logical_to_phys, device=dev)
+    phys = l2p[e_safe, rank.to(torch.int64) % reps[e_safe]]
+    return torch.where(valid, phys.to(top_idx.dtype), top_idx)
+
+
+def split_to_physical(placement: Placement, top_idx: Tensor) -> Tensor:
+    """Deterministic replica split of a logical routing table: each valid
+    choice of expert e goes to replica ``arrival_rank % n_replicas[e]``,
+    round-robin in arrival order (:func:`rank_in_group`).  An identity
+    placement returns ``top_idx`` itself."""
+    if placement.is_identity:
+        return top_idx
+    flat = top_idx.reshape(-1)
+    fv = flat >= 0
+    rk = rank_in_group(flat, placement.n_logical, fv)
+    return _to_physical(placement, flat, rk, fv).reshape(top_idx.shape)
+
+
+def split_to_physical_world(placement: Placement, top_idx: Tensor) -> Tensor:
+    """The (R, T, K) world table's split: every source rank round-robins
+    its own choices, as stacking :func:`split_to_physical` per rank would,
+    in one pass (expert ids offset per rank, as in
+    :func:`make_world_plan`)."""
+    if placement.is_identity:
+        return top_idx
+    R, E = top_idx.shape[0], placement.n_logical
+    valid = top_idx >= 0
+    r_of = torch.arange(R, device=top_idx.device).reshape(
+        (R,) + (1,) * (top_idx.dim() - 1))
+    gid = torch.where(valid, top_idx + r_of * E, -1)
+    rk = rank_in_group(gid.reshape(-1), R * E,
+                       valid.reshape(-1)).reshape(top_idx.shape)
+    return _to_physical(placement, top_idx, rk, valid)
 
 
 # ------------------------------------------------------- load accounting --

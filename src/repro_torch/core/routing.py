@@ -14,6 +14,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.core import plan as planlib
 
 Tensor = torch.Tensor
 
@@ -60,3 +61,20 @@ def route(moe: MoEConfig, p: RouterParams, x: Tensor,
     aux = n_experts_real * (f * pbar).sum(-1) * moe.aux_loss_weight
     return RouterOut(top_idx=top_idx.to(torch.int32),
                      top_w=top_w.to(x.dtype), probs=probs, aux_loss=aux)
+
+
+def update_aux_free_bias(p: RouterParams, out, n_experts_real: int,
+                         lr: float = 1e-3) -> RouterParams:
+    """Post-step bias update that pushes the load toward uniform (the sign
+    rule, DeepSeek-V3 style).  ``out`` is the router's output, or the
+    (E_padded,) expert loads already counted from it (what the train loop
+    keeps a layer)."""
+    if p.bias is None:
+        return p
+    e_pad = p.bias.shape[0]
+    load = (out if isinstance(out, Tensor)
+            else planlib.expert_load(out.top_idx, e_pad))
+    target = load.sum() / n_experts_real
+    real = torch.arange(e_pad, device=load.device) < n_experts_real
+    err = torch.where(real, target - load, 0.0)
+    return p._replace(bias=p.bias + lr * torch.sign(err))

@@ -47,7 +47,7 @@ SIGNATURES = {
     "grouped_swiglu_bwd_launch": [_P] * 18 + [_I] * 5 + [_P],
     "gather_swiglu_scatter_bwd_launch": [_P] * 20 + [_I] * 5 + [_P],
     "dequantize_bwd_launch": [_P] * 3 + [_I] * 4 + [_P],
-    "gather_quantize_bwd_launch": [_P] * 5 + [_I] * 5 + [_F, _P],
+    "gather_quantize_bwd_launch": [_P] * 6 + [_I] * 5 + [_F, _P],
     "mamba_scan_fwd_launch": [_P] * 8 + [_I, _I, _I, _P],
     "mamba_scan_bwd_launch": [_P] * 14 + [_I, _I, _I, _P],
     "rmsnorm_rows_launch": [_P, _P, _P, _L, _I, _F, _I, _I, _P],

@@ -213,8 +213,10 @@ def gather_quantize_bwd_cuda(x_ext: Tensor, src_of_slot: Tensor,
                              counts: Tensor | None, d_scales: Tensor, *,
                              wire_dtype: str = "fp8") -> Tensor:
     """CUDA kernel for :func:`gather_quantize_bwd_plain`
-    (``csrc/wire_bwd.cu``): fp32 table; the adds of slots that share a row
-    are fp32 atomics (run-to-run order)."""
+    (``csrc/wire_bwd.cu``): the occupied slots' ``d_scales * qinv`` folded
+    onto their rows in a small (T+1, nb) fp32 scratch (zeroed by the C
+    entry; fp32 atomics, in run-to-run order), then every table row written
+    once, read only where a slot adds to it."""
     name = "gather_quantize_bwd"
     C, src, cnt, tensors = _check_gather(name, x_ext, src_of_slot, counts,
                                          wire_dtype)
@@ -225,17 +227,18 @@ def gather_quantize_bwd_cuda(x_ext: Tensor, src_of_slot: Tensor,
         raise ValueError(f"{name}: d_scales must be ({n_slots}, {nb})")
     ds = d_scales.to(torch.float32).contiguous()
     _check_cuda(name, d_scales=ds, **tensors)
-    dx = torch.zeros_like(x_ext)
     if n_slots == 0 or D == 0:
-        return dx
+        return torch.zeros_like(x_ext)
+    dx = torch.empty_like(x_ext)
+    fold = torch.empty((Tp1, nb), dtype=torch.float32, device=x_ext.device)
     lib = build.library()
     with torch.cuda.device(x_ext.device):
         stream = torch.cuda.current_stream(x_ext.device).cuda_stream
         err = lib.gather_quantize_bwd_launch(
             x_ext.data_ptr(), src.data_ptr(),
             None if cnt is None else cnt.data_ptr(), ds.data_ptr(),
-            dx.data_ptr(), Tp1, n_slots, C, D, nb, float(_QINV[wire_dtype]),
-            stream)
+            fold.data_ptr(), dx.data_ptr(), Tp1, n_slots, C, D, nb,
+            float(_QINV[wire_dtype]), stream)
     build.check(err, name)
     gather_quantize_bwd_cuda.launches += 1
     return dx

@@ -18,6 +18,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.routing import RouterParams, update_aux_free_bias
 from repro_torch.distributed.sharding import DistCtx
 from repro_torch.models import model_zoo as Z
 from repro_torch.optim import adamw
@@ -65,16 +66,13 @@ def _update_router_biases(cfg: ModelConfig, params: dict, loads: dict,
     place); ``loads`` maps a layer index to its (E_pad,) expert loads."""
     if not cfg.moe.enabled or lr == 0.0:
         return params
-    e_real = cfg.moe.n_experts
     for i, load in loads.items():
         moe_p = params["blocks"][i].get("moe")
         if moe_p is None or "router_b" not in moe_p:
             continue
-        e_pad = load.shape[-1]
-        target = load.sum(-1, keepdim=True) / e_real
-        real = torch.arange(e_pad, device=load.device) < e_real
-        err = torch.where(real, target - load, 0.0)
-        moe_p["router_b"].add_(lr * torch.sign(err))
+        rp = RouterParams(moe_p["router_w"], moe_p["router_b"])
+        moe_p["router_b"].copy_(update_aux_free_bias(
+            rp, load, cfg.moe.n_experts, lr).bias)
     return params
 
 

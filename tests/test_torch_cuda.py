@@ -604,6 +604,125 @@ def test_cuda_wire_bwd_matches_plain(cuda_device, wire, D, with_counts):
         assert (chain[0] == 0).all() and (chain[3, :128] == 0).all()
 
 
+def _gather_bwd_case(rng, kind, D, device):
+    """A wire gather's (table, src, counts) as the dispatches fill it:
+    "ll_k6", LL's buckets of 8 experts x 16 slots (counts), 12 tokens of 6
+    distinct choices each, row 2 named by all 6 of its slots; "ht_dedup",
+    HT's dedup'd entries, 4 groups x 24 slots (no counts), each of 24
+    tokens once in every group its 6 choices reach, the unfilled slots on
+    the scratch row; "unnamed", slots naming only rows 0..9 of 64 (the
+    rest, and the rows past the LL counts, named by no occupied slot)."""
+    if kind == "ll_k6":
+        T, E, C, K = 12, 8, 16, 6
+        src = np.full((E, C), T, np.int32)
+        counts = np.zeros(E, np.int32)
+        for t in range(T):
+            for e in rng.choice(E, K, replace=False):
+                src[e, counts[e]] = t
+                counts[e] += 1
+        src, cnt = src.reshape(-1), torch.tensor(counts, dtype=torch.int32)
+        assert (src == 2).sum() == K
+    elif kind == "ht_dedup":
+        T, G, C, K = 24, 4, 24, 6
+        src = np.full((G, C), T, np.int32)
+        fill = np.zeros(G, int)
+        for t in range(T):
+            for g in np.unique(rng.choice(16, K, replace=False) // 4):
+                src[g, fill[g]] = t
+                fill[g] += 1
+        src, cnt = src.reshape(-1), None
+    else:
+        T = 64
+        src = rng.integers(0, 10, 4 * 32).astype(np.int32)
+        cnt = torch.tensor([0, 32, 7, 19], dtype=torch.int32)
+    x = _wire_table(rng, T, D, device)
+    return (x, torch.from_numpy(src).to(device),
+            None if cnt is None else cnt.to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["fp8", "int8"])
+@pytest.mark.parametrize("D", [200, 2048])
+@pytest.mark.parametrize("kind", ["ll_k6", "ht_dedup", "unnamed"])
+def test_cuda_gather_quantize_bwd_named_rows(cuda_device, wire, D, kind):
+    """The table's gradient where one row is named by several slots (LL's
+    K = 6 choices, HT's dedup'd entries: their scale gradients folded onto
+    the row before it is read) and where rows are named by no occupied
+    slot: exact zeros, written by the kernel into an output that starts as
+    NaN (there is no memset).  The same nonzero elements as the plain
+    version's, values within 1e-6 of the range."""
+    rng = np.random.default_rng(61 + D)
+    x, src, counts = _gather_bwd_case(rng, kind, D, cuda_device)
+    nb = -(-D // 128)
+    ds = torch.from_numpy(rng.standard_normal((src.shape[0], nb)).astype(
+        np.float32)).to(cuda_device)
+    g0 = qp.gather_quantize_bwd_cuda.launches
+    _poisoned_allocation(tuple(x.shape), torch.float32, cuda_device)
+    dx = qp.gather_quantize_bwd_cuda(x, src, counts, ds, wire_dtype=wire)
+    ref = qp.gather_quantize_bwd_plain(x, src, counts, ds, wire_dtype=wire)
+    assert qp.gather_quantize_bwd_cuda.launches == g0 + 1
+    assert torch.equal(dx != 0, ref != 0)
+    _range_close(dx, ref, 1e-6)
+    named = torch.zeros(x.shape[0], dtype=torch.bool, device=cuda_device)
+    named[src[qp._occupied_slots(src, counts)].long()] = True
+    assert (dx[~named] == 0).all()
+    if kind == "ll_k6":     # the 6 slots' values add up at row 2's ties
+        assert (dx[2] != 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["ll", "ht"])
+def test_cuda_placement_dispatch_matches_plain(cuda_device, mode):
+    """Dispatch under a greedy placement of 64 experts over 80 physical
+    slots (20 a rank of an EP world of 4; top 6 of a skewed routing)
+    through the kernels (LL: grouped_swiglu, HT: gather_swiglu_scatter)
+    against the same dispatch through their plain versions on the card,
+    and both against the logical dense oracle.  The capacity is lifted so
+    that nothing drops (a physical slot takes at most T choices from a
+    source)."""
+    from repro_torch.core import ep
+    from repro_torch.core import plan as planlib
+    from repro_torch.core.moe import _expert_fn
+    rng = np.random.default_rng(80)
+    E, R, T, K, D, F, n_phys = 64, 4, 64, 6, 256, 128, 80
+    pop = np.exp(0.8 * rng.standard_normal(E))
+    g = np.log(pop / pop.sum())[None, :] + rng.gumbel(size=(R * T, E))
+    ti = np.argsort(-g, axis=1)[:, :K].astype(np.int32)
+    tw = rng.random((R * T, K)).astype(np.float32)
+    tw /= tw.sum(-1, keepdims=True)
+    pl = planlib.greedy_placement(np.bincount(ti.reshape(-1), minlength=E),
+                                  n_phys, R)
+    assert pl.n_replicas.max() > 1
+    x = _bf16(rng, (R, T, D), cuda_device)
+    ws = _bf16_weights(rng, E, D, F, cuda_device)
+    p2l = torch.from_numpy(pl.phys_to_logical).long().to(cuda_device)
+    fn = _expert_fn(*[w[p2l] for w in ws])
+    spec = ep.EPSpec(axes=("model",), sizes=(R,), n_experts=E, top_k=K,
+                     capacity_factor=n_phys / K, dtype=torch.bfloat16,
+                     mode=mode, placement=pl.key())
+    args = (spec, x, torch.from_numpy(ti).to(cuda_device).reshape(R, T, K),
+            torch.from_numpy(tw).to(cuda_device).reshape(R, T, K), fn)
+    run = ep.dispatch_combine_ll if mode == "ll" else ep.dispatch_combine_ht
+    name = "grouped_swiglu" if mode == "ll" else "gather_swiglu_scatter"
+    before = ops.KERNELS[name][0].launches
+    got = run(*args)
+    assert ops.KERNELS[name][0].launches == before + 1
+    originals = {n: ops.KERNELS[n] for n in ("grouped_swiglu",
+                                             "gather_swiglu_scatter")}
+    try:
+        ops.KERNELS.update({n: (p, p) for n, (_, p) in originals.items()})
+        ref = run(*args)
+    finally:
+        ops.KERNELS.update(originals)
+    assert tuple(got.aux["load_phys"].shape) == (n_phys,)
+    assert torch.equal(got.aux["load_phys"], ref.aux["load_phys"])
+    assert (got.aux["dropped"] == 0).all()
+    _range_close(got.out.float(), ref.out.float(), 1e-2)
+    dense = ep.moe_ref(x.reshape(-1, D), args[2].reshape(-1, K),
+                       args[3].reshape(-1, K), *ws)
+    _range_close(got.out.float().reshape(-1, D), dense.float(), 2e-2)
+
+
 @pytest.mark.cuda
 def test_cuda_ep_kernels_train_through_their_functions(cuda_device):
     """Under grad with an input that requires one, ops takes each kernel's

@@ -143,9 +143,15 @@ def test_registry():
     assert available_backends() == ["torch_collectives"]
     with pytest.raises(KeyError):
         get_backend("no_such_transport")
-    with pytest.raises(NotImplementedError):
-        EPSpec(axes=("model",), sizes=(1,), n_experts=8, top_k=2,
-               placement=tuple(range(8)))
+    # a placement is taken: the identity one reads as none, a replicated
+    # one sizes the physical slots
+    ident = EPSpec(axes=("model",), sizes=(2,), n_experts=8, top_k=2,
+                   placement=tuple(range(8)))
+    assert ident.placement_obj() is None and ident.n_physical == 8
+    rep = EPSpec(axes=("model",), sizes=(2,), n_experts=8, top_k=2,
+                 placement=tuple(range(8)) * 2)
+    assert rep.n_physical == 16 and rep.physical_per_shard == 8
+    assert rep.placement_obj().n_logical == 8
 
 
 @pytest.mark.parametrize("wire", ["fp32", "fp8", "int8"])

@@ -1,6 +1,7 @@
 """The port's serving slice against the reference: a reduced qwen2-moe
-model (JAX parameters converted with ``params_from_jax``) prefills and
-decodes over the port's rank-stacked EP world, and matches the JAX
+model, and a reduced moonshot-v1-16b-a3b that keeps its top-6 routing over
+16 experts (JAX parameters converted with ``params_from_jax``), prefill
+and decode over the port's rank-stacked EP world, and match the JAX
 package's ``prefill``/``decode_step`` without a mesh (the dense MoE
 oracle); the serve CLI runs on the CPU; and neither the package nor
 ``chip_smoke`` imports JAX or the JAX package."""
@@ -31,19 +32,28 @@ ROOT = Path(__file__).resolve().parents[1]
 RTOL, ATOL = 2e-4, 2e-4
 
 
-def _cfgs():
-    kw = dict(n_layers=2, d_model=64, n_experts=8, vocab=512)
-    j = dataclasses.replace(jreduced(jget_config("qwen2_moe_a2_7b"), **kw),
-                            dtype="float32")
-    t = dataclasses.replace(reduced_config(get_config("qwen2_moe_a2_7b"), **kw),
-                            dtype="float32")
-    return j, t
+def _cfgs(arch="qwen2_moe_a2_7b", n_experts=8, top_k=None):
+    """(the reference's, the port's) reduced ``arch`` in fp32; ``top_k``
+    set after ``reduced_config``, which caps it at 2."""
+    kw = dict(n_layers=2, d_model=64, n_experts=n_experts, vocab=512)
+    out = []
+    for get, reduce in ((jget_config, jreduced), (get_config,
+                                                  reduced_config)):
+        c = reduce(get(arch), **kw)
+        if top_k is not None:
+            c = dataclasses.replace(c, moe=dataclasses.replace(c.moe,
+                                                               top_k=top_k))
+        out.append(dataclasses.replace(c, dtype="float32"))
+    return tuple(out)
 
 
-@pytest.fixture(scope="module")
-def jax_run():
+# moonshot-v1-16b-a3b keeps its top-6 routing: 16 experts, 4 a rank in an
+# EP world of 4, a token's choices on up to 4 ranks
+MOONSHOT = dict(arch="moonshot_v1_16b_a3b", n_experts=16, top_k=6)
+
+
+def _jax_steps(jcfg):
     """JAX params and the reference prefill + 4 greedy decode steps."""
-    jcfg, _ = _cfgs()
     B, S, n_dec = 4, 8, 4
     params = JZ.init_params(jcfg, jax.random.PRNGKey(0))
     tokens = np.random.default_rng(0).integers(0, 512, (B, S)).astype(np.int32)
@@ -58,15 +68,50 @@ def jax_run():
     return jax.tree.map(np.asarray, params), tokens, steps
 
 
+@pytest.fixture(scope="module")
+def jax_run():
+    return _jax_steps(_cfgs()[0])
+
+
+@pytest.fixture(scope="module")
+def jax_run_moonshot():
+    return _jax_steps(_cfgs(**MOONSHOT)[0])
+
+
+def _dist(cfg, world):
+    return {"none": None, "model2": make_dist_ctx(cfg, model=2),
+            "model4": make_dist_ctx(cfg, model=4),
+            "pod2x2": make_dist_ctx(cfg, model=2, pod=2)}[world]
+
+
 @pytest.mark.parametrize("world", ["none", "model2", "pod2x2"])
 def test_prefill_decode_match_jax(jax_run, world):
     np_params, tokens, ref_steps = jax_run
     _, cfg = _cfgs()
-    dist = {"none": None, "model2": make_dist_ctx(cfg, model=2),
-            "pod2x2": make_dist_ctx(cfg, model=2, pod=2)}[world]
     params = params_from_jax(cfg, np_params, device="cpu")
     assert len(params["blocks"]) == 2 and params["blocks"][1]["moe"][
         "w_gate"].shape == (16, 64, 64)           # 8 real experts in 16
+    _prefill_decode_close(cfg, params, tokens, ref_steps, _dist(cfg, world))
+
+
+@pytest.mark.parametrize("world", ["none", "model4", "pod2x2"])
+def test_moonshot_prefill_decode_match_jax(jax_run_moonshot, world):
+    """Reduced moonshot: top 6 of 16 experts (HT dedups a token's six
+    choices to at most 4 rank entries, LL fills 6 slots a token), no
+    shared expert, an untied head."""
+    np_params, tokens, ref_steps = jax_run_moonshot
+    _, cfg = _cfgs(**MOONSHOT)
+    assert cfg.moe.top_k == 6 and cfg.moe.d_shared == 0
+    assert not cfg.tie_embeddings
+    params = params_from_jax(cfg, np_params, device="cpu")
+    moe = params["blocks"][0]["moe"]
+    assert moe["w_gate"].shape == (16, 64, 64) and "shared" not in moe
+    _prefill_decode_close(cfg, params, tokens, ref_steps, _dist(cfg, world))
+
+
+def _prefill_decode_close(cfg, params, tokens, ref_steps, dist):
+    """The port's prefill and greedy decode steps against the reference's
+    logits, each step's token the reference's; nothing dropped."""
     B, S = tokens.shape
     cache = Z.init_cache(cfg, B, S + len(ref_steps), dtype=torch.float32,
                          device="cpu")

@@ -9,8 +9,11 @@ import jax.numpy as jnp  # noqa: E402
 from repro.configs.base import MoEConfig as JMoE  # noqa: E402
 from repro.core.routing import RouterParams as JRP  # noqa: E402
 from repro.core.routing import route as jroute  # noqa: E402
+from repro.core.routing import update_aux_free_bias as jupdate  # noqa: E402
 from repro_torch.configs.base import MoEConfig  # noqa: E402
-from repro_torch.core.routing import RouterParams, route  # noqa: E402
+from repro_torch.core import plan as planlib  # noqa: E402
+from repro_torch.core.routing import (RouterParams, route,  # noqa: E402
+                                      update_aux_free_bias)
 
 
 @pytest.mark.parametrize("bias", [False, True])
@@ -49,3 +52,33 @@ def test_route_rank_stacked_equals_per_rank():
         assert torch.equal(st.top_idx[r], one.top_idx)
         torch.testing.assert_close(st.top_w[r], one.top_w)
         torch.testing.assert_close(st.aux_loss[r], one.aux_loss)
+
+
+@pytest.mark.parametrize("lr", [0.1, 1e-3])
+def test_update_aux_free_bias_matches_jax(lr):
+    """The sign-rule bias update on the same router output as the
+    reference's (tests/test_routing.py:55: expert 0 overloaded, 6 real
+    experts of 8): the same new bias, bit for bit; the overloaded expert's
+    bias goes down, the least loaded one's up; the pads' stay.  The train
+    loop's form (the loads already counted) gives the same bias."""
+    rng = np.random.default_rng(55)
+    x = rng.standard_normal((256, 16)).astype(np.float32)
+    w = (rng.standard_normal((16, 8)) / 4).astype(np.float32)
+    w[:, 0] = 5.0                                   # expert 0 overloaded
+    b = (rng.standard_normal(8) * 0.1).astype(np.float32)
+    moe = MoEConfig(n_experts=6, top_k=2)
+    jp = JRP(jnp.asarray(w), jnp.asarray(b))
+    ref = jupdate(jp, jroute(JMoE(n_experts=6, top_k=2), jp,
+                             jnp.asarray(x), 6), 6, lr=lr)
+    p = RouterParams(torch.from_numpy(w), torch.from_numpy(b))
+    out = route(moe, p, torch.from_numpy(x), 6)
+    got = update_aux_free_bias(p, out, 6, lr=lr)
+    np.testing.assert_array_equal(got.bias.numpy(), np.asarray(ref.bias))
+    assert float(got.bias[0]) < b[0]
+    load = planlib.expert_load(out.top_idx, 8)
+    under = int(torch.argmin(load[:6]))
+    assert float(got.bias[under]) > b[under]
+    np.testing.assert_array_equal(got.bias.numpy()[6:], b[6:])
+    by_load = update_aux_free_bias(p, load, 6, lr=lr)
+    assert torch.equal(by_load.bias, got.bias)
+    assert update_aux_free_bias(p._replace(bias=None), out, 6).bias is None

@@ -267,3 +267,39 @@ def test_planted_fault_anchor_occurs_once(fault):
     text = (Path(__file__).resolve().parents[1] / path).read_text()
     assert text.count(old) == 1
     assert old != new
+
+
+def test_placement_checks_hold_a_reduced_moonshot(monkeypatch):
+    """``placement_checks`` on the CPU (fp32, the plain versions standing
+    in for the kernels, no timing): a reduced moonshot layer (top 6 of 16
+    experts) under the greedy placement of its routed load and two
+    replicas an expert, at the HT and LL shapes, within the oracle's
+    tolerance, nothing dropped, a load per physical slot; the identity
+    placement bit for bit with none.  The kernel launches it requires come
+    from the CUDA wrappers, so they are stubbed to count here."""
+    from repro_torch.kernels import ops
+    cfg = dataclasses.replace(reduced_config(
+        get_config("moonshot_v1_16b_a3b"), n_layers=1, d_model=64,
+        n_experts=16), dtype="float32")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, top_k=6))
+    params = Z.init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
+    x = torch.randn((2, 32, cfg.d_model),
+                    generator=torch.Generator().manual_seed(7))
+    monkeypatch.setattr(chip_smoke, "cuda_ms", lambda fn, n=20, warmup=3: 0.0)
+    monkeypatch.setattr(chip_smoke, "MOONSHOT_PHYSICAL", 20)
+    for n in ("grouped_swiglu", "gather_swiglu_scatter"):
+        cuda, plain = ops.KERNELS[n]
+
+        def counting(*a, plain=plain, cuda=cuda, **kw):
+            cuda.launches += 1
+            return plain(*a, **kw)
+        monkeypatch.setitem(ops.KERNELS, n, (cuda, counting))
+    line = chip_smoke.placement_checks(cfg, params, x,
+                                       make_dist_ctx(cfg, model=4))
+    assert [(c["placement"], c["mode"]) for c in line["cases"]] == [
+        ("greedy", "ht"), ("greedy", "ll"), ("uniform2", "ht"),
+        ("uniform2", "ll")]
+    for c in line["cases"]:
+        assert c["rel_err"] <= 1e-5 and c["dropped"] == 0.0
+        assert len(c["load_phys"]) == c["physical_slots"]
+    assert all(v["bit_identical"] for v in line["identity_vs_none"].values())
