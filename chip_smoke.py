@@ -112,8 +112,8 @@ Phases, each printed as one JSON line:
    of that row's largest plain value), timed beside their bound, the plain
    version and one PyTorch library call computing the same function
    (``library_ms``, and its device time; for ``rmsnorm``,
-   ``decode_attention``, ``combine_reduce`` and ``decode_attention_paged``
-   also cold (the library call's where there is one), each call on one of
+   ``flash_attention``, ``decode_attention``, ``combine_reduce`` and
+   ``decode_attention_paged`` also cold (the library call's where there is one), each call on one of
    ``COLD_CACHES`` input sets, ``cold_device_ms``); then
    decode_graph: the
    ``decode_attention`` kernel captured once in a CUDA graph and replayed
@@ -187,6 +187,35 @@ Phases, each printed as one JSON line:
    phase 16 (the training shapes), against its plain version within its
    ``KERNEL_TOL`` and timed, the cases joining its entry of phase 6.
 
+18. serve-dense-wide (after phase 12, before phase 15): the four dense
+   configs no earlier phase serves (``DENSE_WIDE``), one at a time, each
+   freed before the next, at full width with random bf16 weights from
+   seed 0 through ``generate``: batch 4, 1024-token prompts through the
+   batched prefill, 16 tokens from the replayed decode step.
+   phi3-medium-14b (40 layers; 40 query heads over 10 kv heads),
+   internvl2-26b (48 layers; 48 over 8: 6 a kv head) and musicgen-large
+   (48 layers; 32 heads, MHA, head dim 64) at all their layers,
+   qwen2-72b (q/k/v biases, 64 over 8) at 32 of its 80 (``DENSE_LAYERS``:
+   the whole model is 145 GB in bf16).  Per model: params, TTFT, decode
+   tokens/s replayed and eager (their tokens bit for bit), ``capture_s``,
+   the RMSNorm, flash attention and flash decoding launches (set to 0
+   just before and read just after, each > 0), peak memory; the last
+   prefill logits and one decode step on 4 x 256 tokens against the
+   plain versions (``SERVE_PLAIN_TOL``); the recorded calls of the three
+   kernels (and the last decode step's) against their plain versions
+   and timed as in phase 12, joining their entries of the kernels line as
+   cases of the model's path (``path_cases``); for musicgen and
+   internvl2, ``paged_decode`` on the last decode step's cache at ragged
+   positions (1038, 1023, 515, 17), the same way.  The phase's seconds;
+19. train-musicgen-prefix (after phase 15, before phase 8): musicgen-large
+   at full width and 12 of its 48 layers, fp32 parameters, 5 AdamW steps
+   through ``train_loop`` on one seeded batch of 4 sequences, each its 64
+   frontend-prefix embeddings before 960 text tokens: per step loss,
+   grad norm and seconds, text tokens/s and positions/s over steps 2-5,
+   peak memory; the serving kernels launch 0 times (training keeps its
+   norms and attention in tensor code); losses and grad norms finite, the
+   last loss below the first.
+
 Then the kernels line ``{"kernels": [...]}`` (all seventeen kernels), the
 nvidia-smi line, and as the last line ``{"ok": true, "device": {...}}``.
 Any failed check raises and the exit code is not 0.  Without a CUDA
@@ -214,10 +243,11 @@ FP32_FLOP_PER_S = 67e12
 L2_BYTES = 50 * 2 ** 20
 # input sets a cold timing cycles through (cold_device_ms), and the
 # arguments it draws afresh for each: the cache, the rows, the parts, the
-# pools
+# pools, q, k and v
 COLD_CACHES = 8
 COLD_ARGS = {"decode_attention": (1, 2), "rmsnorm": (0,),
-             "combine_reduce": (0,), "decode_attention_paged": (1, 2)}
+             "combine_reduce": (0,), "decode_attention_paged": (1, 2),
+             "flash_attention": (0, 1, 2)}
 
 KERNEL_INFO = {  # name: (source, the TPU kernel it replaces)
     "grouped_swiglu": ("src/repro_torch/csrc/grouped_swiglu.cu",
@@ -383,6 +413,28 @@ EP_TRAIN_MORE_STEPS = 2
 # of the sequence whose rows it takes over
 PAGED_POS, PAGED_BLOCK = (2078, 2047, 1031, 17), 16
 PAGED_REPLAY_POS, PAGED_REPLAY_ORDER = (12, 931, 2040, 1999), (3, 2, 1, 0)
+# serving the four dense configs the earlier slices left out, one at a
+# time, at full width: batch 4, 1024-token prompts through the batched
+# prefill, 16 tokens from the replayed decode step.  All layers but
+# qwen2-72b's: its 80 (72.7B parameters, 145 GB in bf16) do not fit the
+# card, its first 32 (30.6B, 61.2 GB) leave room for the cache and the
+# plain check.  The plain check runs on the first 256 prompt tokens
+DENSE_WIDE = ("phi3_medium_14b", "qwen2_72b", "internvl2_26b",
+              "musicgen_large")
+DENSE_LAYERS = {"qwen2_72b": 32}
+DENSE_BATCH, DENSE_PROMPT, DENSE_GEN = 4, 1024, 16
+DENSE_PLAIN_TOKENS = 256
+# paged decoding on the last cache of the two models whose decode shapes
+# are new to it: musicgen-large's (head dim 64, MHA) and internvl2-26b's
+# (6 query heads a kv head); the last step's pos is 1038
+DENSE_PAGED = ("musicgen_large", "internvl2_26b")
+DENSE_PAGED_POS, DENSE_PAGED_REPLAY_POS = (1038, 1023, 515, 17), (12, 500,
+                                                                  1000, 1030)
+# training with a frontend prefix: musicgen-large at full width, 12 of its
+# 48 layers, its 64 frame-embedding positions before 960 text positions,
+# batch 4, 5 AdamW steps on one batch
+PREFIX_TRAIN_LAYERS, PREFIX_TRAIN_BATCH, PREFIX_TRAIN_SEQ = 12, 4, 960
+PREFIX_TRAIN_STEPS = 5
 
 
 def emit(obj) -> None:
@@ -814,8 +866,8 @@ def cold_device_ms(name, args, kwargs) -> dict:
     (``COLD_ARGS``, seeded N(0, 1) of their shapes), whose sum does not fit
     the card's 50 MB L2: at qwen3's shapes 272 MB of decode caches (a
     decode step's 36 layers do not fit it either), 336 MB of ln1 rows, 175
-    MB of paged pools (333 blocks of 16 rows, K and V), and at the combine
-    shape 168 MB of parts.  Repeated calls on one input, as
+    MB of paged pools (333 blocks of 16 rows, K and V), 805 MB of prefill
+    q, k and v, and at the combine shape 168 MB of parts.  Repeated calls on one input, as
     ``device_ms`` makes them, find part of it in L2."""
     import torch
 
@@ -861,16 +913,40 @@ def check_kernel(name, rec, launches, extra=(), lead=0) -> dict:
             "tolerance": KERNEL_TOL[name], "cases": cases}
 
 
-def add_cases(entry: dict, cases) -> None:
+def add_cases(entry: dict, cases, path=None, launches=None) -> list:
     """Holds kernel ``entry["name"]`` (an entry of the kernels line) also
     on the (args, kwargs) ``cases`` another path recorded: their errors
-    join the entry's."""
+    join the entry's.  With ``path``, each new case is tagged with it and
+    with that path's ``launches`` of the kernel, and the kernels line
+    lists it (``path_cases``).  Returns the new cases."""
     import torch
     with torch.inference_mode():
         more = [check_case(entry["name"], a, kw) for a, kw in cases]
+    if path is not None:
+        for c in more:
+            c.update(path=path, launches=launches)
     entry["cases"] += more
     for k in ("max_abs_err", "max_rel_err"):
         entry[k] = max([entry[k], *(c[k] for c in more)])
+    return more
+
+
+# a tagged case's numbers in the kernels line (the phase's kernel lines
+# hold the rest)
+PATH_CASE_KEYS = ("path", "launches", "ms", "device_ms", "cold_device_ms",
+                  "bound_ms", "bound_by", "plain_ms", "library_device_ms",
+                  "library_cold_device_ms", "max_abs_err")
+
+
+def path_cases(entry: dict) -> list:
+    """The cases of a kernels-line entry that ``add_cases`` tagged with a
+    path: the first argument's shape and their numbers, to 6 significant
+    digits."""
+    def short(v):
+        return float(f"{v:.6g}") if isinstance(v, float) else v
+    return [{"shape": c["shapes"][0],
+             **{k: short(c[k]) for k in PATH_CASE_KEYS if k in c}}
+            for c in entry["cases"] if "path" in c]
 
 
 # device activities by kind, from their names: (kind, name fragments)
@@ -2147,13 +2223,15 @@ def paged_pools(k, v, pos, bs):
     return k_pool, v_pool, tables, posv, pool
 
 
-def paged_graph_check(q, k_pool, v_pool, tables, posv) -> dict:
+def paged_graph_check(q, k_pool, v_pool, tables, posv,
+                      replay_pos=PAGED_REPLAY_POS) -> dict:
     """``decode_attention_paged_cuda`` captured once in a CUDA graph on
-    these pools at their positions, then replayed twice: with the table
-    rows reordered (``PAGED_REPLAY_ORDER``) and ``PAGED_REPLAY_POS`` written
-    in place, and back at the captured ones; each replay's output against
-    the plain version on what the buffers then hold, row by row within
-    ``KERNEL_TOL``."""
+    these pools at their positions ``posv``, then replayed twice: with the
+    table rows reordered (``PAGED_REPLAY_ORDER``) and ``replay_pos``
+    written in place (each at most the position of the sequence whose rows
+    it takes over), and back at the captured ones; each replay's output
+    against the plain version on what the buffers then hold, row by row
+    within ``KERNEL_TOL``."""
     import torch
 
     from repro_torch.kernels import norm_attention as na
@@ -2166,8 +2244,9 @@ def paged_graph_check(q, k_pool, v_pool, tables, posv) -> dict:
                                                pos_s)
     tol = KERNEL_TOL["decode_attention_paged"]
     errs = []
-    for order, pos in ((PAGED_REPLAY_ORDER, PAGED_REPLAY_POS),
-                       (tuple(range(len(PAGED_POS))), PAGED_POS)):
+    captured = tuple(posv.tolist())
+    for order, pos in ((PAGED_REPLAY_ORDER, replay_pos),
+                       (tuple(range(len(captured))), captured)):
         tab_s.copy_(tables[list(order)])
         pos_s.copy_(torch.tensor(pos, dtype=torch.int32))
         graph.replay()
@@ -2181,27 +2260,28 @@ def paged_graph_check(q, k_pool, v_pool, tables, posv) -> dict:
             raise AssertionError(f"decode_attention_paged replayed at pos "
                                  f"{pos}: row rel err {rel} > {tol}")
     return {"replays": [{"table_rows": list(PAGED_REPLAY_ORDER),
-                         "pos": list(PAGED_REPLAY_POS)},
-                        {"table_rows": list(range(len(PAGED_POS))),
-                         "pos": list(PAGED_POS)}],
+                         "pos": list(replay_pos)},
+                        {"table_rows": list(range(len(captured))),
+                         "pos": list(captured)}],
             "max_row_rel_err": errs, "tol": tol}
 
 
-def paged_decode(q, k, v) -> tuple[dict, dict]:
-    """``ops.decode_attention_paged`` at qwen3-4b's decode shape on the
-    last decode step's query and last layer's cache, copied into block
-    pools (``paged_pools``) at the ragged positions ``PAGED_POS``; the
-    kernel captured in a CUDA graph there and replayed at other positions
-    and tables (``paged_graph_check``); then, with every position at the
-    contiguous run's pos, against the contiguous ``decode_attention``
-    kernel on the same rows."""
+def paged_decode(q, k, v, pos=PAGED_POS, replay_pos=PAGED_REPLAY_POS
+                 ) -> tuple[dict, "Recorder", dict, tuple]:
+    """``ops.decode_attention_paged`` on a decode step's query and last
+    layer's cache (qwen3-4b's; serve-dense-wide's), copied into block
+    pools (``paged_pools``) at the ragged positions ``pos``; the kernel
+    captured in a CUDA graph there and replayed at other positions and
+    tables (``paged_graph_check``); then, with every position at the
+    largest of ``pos``, against the contiguous ``decode_attention`` kernel
+    on the same rows.  Returns (the phase line, the kernel's Recorder, its
+    launches, that last call's (args, kwargs))."""
     import torch
 
     from repro_torch.kernels import norm_attention as na
     from repro_torch.kernels import ops
 
-    k_pool, v_pool, tables, posv, pool = paged_pools(k, v, PAGED_POS,
-                                                     PAGED_BLOCK)
+    k_pool, v_pool, tables, posv, pool = paged_pools(k, v, pos, PAGED_BLOCK)
     cuda = {"decode_attention_paged": ops.KERNELS["decode_attention_paged"][0]}
     recs, restore = recording(("decode_attention_paged",))
     try:
@@ -2214,11 +2294,10 @@ def paged_decode(q, k, v) -> tuple[dict, dict]:
             or not torch.isfinite(out).all()):
         raise AssertionError("paged_decode: no launch, or a wrong or "
                              "non-finite output")
-    graph = paged_graph_check(q, k_pool, v_pool, tables, posv)
+    graph = paged_graph_check(q, k_pool, v_pool, tables, posv, replay_pos)
     # one pos for all four: the contiguous kernel on the same rows
-    pos_all = max(PAGED_POS)
-    same = (q, *paged_pools(k, v, (pos_all,) * len(PAGED_POS),
-                            PAGED_BLOCK)[:4])
+    pos_all = max(pos)
+    same = (q, *paged_pools(k, v, (pos_all,) * len(pos), PAGED_BLOCK)[:4])
     got = na.decode_attention_paged_cuda(*same)
     cont = na.decode_attention_cuda(q, k, v, torch.full(
         (), pos_all, dtype=torch.int32, device=q.device))
@@ -2228,15 +2307,14 @@ def paged_decode(q, k, v) -> tuple[dict, dict]:
     if not rel <= KERNEL_TOL["decode_attention_paged"]:
         raise AssertionError(f"paged vs contiguous decoding: row rel err {rel}")
     line = {"phase": "paged_decode", "batch": q.shape[0], "heads": q.shape[1],
-            "kv_heads": k.shape[2], "block": PAGED_BLOCK, "pos": PAGED_POS,
+            "kv_heads": k.shape[2], "head_dim": q.shape[2],
+            "block": PAGED_BLOCK, "pos": list(pos),
             "pool_blocks": pool.n_blocks, "table_width": tables.shape[1],
             "table_heads": tables[:, :4].tolist(), "launches": launches,
             "graph": graph,
             "vs_contiguous": {"pos": pos_all, "max_row_rel_err": rel,
                               "bitwise_equal": bool(torch.equal(got, cont))}}
-    return line, check_kernel("decode_attention_paged",
-                              recs["decode_attention_paged"], launches,
-                              extra=((same, {}),))
+    return line, recs["decode_attention_paged"], launches, (same, {})
 
 
 def serve_qwen3(dev) -> list:
@@ -2349,8 +2427,10 @@ def serve_qwen3(dev) -> list:
         (q, k, v, pos), _ = last_decode[0]
         emit({"phase": "decode_graph", "path": "qwen3_4b",
               **decode_graph_check(q, k, v, (0, int(pos), k.shape[1] - 1))})
-        line, paged = paged_decode(q, k, v)
+        line, rec, paged_launches, same = paged_decode(q, k, v)
         emit(line)
+        paged = check_kernel("decode_attention_paged", rec, paged_launches,
+                             extra=(same,))
         emit({"phase": "kernel", **paged})
         kernels.append(paged)
     return kernels
@@ -2911,6 +2991,209 @@ def serve_moonshot(dev) -> None:
                              f"{served_bwd}")
 
 
+def dense_plain_check(cfg, params, prompts) -> dict:
+    """One prefill of ``prompts`` and one decode step of the token the
+    kernels' run chose, through the kernels and through their plain
+    versions: the last prefill logits and the step's within
+    ``SERVE_PLAIN_TOL`` of the plain path's largest."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import model_zoo as Z
+    B, S = prompts.shape
+
+    def prefill_and_step(tok=None):
+        with torch.inference_mode():
+            cache = Z.init_cache(cfg, B, S + 1, dtype=Z.compute_dtype(cfg),
+                                 device=prompts.device)
+            first, cache, _ = Z.prefill(cfg, params, cache, prompts)
+            if tok is None:
+                tok = torch.argmax(first[:, :cfg.vocab_size], -1)[:, None]
+            nxt, _, _ = Z.decode_step(cfg, params, cache, tok, S)
+        return first, nxt, tok
+
+    got = prefill_and_step()
+    originals = {n: ops.KERNELS[n] for n in NORM_ATTN_KERNELS}
+    ops.KERNELS.update({n: (p, p) for n, (_, p) in originals.items()})
+    try:
+        ref = prefill_and_step(got[2])
+    finally:
+        ops.KERNELS.update(originals)
+    line = {"tokens": [B, S], "tol": SERVE_PLAIN_TOL}
+    for g, r, what in zip(got, ref, ("prefill", "decode")):
+        err = rel_err(g, r)
+        line[what] = {"rel_err": err, "argmax_agree": float(
+            (g.argmax(-1) == r.argmax(-1)).float().mean())}
+        if not err <= SERVE_PLAIN_TOL:
+            raise AssertionError(f"{cfg.arch_id} {what} logits through the "
+                                 f"kernels: rel err {err} to the plain path")
+    return line
+
+
+def serve_dense_wide(dev, kernels) -> None:
+    """The four dense configs the earlier slices left out (``DENSE_WIDE``),
+    one at a time, each freed before the next, served at full width
+    through ``generate`` (qwen2-72b at ``DENSE_LAYERS``): its kernels'
+    launches counted; eager and replayed tokens bit for bit; the prefill
+    and one decode step against the plain versions (``dense_plain_check``);
+    the recorded RMSNorm, flash attention and flash decoding calls (and
+    the last decode step's) against their plain versions, timed, joining
+    the kernels line's entries (``kernels``) as cases of their path; for
+    ``DENSE_PAGED``, paged decoding on the last cache, the same way."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model_zoo as Z
+    from repro_torch.optim.adamw import tree_leaves
+
+    entries = {k["name"]: k for k in kernels}
+    B, S, N_GEN = DENSE_BATCH, DENSE_PROMPT, DENSE_GEN
+    t_phase = time.perf_counter()
+    for arch in DENSE_WIDE:
+        t_model = time.perf_counter()
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=DENSE_LAYERS.get(
+            arch, full.n_layers))
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = Z.init_params(cfg, seed=0, device=dev,
+                               dtype=Z.compute_dtype(cfg))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        leaves = tree_leaves(params)
+        n_params = sum(t.numel() for t in leaves)
+        param_gb = sum(t.numel() * t.element_size() for t in leaves) / 1e9
+        del leaves
+        gen = torch.Generator().manual_seed(0)
+        prompts = torch.randint(0, cfg.vocab_size, (B, S),
+                                generator=gen).to(dev)
+        # warm-up at the served shape: first launches and the allocator's
+        # growth to the prefill's activations, which TTFT would carry
+        generate(cfg, params, prompts, 2)
+        torch.cuda.synchronize()
+        res, launches, recs, peak_gb, last = serve_counted(
+            cfg, params, prompts, N_GEN, NORM_ATTN_KERNELS)
+        eager = generate(cfg, params, prompts, N_GEN, cuda_graph=False)
+        same_tokens(cfg, eager, res)
+        emit({"phase": "serve-dense-wide", "model": arch, "width": "full",
+              "layers": cfg.n_layers, "layers_published": full.n_layers,
+              "d_model": cfg.d_model, "heads": cfg.n_heads,
+              "kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim_,
+              "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+              "qkv_bias": cfg.qkv_bias, "params": n_params,
+              "param_gb": param_gb, "batch": B, "prompt": S,
+              "generated": N_GEN, "ttft_s": res["ttft_s"],
+              "total_s": res["total_s"], "tokens_per_s": res["tokens_per_s"],
+              "decode_tokens_per_s": res["decode_tokens_per_s"],
+              "eager_decode_tokens_per_s": eager["decode_tokens_per_s"],
+              "eager_ttft_s": eager["ttft_s"],
+              "eager_replayed_tokens_equal": True,
+              "capture_s": res["capture_s"],
+              "graph_replays": res["graph_replays"], "launches": launches,
+              "first_tokens": res["tokens"][0].tolist(),
+              "init_params_s": init_s, "peak_mem_gb": peak_gb})
+        if not peak_gb < 80.0:
+            raise AssertionError(f"{arch}: peak memory {peak_gb} GB")
+        del eager, res
+        emit({"phase": "serve_dense_wide_plain", "model": arch,
+              **dense_plain_check(cfg, params,
+                                  prompts[:, :DENSE_PLAIN_TOKENS])})
+        path = f"{arch} ({cfg.n_layers} layers)"
+        recorded = {n: list(recs[n].cases.values())
+                    for n in NORM_ATTN_KERNELS}
+        recorded["decode_attention"] += list(decode_cases(last, S)[:1])
+        del recs
+        for n in NORM_ATTN_KERNELS:
+            more = add_cases(entries[n], recorded[n], path, launches[n])
+            emit({"phase": "kernel", "name": n, "path": path,
+                  "cases": more})
+        if arch in DENSE_PAGED:
+            (q, k, v, _), _ = last[0]
+            with torch.inference_mode():
+                line, rec, paged_launches, same = paged_decode(
+                    q, k, v, DENSE_PAGED_POS, DENSE_PAGED_REPLAY_POS)
+            emit({**line, "path": path})
+            more = add_cases(entries["decode_attention_paged"],
+                             [*rec.cases.values(), same], path,
+                             paged_launches["decode_attention_paged"])
+            emit({"phase": "kernel", "name": "decode_attention_paged",
+                  "path": path, "cases": more})
+            del q, k, v, rec, same
+        del recorded, last, params, prompts
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit({"phase": "serve_dense_wide_model_seconds", "model": arch,
+              "seconds": time.perf_counter() - t_model})
+    emit({"phase": "serve_dense_wide_seconds",
+          "seconds": time.perf_counter() - t_phase})
+
+
+def train_musicgen_prefix(dev) -> dict:
+    """Training with a frontend prefix: musicgen-large at full width and
+    ``PREFIX_TRAIN_LAYERS`` layers, ``PREFIX_TRAIN_STEPS`` AdamW steps
+    through ``train_loop`` on one seeded batch of ``PREFIX_TRAIN_BATCH``
+    sequences, each its 64 prefix embeddings before ``PREFIX_TRAIN_SEQ``
+    text tokens.  The training path runs its attention and norms as the
+    model's tensor code, as the reference's training does: the serving
+    kernels' launches must stay 0.  Every loss and grad norm finite, the
+    last loss below the first."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.kernels import ops
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.training.train_loop import HParams, init_state
+
+    full = get_config("musicgen_large")
+    cfg = dataclasses.replace(full, n_layers=PREFIX_TRAIN_LAYERS)
+    B, S, STEPS = PREFIX_TRAIN_BATCH, PREFIX_TRAIN_SEQ, PREFIX_TRAIN_STEPS
+    P = cfg.frontend_prefix
+    hp = HParams(peak_lr=3e-4, warmup=1, total_steps=STEPS)
+    batch = synth_batch(DataConfig(vocab_size=cfg.vocab_size, batch=B,
+                                   seq_len=S, seed=0, prefix_len=P,
+                                   d_model=cfg.d_model), 0)
+    if batch["prefix"].shape != (B, P, cfg.d_model):
+        raise AssertionError(f"prefix batch {batch['prefix'].shape}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_state(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in tree_leaves(state.params))
+    serving = {n: ops.KERNELS[n][0] for n in NORM_ATTN_KERNELS}
+    (state, hist, secs), launches = counted(
+        serving, lambda: train_steps(cfg, hp, batch, state, dev))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [h["loss"] for h in hist]
+    gnorms = [h["grad_norm"] for h in hist]
+    if any(launches.values()):
+        raise AssertionError(f"the training path launched serving kernels: "
+                             f"{launches}")
+    if not all(map(math.isfinite, losses + gnorms)):
+        raise AssertionError(f"non-finite loss or grad norm: {losses} {gnorms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    return {"phase": "train-musicgen-prefix", "model": "musicgen_large",
+            "width": "full", "d_model": cfg.d_model, "heads": cfg.n_heads,
+            "head_dim": cfg.head_dim_, "layers": cfg.n_layers,
+            "layers_published": full.n_layers, "params": n_params,
+            "batch": B, "prefix": P, "seq": S, "positions": P + S,
+            "steps": STEPS, "optimizer": "adamw", "peak_lr": hp.peak_lr,
+            "remat": cfg.remat,
+            "steps_detail": [{"step": i, "loss": l, "grad_norm": g,
+                              "seconds": t} for i, (l, g, t) in
+                             enumerate(zip(losses, gnorms, secs))],
+            "step_s_steps_2_5": sum(secs[1:STEPS]) / (STEPS - 1),
+            "tokens_per_s_steps_2_5": B * S * (STEPS - 1) / sum(
+                secs[1:STEPS]),
+            "positions_per_s_steps_2_5": B * (P + S) * (STEPS - 1) / sum(
+                secs[1:STEPS]),
+            "serving_kernel_launches": launches,
+            "init_params_s": init_s, "peak_mem_gb": peak_gb}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2959,11 +3242,17 @@ def main() -> int:
           "decode rows",
           **{k: v for k, v in rms.items() if k != "cases"},
           "cases": rms["cases"][-len(rmsnorm_cases):]})
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_dense_wide(dev, kernels)
     served = {n: c.launches for n, c in bwd.items()}
     emit({"phase": "serve_backward_launches", **served})
     if any(served.values()):
         raise AssertionError(f"the serving paths launched backward kernels: "
                              f"{served}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(train_musicgen_prefix(dev))
     gc.collect()
     torch.cuda.empty_cache()
     lines, scan_rec, scan_launches = train_phase(dev)
@@ -3002,8 +3291,10 @@ def main() -> int:
         torch.cuda.empty_cache()
     kernels += ep_kernels
 
-    emit({"kernels": [{k: v for k, v in kk.items()
-                       if k not in ("tolerance", "cases", "max_rel_err")}
+    emit({"kernels": [{**{k: v for k, v in kk.items()
+                          if k not in ("tolerance", "cases", "max_rel_err")},
+                       **({"path_cases": path_cases(kk)}
+                          if path_cases(kk) else {})}
                       for kk in kernels]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

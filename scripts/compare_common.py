@@ -11,7 +11,10 @@ temporary directory outside the repository and loaded through ctypes under
 the same C entry points (``kernels/build.py::SIGNATURES``), so the
 package's own wrappers can launch it: :func:`using_library` swaps it in
 for the package's library during a call.  An entry point whose signature
-has changed since is bound with its own and launched by the script.
+has changed since is bound with its own and launched by the script; an
+attention source from before the head dim became an argument
+(:func:`load_before_head_dim`) goes through the wrappers behind a stand-in
+that drops it.
 """
 from __future__ import annotations
 
@@ -61,6 +64,53 @@ def load_other(sources: list[Path], tmp: Path, name: str,
         fn.argtypes = sigs[entry] if entry in sigs else build.SIGNATURES[entry]
         fn.restype = ctypes.c_int
     return lib
+
+
+# the attention kernels' C entry points before the head dim became an
+# argument (PRs 16-26, head dim 128 only): their argument types, and the
+# index of the head dim in today's arguments
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+PRE_HEAD_DIM = {
+    "flash_attention_launch": ([_P] * 4 + [_I] * 6 + [_L] * 9 + [_P], 9),
+    "decode_attention_launch": ([_P] * 8 + [_I] * 7 + [_P], 12),
+    "decode_attention_blocks_per_sm": ([_I], 1),
+    "decode_attention_paged_launch": ([_P] * 9 + [_I] * 8 + [_P], 12),
+    "decode_attention_paged_blocks_per_sm": ([_I], 1),
+}
+
+
+class _DropHeadDim:
+    """Stands in for a library whose entries ``drop`` ({entry: index})
+    take no head dim: called with today's arguments, each passes on all
+    but the head dim, which must be 128."""
+
+    def __init__(self, lib, drop: dict):
+        self._lib, self._drop = lib, drop
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+        if name not in self._drop:
+            return fn
+        i = self._drop[name]
+
+        def call(*args):
+            if args[i] != 128:
+                raise ValueError(f"{name}: the earlier source takes head "
+                                 f"dim 128 only, not {args[i]}")
+            return fn(*args[:i], *args[i + 1:])
+        return call
+
+
+def load_before_head_dim(sources: list[Path], tmp: Path, name: str,
+                         entries: list[str]):
+    """:func:`load_other` for an attention source from before the head dim
+    became an argument: its ``entries`` bound with their own argument types
+    (``PRE_HEAD_DIM``), behind a stand-in that takes today's, so the
+    package's wrappers launch it (at head dim 128) under
+    :func:`using_library`."""
+    lib = load_other(sources, tmp, name, entries,
+                     {e: PRE_HEAD_DIM[e][0] for e in entries})
+    return _DropHeadDim(lib, {e: PRE_HEAD_DIM[e][1] for e in entries})
 
 
 @contextlib.contextmanager

@@ -6,7 +6,7 @@ earlier versions of its source, on one NVIDIA GPU, on the same inputs.
     for f in decode_attention.cu decode_common.cuh; do
       git show <commit>:src/repro_torch/csrc/$f > build/old_decode/$f
     done
-    python3 scripts/decode_compare.py --other old=build/old_decode \\
+    python3 scripts/decode_compare.py --parent old=build/old_decode \\
         [--sass] [--chunk N ...]
 
 (``build/`` is ignored by git.)  The current kernel ("new") comes from the
@@ -14,12 +14,20 @@ package's build and its wrapper, with ``pos`` a 0-d int32 on the card.
 Each ``--other NAME=DIR`` compiles DIR's ``decode_attention.cu`` out of
 tree (``compare_common.py``) and launches it through the package's
 wrapper, so it must have today's C entry points (``pos`` on the device,
-one launch); its output must equal the new kernel's bit for bit
-(``NAME_equal_new``).  Inputs are seeded N(0, 1) values at the
-served decode shapes: qwen3-4b's (batch 4, 32 query heads over 8 kv heads, a
-2080-position cache) at pos 2048 and 2078 (its first and last decode
-steps), and qwen2-moe's (batch 4, 16 heads, MHA, a 272-position cache) at
-pos 256 and 270.  Each version is held row by row to the plain version
+one launch, the head dim an argument); each ``--parent NAME=DIR`` the
+same for a source from before the head dim became an argument (PRs
+18-26), through its own C signatures (``compare_common.py``), at head dim
+128 and reps 1, 2, 4 and 8 only.  Their outputs must equal the new
+kernel's bit for bit (``NAME_equal_new``).  Inputs are seeded N(0, 1)
+values at the served decode shapes: qwen3-4b's (batch 4, 32 query heads
+over 8 kv heads, a 2080-position cache) at pos 2048 and 2078 (its first
+and last decode steps), qwen2-moe's (batch 4, 16 heads, MHA, a
+272-position cache) at pos 256 and 270, qwen3-1.7b's (16 query heads over
+8: rep 2) at pos 2078, and serve-dense-wide's last decode steps (a
+1040-position cache at pos 1038) of qwen2-72b (64 over 8: rep 8),
+internvl2-26b (48 over 8: rep 6) and musicgen-large (32 heads, MHA, head
+dim 64); no earlier source takes the last two.  Each version is held row
+by row to the plain version
 (``chip_smoke.KERNEL_TOL``), then timed in turns (others, new, new,
 others reversed): CUDA-event medians and profiler device times, beside
 ``scaled_dot_product_attention`` on the live prefix (events and device)
@@ -44,11 +52,16 @@ from pathlib import Path
 
 import compare_common as cc
 
-# name: (B, H, Hkv, S, pos)
-CASES = {"qwen3_4b_first": (4, 32, 8, 2080, 2048),
-         "qwen3_4b_last": (4, 32, 8, 2080, 2078),
-         "qwen2_moe_first": (4, 16, 16, 272, 256),
-         "qwen2_moe_last": (4, 16, 16, 272, 270)}
+# name: (B, H, Hkv, S, pos, D)
+CASES = {"qwen3_4b_first": (4, 32, 8, 2080, 2048, 128),
+         "qwen3_4b_last": (4, 32, 8, 2080, 2078, 128),
+         "qwen2_moe_first": (4, 16, 16, 272, 256, 128),
+         "qwen2_moe_last": (4, 16, 16, 272, 270, 128),
+         "qwen3_1_7b_last": (4, 16, 8, 2080, 2078, 128),
+         "qwen2_72b_last": (4, 64, 8, 1040, 1038, 128),
+         "internvl2_last": (4, 48, 8, 1040, 1038, 128),
+         "musicgen_last": (4, 32, 32, 1040, 1038, 64)}
+PARENT_REPS = (1, 2, 4, 8)   # what a source before PR 27 takes
 ENTRY = "decode_attention_launch"
 SLOTS = "decode_attention_blocks_per_sm"
 
@@ -66,6 +79,10 @@ def main() -> int:
                     help="a directory holding another decode_attention.cu "
                          "with today's C entry point and the "
                          "decode_common.cuh it includes")
+    ap.add_argument("--parent", action="append", default=[],
+                    metavar="NAME=DIR",
+                    help="the same for a source whose entry points take no "
+                         "head dim")
     ap.add_argument("--chunk", action="append", default=[], type=int,
                     help="also time the new kernel at this chunk size")
     ap.add_argument("--sass", action="store_true")
@@ -88,28 +105,36 @@ def main() -> int:
     tol = cs.KERNEL_TOL["decode_attention"]
     ok = True
     with tempfile.TemporaryDirectory() as tmp:
-        others = {}
+        others, parents = {}, set()
         for other in args.other:
             name, path = other.split("=", 1)
             others[name] = cc.load_other(
                 [Path(path) / "decode_attention.cu"], Path(tmp), name,
                 [ENTRY, SLOTS])
+        for other in args.parent:
+            name, path = other.split("=", 1)
+            others[name] = cc.load_before_head_dim(
+                [Path(path) / "decode_attention.cu"], Path(tmp), name,
+                [ENTRY, SLOTS])
+            parents.add(name)
         gen = torch.Generator(device=dev).manual_seed(0)
-        for case, (B, H, Hkv, S, pos) in CASES.items():
-            q = torch.randn((B, H, 128), generator=gen, device=dev,
+        for case, (B, H, Hkv, S, pos, D) in CASES.items():
+            q = torch.randn((B, H, D), generator=gen, device=dev,
                             dtype=torch.bfloat16)
-            k = torch.randn((B, S, Hkv, 128), generator=gen, device=dev,
+            k = torch.randn((B, S, Hkv, D), generator=gen, device=dev,
                             dtype=torch.bfloat16)
-            v = torch.randn((B, S, Hkv, 128), generator=gen, device=dev,
+            v = torch.randn((B, S, Hkv, D), generator=gen, device=dev,
                             dtype=torch.bfloat16)
             pos_t = torch.full((), pos, dtype=torch.int32, device=dev)
             rep = H // Hkv
-            sms, per_sm = na._decode_slots_of(lib, dev, rep)
+            sms, per_sm = na._decode_slots_of(lib, dev, rep, D)
             chunk = na.decode_chunk(B, S, Hkv, sms, per_sm)
             # each version as a function of the cache (k, v)
             fns = {"new": lambda kk, vv: na.decode_attention_cuda(q, kk, vv,
                                                                    pos_t)}
             for name, olib in others.items():
+                if name in parents and (D != 128 or rep not in PARENT_REPS):
+                    continue
                 def through_wrapper(kk, vv, olib=olib):
                     with cc.using_library(olib):
                         return na.decode_attention_cuda(q, kk, vv, pos_t)
@@ -130,7 +155,8 @@ def main() -> int:
                       for _ in range(cs.COLD_CACHES)]
             ref = na.decode_attention_plain(q, k, v, pos)
             line = {"case": case, "B": B, "H": H, "Hkv": Hkv, "S": S,
-                    "pos": pos, "tol": tol, "sms": sms, "blocks_per_sm": per_sm,
+                    "D": D, "pos": pos, "tol": tol, "sms": sms,
+                    "blocks_per_sm": per_sm,
                     "chunk": chunk, "chunks": -(-S // chunk),
                     "grid_blocks": -(-S // chunk) * B * Hkv}
             for kn, fn in fns.items():
@@ -144,6 +170,8 @@ def main() -> int:
                                                        fns["new"](k, v)))
             ok &= line["new_again_equal"]
             for name in others:
+                if name not in fns:
+                    continue
                 line[f"{name}_equal_new"] = bool(torch.equal(
                     fns[name](k, v), new_out))
                 ok &= line[f"{name}_equal_new"]

@@ -7,8 +7,8 @@ inputs.
     for f in decode_attention_paged.cu decode_common.cuh; do
       git show <commit>:src/repro_torch/csrc/$f > build/old_paged/$f
     done
-    python3 scripts/paged_compare.py --split old=build/old_paged \\
-        [--other NAME=DIR ...] [--sass] [--chunk N ...]
+    python3 scripts/paged_compare.py --parent old=build/old_paged \\
+        [--split NAME=DIR ...] [--other NAME=DIR ...] [--sass] [--chunk N ...]
 
 (``build/`` is ignored by git.)  The current kernel ("new") comes from the
 package's build and its wrapper.  Each ``--split NAME=DIR`` compiles DIR's
@@ -19,11 +19,16 @@ bs table columns, then a second launch to merge them (part_m and part_l
 apart, and the columns a chunk in place of the arrival counters and the
 chunk).  Each ``--other NAME=DIR`` (a draft with today's entry points)
 launches through the package's wrapper, its chunk from its own
-occupancy.  Inputs: qwen3-4b's decode heads (batch 4, 32 query heads over 8
-kv heads, head dim 128) over 16-token blocks whose tables a
-``KVBlockPool`` makes, every unread pool row NaN (``chip_smoke.
-paged_pools`` on seeded N(0, 1) caches), at the served ragged positions
-``chip_smoke.PAGED_POS`` and at a full batch (2078 for all four).  Each
+occupancy; each ``--parent NAME=DIR`` likewise, for a source from
+before the head dim became an argument (PRs 22-26, head dim 128 only),
+through its own C signatures (``compare_common.py``), its output equal to
+the new kernel's bit for bit (``NAME_equal_new``).  Inputs: qwen3-4b's
+decode heads (batch 4, 32 query heads over 8 kv heads, head dim 128)
+over 16-token blocks whose tables a ``KVBlockPool`` makes, every unread
+pool row NaN (``chip_smoke.paged_pools`` on seeded N(0, 1) caches), at
+the served ragged positions ``chip_smoke.PAGED_POS`` and at a full batch
+(2078 for all four), and at the served positions with 8, 16 and 64 query
+heads over the same 8 kv heads (reps 1, 2 and 8).  Each
 version is held row by row to the plain version
 (``chip_smoke.KERNEL_TOL``), then timed in turns (others, new, new, others
 reversed): CUDA-event medians and profiler device times beside the bound
@@ -47,9 +52,13 @@ from pathlib import Path
 
 import compare_common as cc
 
-# name: the positions of the batch's four sequences
-CASES = {"served": None, "full": (2078,) * 4}
-S, H, HKV = 2080, 32, 8    # the contiguous caches the pools are cut from
+# name: (the positions of the batch's four sequences, query heads); the
+# served decode heads are qwen3-4b's (32 over 8 kv heads), and the other
+# reps the D 128 kernel takes before PR 27 ride on the same 8 kv heads
+CASES = {"served": (None, 32), "full": ((2078,) * 4, 32),
+         "served_rep1": (None, 8), "served_rep2": (None, 16),
+         "served_rep8": (None, 64)}
+S, HKV = 2080, 8    # the contiguous caches the pools are cut from
 ENTRY = "decode_attention_paged_launch"
 SLOTS = "decode_attention_paged_blocks_per_sm"
 # the C entry point before the one-launch design: q, k, v, tables, pos,
@@ -100,6 +109,10 @@ def main() -> int:
     ap.add_argument("--other", action="append", default=[],
                     metavar="NAME=DIR",
                     help="the same, for a source with today's entry points")
+    ap.add_argument("--parent", action="append", default=[],
+                    metavar="NAME=DIR",
+                    help="the same for a source whose entry points take no "
+                         "head dim")
     ap.add_argument("--chunk", action="append", default=[], type=int,
                     help="also time the new kernel at this chunk size")
     ap.add_argument("--sass", action="store_true")
@@ -133,19 +146,26 @@ def main() -> int:
             others[name] = cc.load_other(
                 [Path(path) / "decode_attention_paged.cu"], Path(tmp), name,
                 [ENTRY, SLOTS])
+        parents = set()
+        for other in args.parent:
+            name, path = other.split("=", 1)
+            others[name] = cc.load_before_head_dim(
+                [Path(path) / "decode_attention_paged.cu"], Path(tmp), name,
+                [ENTRY, SLOTS])
+            parents.add(name)
         gen = torch.Generator(device=dev).manual_seed(0)
-        q = torch.randn((4, H, 128), generator=gen, device=dev,
-                        dtype=torch.bfloat16)
         k = torch.randn((4, S, HKV, 128), generator=gen, device=dev,
                         dtype=torch.bfloat16)
         v = torch.randn_like(k)
-        for case, pos in CASES.items():
+        for case, (pos, H) in CASES.items():
             pos = pos or cs.PAGED_POS
+            q = torch.randn((4, H, 128), generator=gen, device=dev,
+                            dtype=torch.bfloat16)
             k_pool, v_pool, tables, posv, pool = cs.paged_pools(
                 k, v, pos, cs.PAGED_BLOCK)
             NB, bs = k_pool.shape[:2]
             nb = tables.shape[1]
-            sms, per_sm = na._decode_slots_of(lib, dev, H // HKV,
+            sms, per_sm = na._decode_slots_of(lib, dev, H // HKV, 128,
                                               "decode_attention_paged")
             chunk = na.paged_chunk(4, nb, bs, HKV, sms, per_sm)
             # each version as a function of the pools
@@ -183,7 +203,8 @@ def main() -> int:
             ref = na.decode_attention_paged_plain(q, k_pool, v_pool, tables,
                                                   posv)
             live = cs.paged_live((q, k_pool, v_pool, tables, posv))
-            line = {"case": case, "pos": list(pos), "block": bs,
+            line = {"case": case, "H": H, "Hkv": HKV, "pos": list(pos),
+                    "block": bs,
                     "pool_blocks": NB, "table_width": nb, "tol": tol,
                     "sms": sms, "blocks_per_sm": per_sm, "chunk": chunk,
                     "chunks": -(-(nb * bs) // chunk),
@@ -195,9 +216,14 @@ def main() -> int:
                 ok &= err <= tol
             # a second call of the new kernel: its arrival counters were
             # set back to 0 by the first
+            new_out = fns["new"](k_pool, v_pool)
             line["new_again_equal"] = bool(torch.equal(
-                fns["new"](k_pool, v_pool), fns["new"](k_pool, v_pool)))
+                new_out, fns["new"](k_pool, v_pool)))
             ok &= line["new_again_equal"]
+            for name in parents:
+                line[f"{name}_equal_new"] = bool(torch.equal(
+                    fns[name](k_pool, v_pool), new_out))
+                ok &= line[f"{name}_equal_new"]
             bound_ms, bound_by, work = cs.norm_attn_bound(
                 "decode_attention_paged", (q, k_pool, v_pool, tables, posv),
                 {})

@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
 """Plant one fault at a time in a copy of the port's sources and count the
 ``cuda`` tests of RMSNorm, the scan, the wire kernels, the double-buffered
-grouped SwiGLU, paged decoding, the replayed Mamba decode step and the EP
-backward kernels that each fails, on one NVIDIA GPU.
+grouped SwiGLU, flash attention, flash decoding (contiguous and paged), the
+replayed Mamba decode step and the EP backward kernels that each fails, on
+one NVIDIA GPU.
 
     python3 scripts/plant_faults.py [FAULT ...]
 
 Each fault (all of ``FAULTS``, or those named) is a one-line edit of
 ``csrc/mamba_scan.cu``, ``csrc/dequantize.cu``, ``csrc/rmsnorm.cu``,
 ``csrc/gather_quantize.cu``, ``csrc/grouped_swiglu_db.cu``,
-``csrc/decode_attention_paged.cu``, the decoders' shared body
+``csrc/flash_attention.cu``, ``csrc/decode_attention_paged.cu``, the
+decoders' shared body
 ``csrc/decode_common.cuh``, the tile loop's backward passes in
 ``csrc/swiglu_tiles.cuh``, ``csrc/swiglu_bwd.cu``, ``csrc/wire_bwd.cu``
 or ``launch/serve.py``
@@ -34,7 +36,8 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[1]
 CSRC = "src/repro_torch/csrc/"
 TESTS = ("rmsnorm or scan or quantize or swiglu_db or paged or "
-         "graph_matches_eager_mamba or bwd or train_through")
+         "graph_matches_eager_mamba or bwd or train_through or flash or "
+         "decode_attention")
 # name: (file, text, the text that replaces it)
 FAULTS = {
     "scan_drops_carry": (
@@ -93,6 +96,17 @@ FAULTS = {
         "__ldg(p.tables + (long long)b * p.nb + min(c + 1, p.nb - 1))"),
     "paged_reads_dead_rows": (
         CSRC + "decode_common.cuh", '"r"(live ? 16 : 0));', '"r"(16));'),
+    # the head dim 64 paths: flash attention's PV product weighting each
+    # 16-key step's values by its neighbour's probabilities; the decoders'
+    # merge at D = 64 (two threads a feature) leaving the odd heads to no
+    # thread
+    "flash_d64_pv_wrong_keys": (
+        CSRC + "flash_attention.cu", "        wgmma_rs_n64(o, pa[kk], dv);",
+        "        wgmma_rs_n64(o, pa[kk ^ 1], dv);"),
+    "decode_d64_merge_even_heads": (
+        CSRC + "decode_common.cuh",
+        "  const int r0 = kSplit == 1 ? 0 : tid / D;",
+        "  const int r0 = 0;"),
     "paged_merge_drops_last_chunk": (
         CSRC + "decode_common.cuh",
         "const bool in = (c0 + j) * p.chunk < n_live;",

@@ -1,11 +1,13 @@
-"""Model configs for the port: the subset of ``repro.configs.base`` the
-serving and training slices need, kept as a copy so the port never imports
-``repro``."""
+"""Model configs for the port: a copy of ``repro.configs.base`` (the
+configs, the shape cells, the parameter counts), kept so the port never
+imports ``repro``.  Only the EP backend's default name differs
+(``torch_collectives`` for the reference's ``jax_collectives``)."""
 from __future__ import annotations
 
 import dataclasses
 import importlib
 from dataclasses import dataclass, field
+from typing import Sequence
 
 
 def _round_up(x: int, m: int) -> int:
@@ -18,6 +20,7 @@ class MoEConfig:
 
     n_experts: int = 0                 # routed experts
     top_k: int = 0
+    n_shared_experts: int = 0          # always-on shared experts (qwen2-moe)
     d_expert: int = 0                  # per-expert FFN hidden dim
     d_shared: int = 0                  # fused always-on shared-expert hidden dim
     moe_every: int = 1                 # MoE layer every Nth layer (1 = all)
@@ -55,6 +58,7 @@ class ModelConfig:
     """One architecture.  Field names follow ``repro.configs.base``."""
 
     arch_id: str
+    family: str                       # dense | moe | ssm | hybrid | vlm | audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -72,12 +76,17 @@ class ModelConfig:
     # hybrid (jamba): one attention layer per `attn_every` layers; rest mamba
     attn_every: int = 0               # 0 = all layers attention (or none if n_heads==0)
     attn_offset: int = 0              # index within the period that is attention
+    # modality frontend stub: prefix embedding positions a training batch
+    # carries ("vlm": patch embeddings, "audio": frame embeddings)
+    frontend_prefix: int = 0
     source: str = ""
     # numerics / training
     dtype: str = "bfloat16"
     param_dtype: str = "float32"      # the only one the port trains in
     optimizer: str = "adamw"          # adamw | adafactor (factored 2nd moment)
     remat: bool = True                # recompute each layer in the backward
+    # sub-quadratic attention available? (pure full-attention archs: False)
+    subquadratic: bool = False
 
     @property
     def head_dim_(self) -> int:
@@ -92,6 +101,12 @@ class ModelConfig:
     def padded_vocab(self, multiple: int = 256) -> int:
         return _round_up(self.vocab_size, multiple)
 
+    def padded_experts(self, ep_degree: int) -> int:
+        """Routed experts padded up so EP sharding divides evenly."""
+        if not self.moe.enabled:
+            return 0
+        return _round_up(self.moe.n_experts, ep_degree)
+
     def is_attn_layer(self, layer_idx: int) -> bool:
         if self.attention_free:
             return False
@@ -104,25 +119,103 @@ class ModelConfig:
             return False
         return layer_idx % self.moe.moe_every == (self.moe.moe_every - 1)
 
+    def param_count(self) -> int:
+        """Approximate parameter count (embeddings + blocks), as the
+        reference counts it."""
+        n = self.vocab_size * self.d_model * (1 if self.tie_embeddings else 2)
+        for i in range(self.n_layers):
+            n += self._block_params(i)
+        return n
 
-ARCH_IDS = ("qwen2_moe_a2_7b", "falcon_mamba_7b", "jamba_1_5_large_398b",
-            "qwen3_4b", "qwen3_1_7b", "moonshot_v1_16b_a3b")
+    def active_param_count(self) -> int:
+        """Active-per-token parameters (MoE: top_k + shared experts only)."""
+        n = self.vocab_size * self.d_model * (1 if self.tie_embeddings else 2)
+        for i in range(self.n_layers):
+            n += self._block_params(i, active_only=True)
+        return n
+
+    def _block_params(self, i: int, active_only: bool = False) -> int:
+        d = self.d_model
+        n = 0
+        if self.is_attn_layer(i):
+            hd = self.head_dim_
+            n += 2 * d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
+            if self.qkv_bias:
+                n += (self.n_heads + 2 * self.n_kv_heads) * hd
+        elif self.mamba.enabled:
+            di = self.mamba.expand * d
+            dtr = self.mamba.dt_rank or -(-d // 16)
+            n += d * di * 2                              # in_proj (x and z)
+            n += di * self.mamba.d_conv                  # depthwise conv
+            n += di * (dtr + 2 * self.mamba.d_state)     # x_proj
+            n += dtr * di + di                           # dt_proj
+            n += di * self.mamba.d_state + di            # A_log, D
+            n += di * d                                  # out_proj
+        if self.is_moe_layer(i):
+            e = self.moe.top_k if active_only else self.moe.n_experts
+            n += e * 3 * d * self.moe.d_expert
+            if self.moe.d_shared:
+                n += 3 * d * self.moe.d_shared
+            n += d * self.moe.n_experts                  # router
+        elif self.d_ff:
+            n += 3 * d * self.d_ff                       # SwiGLU
+        n += 2 * d                                       # 2 RMSNorms
+        return n
+
+
+@dataclass(frozen=True)
+class ShapeCell:
+    """One input-shape cell of the reference's assignment."""
+
+    name: str                 # train_4k | prefill_32k | decode_32k | long_500k
+    seq_len: int
+    global_batch: int
+    kind: str                 # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+SHAPES: dict[str, ShapeCell] = {
+    "train_4k": ShapeCell("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524_288, 1, "decode"),
+}
+
+ARCH_IDS: Sequence[str] = (
+    "moonshot_v1_16b_a3b",
+    "qwen2_moe_a2_7b",
+    "qwen3_1_7b",
+    "phi3_medium_14b",
+    "qwen2_72b",
+    "qwen3_4b",
+    "internvl2_26b",
+    "musicgen_large",
+    "falcon_mamba_7b",
+    "jamba_1_5_large_398b",
+)
 _ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
 
 
 def get_config(arch: str) -> ModelConfig:
     arch = _ALIASES.get(arch, arch).replace("-", "_").replace(".", "_")
     if arch not in ARCH_IDS:
-        raise KeyError(f"unknown or not yet ported arch {arch!r}; "
-                       f"ported: {list(ARCH_IDS)}")
+        raise KeyError(f"unknown arch {arch!r}; known: {list(ARCH_IDS)}")
     return importlib.import_module(f"repro_torch.configs.{arch}").CONFIG
+
+
+def all_configs() -> dict[str, ModelConfig]:
+    return {a: get_config(a) for a in ARCH_IDS}
 
 
 def reduced_config(cfg: ModelConfig, *, n_layers: int = 2, d_model: int = 64,
                    n_experts: int = 8, vocab: int = 512) -> ModelConfig:
     """Tiny same-family config for CPU smoke tests (same rule as the JAX
     package's ``reduced_config``: no heads when attention-free, a hybrid
-    interleave period of at most 2 so two layers cover both kinds)."""
+    interleave period of at most 2 so two layers cover both kinds, a
+    frontend prefix of at most 4)."""
     heads = 0 if cfg.attention_free else 4
     kv = 0 if cfg.attention_free else (2 if cfg.n_kv_heads < cfg.n_heads else 4)
     moe = cfg.moe
@@ -135,4 +228,11 @@ def reduced_config(cfg: ModelConfig, *, n_layers: int = 2, d_model: int = 64,
         cfg, n_layers=n_layers, d_model=d_model, n_heads=heads, n_kv_heads=kv,
         head_dim=d_model // heads if heads else 0,
         d_ff=d_model * 2 if cfg.d_ff else 0, vocab_size=vocab, moe=moe,
-        attn_every=attn_every, attn_offset=0)
+        attn_every=attn_every, attn_offset=0,
+        frontend_prefix=min(cfg.frontend_prefix, 4))
+
+
+def cells_for(cfg: ModelConfig) -> list[str]:
+    """Shape cells this arch runs (long_500k only for sub-quadratic archs)."""
+    return [name for name in SHAPES
+            if name != "long_500k" or cfg.subquadratic]

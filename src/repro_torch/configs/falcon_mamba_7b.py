@@ -7,6 +7,7 @@ from repro_torch.configs.base import MambaConfig, ModelConfig
 
 CONFIG = ModelConfig(
     arch_id="falcon_mamba_7b",
+    family="ssm",
     n_layers=64,
     d_model=4096,
     n_heads=0,
@@ -14,5 +15,6 @@ CONFIG = ModelConfig(
     d_ff=0,
     vocab_size=65_024,
     mamba=MambaConfig(d_state=16, d_conv=4, expand=2),
+    subquadratic=True,
     source="[arXiv:2410.05355; unverified]",
 )

@@ -12,6 +12,7 @@ from repro_torch.configs.base import MambaConfig, ModelConfig, MoEConfig
 
 CONFIG = ModelConfig(
     arch_id="jamba_1_5_large_398b",
+    family="hybrid",
     n_layers=72,
     d_model=8192,
     n_heads=64,
@@ -24,5 +25,6 @@ CONFIG = ModelConfig(
     attn_every=8,
     attn_offset=4,
     optimizer="adafactor",
+    subquadratic=True,
     source="[arXiv:2403.19887; hf]",
 )

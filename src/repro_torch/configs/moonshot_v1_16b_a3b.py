@@ -9,6 +9,7 @@ from repro_torch.configs.base import ModelConfig, MoEConfig
 
 CONFIG = ModelConfig(
     arch_id="moonshot_v1_16b_a3b",
+    family="moe",
     n_layers=48,
     d_model=2048,
     n_heads=16,

@@ -8,6 +8,7 @@ from repro_torch.configs.base import ModelConfig, MoEConfig
 
 CONFIG = ModelConfig(
     arch_id="qwen2_moe_a2_7b",
+    family="moe",
     n_layers=24,
     d_model=2048,
     n_heads=16,
@@ -16,7 +17,7 @@ CONFIG = ModelConfig(
     vocab_size=151_936,
     qkv_bias=True,
     rope_theta=1e6,
-    moe=MoEConfig(n_experts=60, top_k=4, d_expert=1408,
-                  d_shared=4 * 1408, moe_every=1),
+    moe=MoEConfig(n_experts=60, top_k=4, n_shared_experts=4,
+                  d_expert=1408, d_shared=4 * 1408, moe_every=1),
     source="[hf:Qwen/Qwen1.5-MoE-A2.7B; hf]",
 )

@@ -6,6 +6,7 @@ from repro_torch.configs.base import ModelConfig
 
 CONFIG = ModelConfig(
     arch_id="qwen3_1_7b",
+    family="dense",
     n_layers=28,
     d_model=2048,
     n_heads=16,

@@ -9,6 +9,7 @@ from repro_torch.configs.base import ModelConfig
 
 CONFIG = ModelConfig(
     arch_id="qwen3_4b",
+    family="dense",
     n_layers=36,
     d_model=2560,
     n_heads=32,

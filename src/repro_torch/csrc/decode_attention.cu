@@ -1,6 +1,6 @@
 // decode_attention: flash decoding of one query per sequence over a
 // contiguous cache slice, in one launch.  q (B, H, D) bf16, k / v (B, S,
-// Hkv, D) bf16 holding global positions [start, start + S), D = 128; pos a
+// Hkv, D) bf16 holding global positions [start, start + S), D 64 or 128; pos a
 // 0-d int32 on the device, the same for the batch: sequence b attends
 // positions start .. pos; q head h reads kv head h / (H / Hkv).  out (B, H,
 // D) bf16, normalised, 0 where no position is live.
@@ -18,6 +18,7 @@
 
 namespace {
 
+template <int D>
 struct SliceRows {
   const bf16* kb;
   const bf16* vb;
@@ -28,8 +29,8 @@ struct SliceRows {
   }
 
   __device__ __forceinline__ SliceRows(const Params& p, int b, int kh, int gl, int)
-      : row((long long)p.Hkv * kD) {
-    const long long base = ((long long)b * p.S * p.Hkv + kh) * kD + 8 * gl;
+      : row((long long)p.Hkv * D) {
+    const long long base = ((long long)b * p.S * p.Hkv + kh) * D + 8 * gl;
     kb = p.k + base;
     vb = p.v + base;
   }
@@ -59,19 +60,21 @@ struct SliceRows {
 }  // namespace
 
 // Resident blocks an SM holds of the kernel for rep query heads a kv head
-// (0 for a rep it does not take, or on error).
-extern "C" int decode_attention_blocks_per_sm(int rep) { return blocks_per_sm<SliceRows>(rep); }
+// at head dim D (0 for a rep or D it does not take, or on error).
+extern "C" int decode_attention_blocks_per_sm(int rep, int D) {
+  return blocks_per_sm<SliceRows>(rep, D);
+}
 
-// q (B, H, 128), k / v (B, S, Hkv, 128) bf16, contiguous; pos a 0-d int32
+// q (B, H, D), k / v (B, S, Hkv, D) bf16, contiguous; pos a 0-d int32
 // on the device, global; start the slice's first global position; ns
 // chunks of chunk positions cover S (ns * chunk >= S, ns >= 1); part_o
-// (B, H, ns, 128) and part_ml (2, B, H, ns) the wrapper's fp32 scratch;
+// (B, H, ns, D) and part_ml (2, B, H, ns) the wrapper's fp32 scratch;
 // arrivals (B * Hkv) int32, zero, and zero again after the launch; out (B,
-// H, 128) bf16.  H / Hkv must be 1, 2, 4 or 8.
+// H, D) bf16.  D must be 64 or 128, H / Hkv 1, 2, 4, 6 or 8.
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
                                        const void* pos, void* part_o, void* part_ml,
                                        void* arrivals, void* out, int B, int S, int H, int Hkv,
-                                       int start, int ns, int chunk, void* stream) {
+                                       int D, int start, int ns, int chunk, void* stream) {
   if (ns < 1 || chunk < 1 || (long long)ns * chunk < S)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{};
@@ -90,6 +93,6 @@ extern "C" int decode_attention_launch(const void* q, const void* k, const void*
   p.chunk = chunk;
   p.S = S;
   p.start = start;
-  p.scale_log2 = kLog2e / sqrtf((float)kD);
-  return launch<SliceRows>(p, B, reinterpret_cast<cudaStream_t>(stream));
+  p.scale_log2 = kLog2e / sqrtf((float)D);
+  return launch<SliceRows>(p, B, D, reinterpret_cast<cudaStream_t>(stream));
 }

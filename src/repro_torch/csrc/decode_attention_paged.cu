@@ -1,6 +1,6 @@
 // decode_attention_paged: flash decoding of one query per sequence
 // through a paged KV cache, in one launch.  q (B, H, D) bf16; k / v pools
-// (NB, bs, Hkv, D) bf16, D = 128; tables (B, nb) int32 pool block ids (-1,
+// (NB, bs, Hkv, D) bf16, D 64 or 128; tables (B, nb) int32 pool block ids (-1,
 // or any id outside [0, NB), unallocated); pos (B,) int32 on the device.
 // Sequence b attends the positions p <= pos[b] whose block tables[b, p /
 // bs] is allocated, at row p % bs of that block; q head h reads kv head
@@ -27,8 +27,8 @@
 // no unread row of the pools (the card tests fill them with NaN) reaches
 // the arithmetic.
 //
-// Bound on an H100: each live K and V row is read once, 256 bytes a row
-// each at D = 128: at qwen3-4b's decode shape (B 4, 8 kv heads, ragged
+// Bound on an H100: each live K and V row is read once, 2 D bytes a row
+// each (256 at D = 128): at qwen3-4b's decode shape (B 4, 8 kv heads, ragged
 // pos 2078 / 2047 / 1031 / 17) 21.2 MB, 6.3 us at 3.35 TB/s.
 #include "decode_common.cuh"
 
@@ -36,6 +36,7 @@ namespace {
 
 constexpr int kMaxCols = 256;  // table columns a chunk holds, at most
 
+template <int D>
 struct TableRows {
   const bf16* kb;
   const bf16* vb;
@@ -48,7 +49,7 @@ struct TableRows {
   }
 
   __device__ __forceinline__ TableRows(const Params& p, int b, int kh, int gl, int j0_)
-      : row((long long)p.Hkv * kD), j0(j0_), bs(p.bs) {
+      : row((long long)p.Hkv * D), j0(j0_), bs(p.bs) {
     __shared__ int cols[kMaxCols];
     const int c0 = j0 / bs, n = p.chunk / bs;
     for (int i = threadIdx.x; i < n; i += kThreads) {
@@ -58,8 +59,8 @@ struct TableRows {
     }
     __syncthreads();
     tab = cols;
-    kb = p.k + kh * kD + 8 * gl;
-    vb = p.v + kh * kD + 8 * gl;
+    kb = p.k + kh * D + 8 * gl;
+    vb = p.v + kh * D + 8 * gl;
   }
 
   // the bits the step's copies returned (recomputing them would read the
@@ -91,23 +92,23 @@ struct TableRows {
 }  // namespace
 
 // Resident blocks an SM holds of the kernel for rep query heads a kv head
-// (0 for a rep it does not take, or on error).
-extern "C" int decode_attention_paged_blocks_per_sm(int rep) {
-  return blocks_per_sm<TableRows>(rep);
+// at head dim D (0 for a rep or D it does not take, or on error).
+extern "C" int decode_attention_paged_blocks_per_sm(int rep, int D) {
+  return blocks_per_sm<TableRows>(rep, D);
 }
 
-// q (B, H, 128), pools (NB, bs, Hkv, 128) bf16, tables (B, nb) and pos (B,)
+// q (B, H, D), pools (NB, bs, Hkv, D) bf16, tables (B, nb) and pos (B,)
 // int32, all contiguous on the device; ns chunks of chunk positions cover
 // the nb * bs a sequence may hold (ns * chunk >= nb * bs, ns >= 1), chunk
 // a multiple of bs and of 32, at most 256 table columns; part_o (B, H, ns,
-// 128) and part_ml (2, B, H, ns) the wrapper's fp32 scratch; arrivals (B *
-// Hkv) int32, zero, and zero again after the launch; out (B, H, 128) bf16.
-// H / Hkv must be 1, 2, 4 or 8.
+// D) and part_ml (2, B, H, ns) the wrapper's fp32 scratch; arrivals (B *
+// Hkv) int32, zero, and zero again after the launch; out (B, H, D) bf16.
+// D must be 64 or 128, H / Hkv 1, 2, 4, 6 or 8.
 extern "C" int decode_attention_paged_launch(const void* q, const void* k, const void* v,
                                              const void* tables, const void* pos, void* part_o,
                                              void* part_ml, void* arrivals, void* out, int B,
-                                             int H, int Hkv, int NB, int bs, int nb, int ns,
-                                             int chunk, void* stream) {
+                                             int H, int Hkv, int D, int NB, int bs, int nb,
+                                             int ns, int chunk, void* stream) {
   if (bs < 1 || ns < 1 || chunk < 1 || chunk % bs || chunk % kChunkAlign ||
       chunk / bs > kMaxCols || (long long)ns * chunk < (long long)nb * bs)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -130,6 +131,6 @@ extern "C" int decode_attention_paged_launch(const void* q, const void* k, const
   p.NB = NB;
   p.bs = bs;
   p.nb = nb;
-  p.scale_log2 = kLog2e / sqrtf((float)kD);
-  return launch<TableRows>(p, B, reinterpret_cast<cudaStream_t>(stream));
+  p.scale_log2 = kLog2e / sqrtf((float)D);
+  return launch<TableRows>(p, B, D, reinterpret_cast<cudaStream_t>(stream));
 }

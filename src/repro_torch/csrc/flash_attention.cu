@@ -1,8 +1,8 @@
 // flash_attention: out = softmax(q k^T / sqrt(D) [causal mask]) v per
-// (batch, head), q (B, Sq, H, D), k/v (B, Skv, Hkv, D) bf16, D = 128, GQA
-// q head h reading kv head h / (H / Hkv); out (B, Sq, H, D) bf16.  The
-// causal mask is top-left aligned (query i sees keys 0..i), as in the
-// reference.
+// (batch, head), q (B, Sq, H, D), k/v (B, Skv, Hkv, D) bf16, D 64 or
+// 128, GQA q head h reading kv head h / (H / Hkv) (any rep); out (B, Sq,
+// H, D) bf16.  The causal mask is top-left aligned (query i sees keys
+// 0..i), as in the reference.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py:68
 // flash_attention_pallas (body _fa_kernel :24): every attention layer of
@@ -24,18 +24,18 @@
 // completion on mbarriers), waiting on each stage's "empty" barrier before
 // it refills it, so that later tiles load while earlier ones multiply.
 // Warpgroups 1 and 2 are consumers of 64 query rows each: S = Q K^T runs
-// as eight wgmma.m64n128k16 with both operands read from shared memory by
+// as D / 16 wgmma.m64n128k16 with both operands read from shared memory by
 // descriptor (K-major, 128-byte swizzle); the online softmax runs on the
 // fp32 accumulator in registers; P, rounded to bf16 pairs, is laid out as
 // wgmma's register A fragment, and O += P V runs as eight register-A
-// wgmma.m64n128k16 with V read from shared memory in MN-major (transposed)
+// wgmma.m64nDk16 with V read from shared memory in MN-major (transposed)
 // form.  Two overlaps keep the tensor cores busy while the exponentials
 // run: within a consumer, tile j's scores are issued together with tile
 // j - 1's PV product, and tile j's softmax runs while that product does
 // (O is rescaled after it); and the two consumers' products and softmaxes
 // interleave on the SM.  setmaxnreg moves registers from the
 // producer (24) to the consumers (240: S and O accumulators of 64 fp32
-// each, P's 32 registers).  The output is staged through the consumer's
+// each at D = 128, O's 32 at D = 64; P's 32 registers).  The output is staged through the consumer's
 // own q rows in shared memory and written with coalesced 16-byte stores.
 // Query tiles run longest first over the whole grid (the causal tail is
 // short).  About half the bound at the qwen3 prefill; neither a
@@ -55,6 +55,14 @@
 // Each view's outer dims (s, h, b) enter the map in ascending stride order
 // (an extent-1 dim last), and the kernel permutes its coordinates to match.
 //
+// The head dim is a template parameter, D = 128 (qwen3, phi3, qwen2-72b,
+// internvl2, moonshot, qwen2-moe) or 64 (musicgen-large): a q, K or V tile
+// is D / 64 swizzle halves of 64 columns (one at D = 64, whose TMA box is
+// then the whole row), QK^T takes D / 16 k16 steps, PV runs as
+// m64n64k16 at D = 64 with half the O registers, the epilogue writes D / 8
+// chunks of 16 bytes a row.  The D = 128 instantiation is the kernel as it
+// was before D became a parameter, bit for bit.
+//
 // Kept from the TPU kernel: P rounds to bf16 before the PV product (:52-54)
 // while the sum l takes it in fp32; kv tiles strictly above the diagonal
 // are never loaded (:33); a row whose max is still -inf uses m = 0 (:46);
@@ -69,22 +77,30 @@ namespace {
 using namespace hopper;
 using hopper::fence_regs;  // overloaded below for P's registers
 using bf16 = __nv_bfloat16;
-constexpr int kD = 128;              // head dim (the wrapper refuses others)
 constexpr int kBQ = 128;             // query rows a block: two consumers of 64
 constexpr int kBK = 128;             // keys a tile
 constexpr int kStages = 3;           // K/V ring depth
 constexpr int kThreads = 384;        // producer + two consumer warpgroups
 constexpr int kRowBytes = 128;       // one swizzle row: 64 head-dim columns
 constexpr int kHalfBytes = kBK * kRowBytes;       // 16 KB: a 64-column half
-constexpr int kTileBytes = 2 * kHalfBytes;        // 32 KB: a K or V tile
-constexpr int kQBytes = kBQ * kD * 2;             // 32 KB
-constexpr int kOffK = kQBytes;
-constexpr int kOffV = kOffK + kStages * kTileBytes;
-constexpr int kOffBar = kOffV + kStages * kTileBytes;
 constexpr int kNumBars = 1 + 3 * kStages;         // q, full K, full V, empty
-constexpr int kSmemBytes = kOffBar + 8 * kNumBars + 1024;  // + alignment
 constexpr float kLog2e = 1.4426950408889634f;
-static_assert(kQBytes == kTileBytes, "q and kv tiles share the half stride");
+
+// shared memory and registers at head dim D
+template <int D>
+struct Layout {
+  static_assert(D == 64 || D == 128, "head dim 64 or 128");
+  static constexpr int kHalves = D / 64;                    // halves a tile
+  static constexpr int kTileBytes = kHalves * kHalfBytes;   // a K or V tile
+  static constexpr int kQBytes = kBQ * D * 2;
+  static constexpr int kOffK = kQBytes;
+  static constexpr int kOffV = kOffK + kStages * kTileBytes;
+  static constexpr int kOffBar = kOffV + kStages * kTileBytes;
+  static constexpr int kSmemBytes = kOffBar + 8 * kNumBars + 1024;  // + alignment
+  static constexpr int kOut = D / 2;  // O's fp32 registers a consumer thread
+  static constexpr int kChunks = D / 8;  // 16-byte chunks an output row
+  static_assert(kQBytes == kTileBytes, "q and kv tiles share the half stride");
+};
 
 struct Params {
   bf16* out;
@@ -165,6 +181,7 @@ __device__ __forceinline__ int pick(int which, int s, int h, int b) {
   return which == 0 ? s : (which == 1 ? h : b);
 }
 
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv, const Params p) {
@@ -172,7 +189,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms want 1024-byte alignment
   uint8_t* const smem = smem_raw + (base - raw);
-  const uint32_t q_bar = base + kOffBar;
+  using Lt = Layout<D>;
+  const uint32_t q_bar = base + Lt::kOffBar;
   const uint32_t full_k = q_bar + 8, full_v = full_k + 8 * kStages,
                  empty = full_v + 8 * kStages;
 
@@ -200,8 +218,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     // ------------------------------------------------------- producer --
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 0) {
-      mbar_expect_tx(q_bar, kQBytes);
-      for (int half = 0; half < 2; ++half)
+      mbar_expect_tx(q_bar, Lt::kQBytes);
+      for (int half = 0; half < Lt::kHalves; ++half)
         tma_load_4d(base + half * kHalfBytes, &tq, q_bar, half * 64,
                     pick(p.qperm[0], q0, h, b), pick(p.qperm[1], q0, h, b),
                     pick(p.qperm[2], q0, h, b));
@@ -209,14 +227,15 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int st = j % kStages;
         if (j >= kStages) mbar_wait(empty + 8 * st, ((j / kStages) - 1) & 1);
         const int k0 = j * kBK;
-        const uint32_t kd = base + kOffK + st * kTileBytes, vd = base + kOffV + st * kTileBytes;
-        mbar_expect_tx(full_k + 8 * st, kTileBytes);
-        for (int half = 0; half < 2; ++half)
+        const uint32_t kd = base + Lt::kOffK + st * Lt::kTileBytes,
+                       vd = base + Lt::kOffV + st * Lt::kTileBytes;
+        mbar_expect_tx(full_k + 8 * st, Lt::kTileBytes);
+        for (int half = 0; half < Lt::kHalves; ++half)
           tma_load_4d(kd + half * kHalfBytes, &tk, full_k + 8 * st, half * 64,
                       pick(p.kperm[0], k0, kh, b), pick(p.kperm[1], k0, kh, b),
                       pick(p.kperm[2], k0, kh, b));
-        mbar_expect_tx(full_v + 8 * st, kTileBytes);
-        for (int half = 0; half < 2; ++half)
+        mbar_expect_tx(full_v + 8 * st, Lt::kTileBytes);
+        for (int half = 0; half < Lt::kHalves; ++half)
           tma_load_4d(vd + half * kHalfBytes, &tv, full_v + 8 * st, half * 64,
                       pick(p.vperm[0], k0, kh, b), pick(p.vperm[1], k0, kh, b),
                       pick(p.vperm[2], k0, kh, b));
@@ -235,28 +254,36 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int row0 = q0 + 64 * c + rl;
   const uint32_t q_base = base + c * 64 * kRowBytes;
 
-  float o[64], s[64];
+  float o[Lt::kOut], s[64];
   uint32_t pa[8][4];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) o[i] = s[i] = 0.f;
+  for (int i = 0; i < 64; ++i) s[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < Lt::kOut; ++i) o[i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, corr[2], sum[2];
 
-  // S = Q K^T of tile j over the head dim: 8 steps of 16, 4 in each half
+  // S = Q K^T of tile j over the head dim: D / 16 steps of 16, 4 in each
+  // half
   auto issue_qk = [&](int j) {
-    const uint32_t kb = base + kOffK + (j % kStages) * kTileBytes;
+    const uint32_t kb = base + Lt::kOffK + (j % kStages) * Lt::kTileBytes;
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
+    for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t off = (kk >> 2) * kHalfBytes + (kk & 3) * 32;
       wgmma_ss(s, desc_sw128(q_base + off, 16, 1024), desc_sw128(kb + off, 16, 1024), kk > 0);
     }
     wg_commit();
   };
-  // O += bf16(P) V of tile j: 8 steps of 16 keys
+  // O += bf16(P) V of tile j: 8 steps of 16 keys, n = D
   auto issue_pv = [&](int j) {
-    const uint32_t vb = base + kOffV + (j % kStages) * kTileBytes;
+    const uint32_t vb = base + Lt::kOffV + (j % kStages) * Lt::kTileBytes;
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
-      wgmma_rs(o, pa[kk], desc_sw128(vb + kk * 16 * kRowBytes, kHalfBytes, 1024));
+    for (int kk = 0; kk < 8; ++kk) {
+      const uint64_t dv = desc_sw128(vb + kk * 16 * kRowBytes, kHalfBytes, 1024);
+      if constexpr (D == 128)
+        wgmma_rs(o, pa[kk], dv);
+      else
+        wgmma_rs_n64(o, pa[kk], dv);
+    }
     wg_commit();
   };
   auto softmax = [&](int j) {
@@ -307,7 +334,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       fence_regs(pa);
       if (lane == 0) mbar_arrive(empty + 8 * ((j - 1) % kStages));
 #pragma unroll
-      for (int i = 0; i < 16; ++i) {
+      for (int i = 0; i < D / 8; ++i) {
         o[4 * i] *= corr[0];
         o[4 * i + 1] *= corr[0];
         o[4 * i + 2] *= corr[1];
@@ -336,19 +363,19 @@ __global__ void __launch_bounds__(kThreads, 1)
   // stage O (bf16) in this consumer's own q rows, in q's swizzled layout
   uint8_t* const stage = smem + c * 64 * kRowBytes;
 #pragma unroll
-  for (int i = 0; i < 16; ++i) {
+  for (int i = 0; i < D / 8; ++i) {
     uint8_t* const at = stage + (i / 8) * kHalfBytes + rl * kRowBytes + (((i % 8) ^ g) * 16) + 4 * t;
     *reinterpret_cast<uint32_t*>(at) = pack_bf16(o[4 * i] * i0, o[4 * i + 1] * i0);
     *reinterpret_cast<uint32_t*>(at + 8 * kRowBytes) =
         pack_bf16(o[4 * i + 2] * i1, o[4 * i + 3] * i1);
   }
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
-  bf16* const out = p.out + ((long long)b * p.Sq * p.H + h) * kD;
-  const long long oss = (long long)p.H * kD;
+  bf16* const out = p.out + ((long long)b * p.Sq * p.H + h) * D;
+  const long long oss = (long long)p.H * D;
 #pragma unroll
-  for (int it = 0; it < 8; ++it) {
-    const int chunk = tid + 128 * it;        // 64 rows x 16 chunks of 16 bytes
-    const int r = chunk / 16, c16 = chunk % 16;
+  for (int it = 0; it < D / 16; ++it) {
+    const int chunk = tid + 128 * it;        // 64 rows x D / 8 chunks of 16 bytes
+    const int r = chunk / Lt::kChunks, c16 = chunk % Lt::kChunks;
     const int row = q0 + 64 * c + r;
     if (row < p.Sq) {
       const uint4 v = *reinterpret_cast<const uint4*>(
@@ -359,10 +386,11 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // 4-D map (d, then s, h, b in ascending stride order) over one bf16 view
-// with unit last stride; boxes of 64 columns x 128 rows of s.  ``perm``
-// receives the order.  Returns the encoder's CUresult (0 on success).
-int encode_view(CUtensorMap* map, const void* ptr, long long S, long long heads, long long B,
-                long long ss, long long sh, long long sb, int (&perm)[3]) {
+// of head dim D with unit last stride; boxes of 64 columns x 128 rows of
+// s.  ``perm`` receives the order.  Returns the encoder's CUresult (0 on
+// success).
+int encode_view(CUtensorMap* map, const void* ptr, int D, long long S, long long heads,
+                long long B, long long ss, long long sh, long long sb, int (&perm)[3]) {
   EncodeTiledFn fn = encoder();
   if (fn == nullptr) return CUDA_ERROR_NOT_FOUND;
   const long long ext[3] = {S, heads, B}, str[3] = {2 * ss, 2 * sh, 2 * sb};
@@ -376,9 +404,9 @@ int encode_view(CUtensorMap* map, const void* ptr, long long S, long long heads,
         ord[i] = ord[j];
         ord[j] = tmp;
       }
-  cuuint64_t dims[4] = {(cuuint64_t)kD, 0, 0, 0}, strides[3];
+  cuuint64_t dims[4] = {(cuuint64_t)D, 0, 0, 0}, strides[3];
   cuuint32_t box[4] = {64, 1, 1, 1}, estr[4] = {1, 1, 1, 1};
-  long long span = 2 * kD;  // bytes up to the previous dim
+  long long span = 2LL * D;  // bytes up to the previous dim
   for (int i = 0; i < 3; ++i) {
     const int d = ord[i];
     perm[i] = d;
@@ -393,22 +421,13 @@ int encode_view(CUtensorMap* map, const void* ptr, long long S, long long heads,
                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-}  // namespace
-
-// q (B, Sq, H, 128), k / v (B, Skv, Hkv, 128) bf16 with unit last stride
-// and the other strides (in elements, multiples of 8) given; out (B, Sq,
-// H, 128) contiguous.  Every row start must be 16-byte aligned (the
-// wrapper checks).  Returns cudaGetLastError() after the launch, or the
-// tensor-map encoder's CUresult negated if a map could not be made.
-extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
-                                      int B, int Sq, int Skv, int H, int Hkv, int causal,
-                                      long long qsb, long long qss, long long qsh,
-                                      long long ksb, long long kss, long long ksh,
-                                      long long vsb, long long vss, long long vsh,
-                                      void* stream) {
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Skv,
+           int H, int Hkv, int causal, long long qsb, long long qss, long long qsh,
+           long long ksb, long long kss, long long ksh, long long vsb, long long vss,
+           long long vsh, cudaStream_t st) {
   if (Skv == 0) {  // no key: every row is 0 (l == 0 gives 1)
-    cudaMemsetAsync(out, 0, (size_t)B * Sq * H * kD * sizeof(bf16), st);
+    cudaMemsetAsync(out, 0, (size_t)B * Sq * H * D * sizeof(bf16), st);
     return static_cast<int>(cudaGetLastError());
   }
   Params p;
@@ -420,15 +439,42 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   p.rep = H / Hkv;
   p.causal = causal;
   p.n_qt = (Sq + kBQ - 1) / kBQ;
-  p.scale_log2 = kLog2e / sqrtf((float)kD);
+  p.scale_log2 = kLog2e / sqrtf((float)D);
   CUtensorMap tq, tk, tv;
-  int r = encode_view(&tq, q, Sq, H, B, qss, qsh, qsb, p.qperm);
-  if (r == 0) r = encode_view(&tk, k, Skv, Hkv, B, kss, ksh, ksb, p.kperm);
-  if (r == 0) r = encode_view(&tv, v, Skv, Hkv, B, vss, vsh, vsb, p.vperm);
+  int r = encode_view(&tq, q, D, Sq, H, B, qss, qsh, qsb, p.qperm);
+  if (r == 0) r = encode_view(&tk, k, D, Skv, Hkv, B, kss, ksh, ksb, p.kperm);
+  if (r == 0) r = encode_view(&tv, v, D, Skv, Hkv, B, vss, vsh, vsb, p.vperm);
   if (r != 0) return -r;
-  cudaFuncSetAttribute(flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       kSmemBytes);
+  cudaFuncSetAttribute(flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       Layout<D>::kSmemBytes);
   const long long blocks = (long long)p.n_qt * H * B;
-  flash_fwd_kernel<<<(unsigned)blocks, kThreads, kSmemBytes, st>>>(tq, tk, tv, p);
+  flash_fwd_kernel<D><<<(unsigned)blocks, kThreads, Layout<D>::kSmemBytes, st>>>(tq, tk, tv, p);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// q (B, Sq, H, D), k / v (B, Skv, Hkv, D) bf16 with unit last stride and
+// the other strides (in elements, multiples of 8) given, D 64 or 128; out
+// (B, Sq, H, D) contiguous.  Every row start must be 16-byte aligned (the
+// wrapper checks).  Returns cudaGetLastError() after the launch, the
+// tensor-map encoder's CUresult negated if a map could not be made, or
+// cudaErrorInvalidValue for another D.
+extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
+                                      int B, int Sq, int Skv, int H, int Hkv, int D,
+                                      int causal, long long qsb, long long qss, long long qsh,
+                                      long long ksb, long long kss, long long ksh,
+                                      long long vsb, long long vss, long long vsh,
+                                      void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64:
+      return launch<64>(q, k, v, out, B, Sq, Skv, H, Hkv, causal, qsb, qss, qsh, ksb, kss,
+                        ksh, vsb, vss, vsh, st);
+    case 128:
+      return launch<128>(q, k, v, out, B, Sq, Skv, H, Hkv, causal, qsb, qss, qsh, ksb, kss,
+                         ksh, vsb, vss, vsh, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

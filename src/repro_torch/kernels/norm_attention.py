@@ -16,8 +16,11 @@ launch on a grid the shapes and the card fix (:func:`decode_chunk`,
 (sequence, kv head) merging the chunks, so a CUDA graph captures either
 call once and replays it at new positions (and tables).  The wrappers
 take bf16 activations (RMSNorm with an fp32 scale, the dtype
-``cast_params`` keeps norm scales in) and head dim 128, and raise on
-anything else; each counts its launches in ``.launches``.
+``cast_params`` keeps norm scales in), attention at the head dims of
+``HEAD_DIMS`` (64, 128) and decoding at the query heads a kv head of
+``DECODE_REPS``, and raise a ``ValueError`` on anything else (nothing is
+padded to a head dim the kernels take, and no plain version stands in);
+each counts its launches in ``.launches``.
 
 The plain attention versions follow the TPU kernels' arithmetic rather
 than a softmax: fp32 scores, ``m_safe`` for rows with no live key, the
@@ -40,10 +43,10 @@ from repro_torch.kernels.grouped_matmul import _check_cuda
 
 Tensor = torch.Tensor
 
-HEAD_DIM = 128       # the head dim the attention kernels are written for
+HEAD_DIMS = (64, 128)  # the head dims the attention kernels are written for
 DECODE_STEP = 32     # positions a decoding block takes a step, at most
 PAGED_MAX_COLS = 256  # table columns a paged chunk holds (the kernel's limit)
-DECODE_REPS = (1, 2, 4, 8)   # query heads a kv head may serve (H / Hkv)
+DECODE_REPS = (1, 2, 4, 6, 8)   # query heads a kv head may serve (H / Hkv)
 # RMSNorm's launch shapes, in vectors of 8 values (4 where D % 8 != 0):
 RMSNORM_ROWS_MAX_VECTORS = 32  # widest row the several-rows-a-block kernel takes
 RMSNORM_ROW_MAX_THREADS = 512  # the one-row-a-block kernel's largest block
@@ -171,9 +174,9 @@ def _check_attention(name: str, q: Tensor, k: Tensor, v: Tensor,
     if q.shape[0] != k.shape[0] or k.shape[3] != D:
         raise ValueError(f"{name}: q {tuple(q.shape)} does not fit k "
                          f"{tuple(k.shape)}")
-    if D != HEAD_DIM:
-        raise ValueError(f"{name}: the CUDA kernel takes head dim {HEAD_DIM}, "
-                         f"got {D}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"{name}: the CUDA kernel takes head dims "
+                         f"{HEAD_DIMS}, got {D}")
     if Hkv == 0 or H % Hkv:
         raise ValueError(f"{name}: {H} heads do not share {Hkv} kv heads")
     for n, t in (("q", q), ("k", k), ("v", v)):
@@ -190,8 +193,9 @@ def _check_attention(name: str, q: Tensor, k: Tensor, v: Tensor,
 
 def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *,
                          causal: bool = True) -> Tensor:
-    """CUDA kernel for :func:`flash_attention_plain` (bf16, head dim 128;
-    q, k and v may be strided views with a unit last stride)."""
+    """CUDA kernel for :func:`flash_attention_plain` (bf16, head dim 64 or
+    128, any number of query heads a kv head; q, k and v may be strided
+    views with a unit last stride)."""
     name = "flash_attention"
     _check_attention(name, q, k, v, 4)
     B, Sq, H, D = q.shape
@@ -204,7 +208,7 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, Sq, Skv, H, Hkv, int(causal), *q.stride()[:3],
+            B, Sq, Skv, H, Hkv, D, int(causal), *q.stride()[:3],
             *k.stride()[:3], *v.stride()[:3], stream)
     build.check(err, name)
     flash_attention_cuda.launches += 1
@@ -270,7 +274,7 @@ def paged_chunk(B: int, nb: int, bs: int, Hkv: int, sms: int,
 
 
 _sms: dict = {}             # device index -> SMs
-# (device index, kernel, rep) -> (SMs, blocks an SM)
+# (device index, kernel, rep, head dim) -> (SMs, blocks an SM)
 _decode_slots: dict = {}
 _arrivals: dict = {}        # device index -> the arrival counters in use
 
@@ -288,15 +292,16 @@ def _sm_count(device: torch.device) -> int:
     return _sms[key]
 
 
-def _decode_slots_of(lib, device: torch.device, rep: int,
+def _decode_slots_of(lib, device: torch.device, rep: int, D: int,
                      kernel: str = "decode_attention") -> tuple:
     """(SMs, resident blocks an SM holds of ``kernel``, ``decode_attention``
-    or ``decode_attention_paged``, at ``rep``)."""
-    key = (_index(device), kernel, rep)
+    or ``decode_attention_paged``, at ``rep`` and head dim ``D``)."""
+    key = (_index(device), kernel, rep, D)
     if key not in _decode_slots:
-        per_sm = getattr(lib, f"{kernel}_blocks_per_sm")(rep)
+        per_sm = getattr(lib, f"{kernel}_blocks_per_sm")(rep, D)
         if per_sm <= 0:
-            raise RuntimeError(f"{kernel}: no occupancy for rep {rep}")
+            raise RuntimeError(f"{kernel}: no occupancy for rep {rep}, "
+                               f"head dim {D}")
         _decode_slots[key] = (_sm_count(device), per_sm)
     return _decode_slots[key]
 
@@ -316,8 +321,9 @@ def _arrival_counters(device: torch.device, n: int) -> Tensor:
 
 def decode_attention_cuda(q: Tensor, k: Tensor, v: Tensor, pos: Tensor, *,
                           start: int = 0) -> Tensor:
-    """CUDA kernel for :func:`decode_attention_plain` (bf16, head dim 128,
-    contiguous q and cache, H / Hkv in ``DECODE_REPS``), in one launch.
+    """CUDA kernel for :func:`decode_attention_plain` (bf16, head dim in
+    ``HEAD_DIMS``, contiguous q and cache, H / Hkv in ``DECODE_REPS``), in
+    one launch.
     ``pos`` is a 0-d int32 tensor on q's device, which the kernel reads
     there: the grid and the scratch follow the shapes alone, so a CUDA
     graph can capture the call and replay it at any position."""
@@ -341,7 +347,7 @@ def decode_attention_cuda(q: Tensor, k: Tensor, v: Tensor, pos: Tensor, *,
     if out.numel() == 0:
         return out
     lib = build.library()
-    chunk = decode_chunk(B, S, Hkv, *_decode_slots_of(lib, q.device, rep))
+    chunk = decode_chunk(B, S, Hkv, *_decode_slots_of(lib, q.device, rep, D))
     ns = max(1, -(-S // chunk))
     part_o = torch.empty((B, H, ns, D), dtype=torch.float32, device=q.device)
     part_ml = torch.empty((2, B, H, ns), dtype=torch.float32, device=q.device)
@@ -351,7 +357,7 @@ def decode_attention_cuda(q: Tensor, k: Tensor, v: Tensor, pos: Tensor, *,
         err = lib.decode_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
             part_o.data_ptr(), part_ml.data_ptr(), arrivals.data_ptr(),
-            out.data_ptr(), B, S, H, Hkv, int(start), ns, chunk, stream)
+            out.data_ptr(), B, S, H, Hkv, D, int(start), ns, chunk, stream)
     build.check(err, name)
     decode_attention_cuda.launches += 1
     return out
@@ -407,12 +413,12 @@ def decode_attention_paged_plain(q: Tensor, k_pool: Tensor, v_pool: Tensor,
 def decode_attention_paged_cuda(q: Tensor, k_pool: Tensor, v_pool: Tensor,
                                 block_tables: Tensor, pos: Tensor) -> Tensor:
     """CUDA kernel for :func:`decode_attention_paged_plain` (bf16, head
-    dim 128, contiguous q and pools, int32 tables and ``pos`` on the card,
-    H / Hkv in ``DECODE_REPS``), in one launch.  The kernel reads ``pos``
-    and the tables on the device: the grid (:func:`paged_chunk`) and the
-    scratch follow the shapes alone, so a CUDA graph can capture the call
-    and replay it after ``pos``, the tables and the pools are changed in
-    place."""
+    dim in ``HEAD_DIMS``, contiguous q and pools, int32 tables and ``pos``
+    on the card, H / Hkv in ``DECODE_REPS``), in one launch.  The kernel
+    reads ``pos`` and the tables on the device: the grid
+    (:func:`paged_chunk`) and the scratch follow the shapes alone, so a
+    CUDA graph can capture the call and replay it after ``pos``, the
+    tables and the pools are changed in place."""
     name = "decode_attention_paged"
     if (q.dim() != 3 or k_pool.dim() != 4 or v_pool.shape != k_pool.shape
             or k_pool.shape[3] != q.shape[2]):
@@ -420,9 +426,9 @@ def decode_attention_paged_cuda(q: Tensor, k_pool: Tensor, v_pool: Tensor,
                          f"{tuple(k_pool.shape)}, v {tuple(v_pool.shape)}")
     B, H, D = q.shape
     NB, bs, Hkv, _ = k_pool.shape
-    if D != HEAD_DIM:
-        raise ValueError(f"{name}: the CUDA kernel takes head dim {HEAD_DIM}, "
-                         f"got {D}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"{name}: the CUDA kernel takes head dims "
+                         f"{HEAD_DIMS}, got {D}")
     if Hkv == 0 or H % Hkv or H // Hkv not in DECODE_REPS:
         raise ValueError(f"{name}: {H} heads over {Hkv} kv heads; the "
                          f"kernel takes {DECODE_REPS} query heads a kv head")
@@ -448,7 +454,7 @@ def decode_attention_paged_cuda(q: Tensor, k_pool: Tensor, v_pool: Tensor,
     lib = build.library()
     rep = H // Hkv
     chunk = paged_chunk(B, nb, bs, Hkv, *_decode_slots_of(lib, q.device, rep,
-                                                          name))
+                                                          D, name))
     ns = max(1, -(-(nb * bs) // chunk))
     part_o = torch.empty((B, H, ns, D), dtype=torch.float32, device=q.device)
     part_ml = torch.empty((2, B, H, ns), dtype=torch.float32, device=q.device)
@@ -459,7 +465,7 @@ def decode_attention_paged_cuda(q: Tensor, k_pool: Tensor, v_pool: Tensor,
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             block_tables.data_ptr(), pos.data_ptr(), part_o.data_ptr(),
             part_ml.data_ptr(), arrivals.data_ptr(), out.data_ptr(),
-            B, H, Hkv, NB, bs, nb, ns, chunk, stream)
+            B, H, Hkv, D, NB, bs, nb, ns, chunk, stream)
     build.check(err, name)
     decode_attention_paged_cuda.launches += 1
     return out

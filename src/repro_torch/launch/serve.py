@@ -7,6 +7,18 @@
       --batch 4 --prompt-len 2048 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon_mamba_7b \\
       --batch 4 --prompt-len 64 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch musicgen_large \\
+      --batch 4 --prompt-len 1024 --gen 16
+
+Every config of ``repro_torch.configs`` serves: the dense phi3_medium_14b,
+qwen2_72b (72.7B parameters, 145 GB in bf16: one card serves it only
+cut in depth, as ``chip_smoke.py`` does), qwen3_4b, qwen3_1_7b,
+internvl2_26b and musicgen_large; the MoE qwen2_moe_a2_7b and moonshot_v1_16b_a3b; the
+Mamba falcon_mamba_7b and the jamba hybrid.  internvl2-26b and
+musicgen-large are served on text (codec) tokens alone, without their
+frontend prefix, as the reference's launcher serves them.  On the card the
+attention kernels take head dim 64 or 128 (a reduced config needs
+``--d-model`` 256 or 512 with its 4 heads).
 
 Runs on ``cuda`` unless ``--device cpu``.  Prefill and decode run their
 norms and attention through the RMSNorm, flash attention and flash
@@ -213,7 +225,11 @@ def generate(cfg, params, prompts, n_gen, *, dist=None,
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True,
+                    help="a config of repro_torch.configs, e.g. "
+                         "qwen2_moe_a2_7b, qwen3_4b, phi3_medium_14b, "
+                         "qwen2_72b, internvl2_26b, musicgen_large, "
+                         "falcon_mamba_7b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--layers", type=int, default=2)
     ap.add_argument("--d-model", type=int, default=128)

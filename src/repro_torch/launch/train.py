@@ -14,8 +14,11 @@ on the card through the EP kernels and their backward kernels:
   python -m repro_torch.launch.train --arch qwen2_moe_a2_7b --reduced \\
       --mesh local --local-model-axis 4 --steps 20 --batch 4 --seq 64
 
-The reference's TPU mesh choices (``single``, ``multi``) and its
-``--xla-pipelining`` preset have no counterpart on one card.
+A model with a frontend prefix (internvl2-26b, musicgen-large) trains on
+batches that carry ``frontend_prefix`` stub embeddings before the tokens,
+as the reference's launcher builds them.  The reference's TPU mesh
+choices (``single``, ``multi``) and its ``--xla-pipelining`` preset have
+no counterpart on one card.
 """
 from __future__ import annotations
 
@@ -81,7 +84,8 @@ def main(argv=None):
                  warmup=max(1, args.steps // 10), moe_mode=args.moe_mode,
                  moe_chunks=args.moe_chunks, seed=args.seed)
     dc = DataConfig(vocab_size=cfg.vocab_size, batch=args.batch,
-                    seq_len=args.seq, seed=args.seed, d_model=cfg.d_model)
+                    seq_len=args.seq, seed=args.seed,
+                    prefix_len=cfg.frontend_prefix, d_model=cfg.d_model)
     ckpt = Checkpointer(args.ckpt_dir) if args.ckpt_dir else None
     injector = None
     if args.fail_at:

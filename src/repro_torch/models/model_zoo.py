@@ -84,15 +84,20 @@ def lm_head_weight(cfg: ModelConfig, params: dict) -> Tensor:
 
 
 # --------------------------------------------------------------- forward --
-def forward(cfg: ModelConfig, params: dict, tokens: Tensor, *,
+def forward(cfg: ModelConfig, params: dict, tokens: Tensor,
+            prefix_embeds: Optional[Tensor] = None, *,
             dist: Optional[DistCtx] = None, moe_mode: str = "ht",
             moe_chunks: int = 1,
             causal_skip: bool = False) -> tuple[Tensor, dict]:
-    """tokens (B, S) -> hidden (B, S, D), aux: ``aux_loss`` summed over
-    layers, ``dropped`` as the reference reads it (each scan period's
-    dropped fractions summed, then the mean over periods; 0 without MoE),
-    and ``loads``, each MoE layer's expert loads by layer index."""
+    """tokens (B, S_txt) [+ prefix_embeds (B, S_pre, D), cast to the
+    activation dtype and put before the token embeddings, positions running
+    over both] -> hidden (B, S, D), aux: ``aux_loss`` summed over layers,
+    ``dropped`` as the reference reads it (each scan period's dropped
+    fractions summed, then the mean over periods; 0 without MoE), and
+    ``loads``, each MoE layer's expert loads by layer index."""
     x = B.vocab_embed(params["embed"], tokens)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None].expand(x.shape[0], S)
     layer = functools.partial(B.block_apply, cfg, dist, moe_mode=moe_mode,
@@ -118,17 +123,22 @@ def forward(cfg: ModelConfig, params: dict, tokens: Tensor, *,
 
 
 def loss_fn(cfg: ModelConfig, params: dict, tokens: Tensor, labels: Tensor,
-            *, dist: Optional[DistCtx] = None, moe_mode: str = "ht",
+            prefix_embeds: Optional[Tensor] = None, *,
+            dist: Optional[DistCtx] = None, moe_mode: str = "ht",
             moe_chunks: int = 1, causal_skip: bool = False,
             loss_chunk: int = 2048) -> tuple[Tensor, dict]:
     """Next-token cross entropy over a seq-chunked head, plus the routers'
     aux loss.  ``params`` are fp32; they are cast to ``cfg.dtype`` here,
-    inside the graph, so their gradients come back in fp32."""
+    inside the graph, so their gradients come back in fp32.  The prefix
+    positions (``prefix_embeds``) carry no label: their hidden states are
+    dropped before the head."""
     dtype = compute_dtype(cfg)
-    x, aux = forward(cfg, cast_params(params, dtype), tokens, dist=dist,
-                     moe_mode=moe_mode, moe_chunks=moe_chunks,
+    x, aux = forward(cfg, cast_params(params, dtype), tokens, prefix_embeds,
+                     dist=dist, moe_mode=moe_mode, moe_chunks=moe_chunks,
                      causal_skip=causal_skip)
     head = lm_head_weight(cfg, params).to(dtype)
+    if prefix_embeds is not None:
+        x = x[:, prefix_embeds.shape[1]:]
     total, count = _chunked_xent(cfg, x, head, labels, loss_chunk)
     xent = total / torch.clamp(count, min=1.0)
     loss = xent + aux["aux_loss"]

@@ -77,17 +77,21 @@ def _update_router_biases(cfg: ModelConfig, params: dict, loads: dict,
 
 
 def _batch_to(batch: dict, device) -> dict:
-    if batch.get("prefix") is not None:
-        raise NotImplementedError("prefix embeddings (frontend_prefix) are "
-                                  "not ported yet")
-    return {k: torch.as_tensor(batch[k], device=device).to(torch.int64)
-            for k in ("tokens", "labels")}
+    """tokens and labels as int64, and ``prefix`` (frontend embeddings,
+    where the batch has them) as fp32, on ``device``."""
+    out = {k: torch.as_tensor(batch[k], device=device).to(torch.int64)
+           for k in ("tokens", "labels")}
+    prefix = batch.get("prefix")
+    out["prefix"] = (None if prefix is None else torch.as_tensor(
+        prefix, device=device).to(torch.float32))
+    return out
 
 
 def train_step(cfg: ModelConfig, hp: HParams, dist: Optional[DistCtx],
                state: TrainState, batch: dict) -> tuple[TrainState, dict]:
     """One optimizer step: ``loss.backward()``, then AdamW, then the
-    router-bias update.  ``batch``: tokens (B, S) and labels (B, S), as
+    router-bias update.  ``batch``: tokens (B, S) and labels (B, S), and
+    for a model with a frontend prefix (B, P, D) embeddings ``prefix``, as
     numpy arrays or tensors.  The parameters and the optimizer moments are
     updated in place."""
     params = state.params
@@ -96,7 +100,7 @@ def train_step(cfg: ModelConfig, hp: HParams, dist: Optional[DistCtx],
     for p in leaves:
         p.grad = None
     loss, metrics = Z.loss_fn(cfg, params, b["tokens"], b["labels"],
-                              dist=dist, moe_mode=hp.moe_mode,
+                              b["prefix"], dist=dist, moe_mode=hp.moe_mode,
                               moe_chunks=hp.moe_chunks,
                               causal_skip=hp.causal_skip,
                               loss_chunk=hp.loss_chunk)

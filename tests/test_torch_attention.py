@@ -153,6 +153,11 @@ FLASH_CASES = {   # name: (B, Sq, Skv, H, Hkv, D, causal)
     "causal-rep4-d128": (1, 128, 128, 8, 2, 128, True),
     "full-rep1": (1, 128, 128, 2, 2, 32, False),
     "full-rep4-sq-ne-skv": (1, 64, 128, 4, 1, 32, False),
+    # the kernels' head dims and reps of the dense configs: musicgen-large
+    # (MHA, head dim 64), internvl2-26b (6 query heads a kv head)
+    "causal-rep1-d64": (2, 128, 128, 4, 4, 64, True),
+    "causal-rep6-d64": (1, 128, 128, 6, 1, 64, True),
+    "full-rep6-d128": (1, 128, 128, 12, 2, 128, False),
 }
 
 
@@ -193,6 +198,9 @@ DECODE_CASES = {  # name: (B, S, H, Hkv, D, pos, start)
     "rep4-d128": (1, 256, 4, 1, 128, 77, 0),
     "start64": (2, 128, 8, 2, 32, 150, 64),
     "pos-before-start": (1, 128, 4, 2, 32, 10, 64),
+    "rep1-d64-last": (2, 256, 4, 4, 64, 255, 0),
+    "rep6-d64": (2, 256, 6, 1, 64, 77, 0),
+    "rep6-d128": (1, 256, 12, 2, 128, 200, 0),
 }
 
 

@@ -1095,6 +1095,50 @@ def test_cuda_flash_attention_takes_strided_views(cuda_device):
     assert torch.equal(got, ref)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Skv,H,Hkv,D,causal", [
+    (2, 200, 200, 8, 2, 64, True),     # head dim 64: one swizzle half a tile
+    (2, 200, 200, 8, 2, 64, False),
+    (1, 64, 64, 4, 4, 64, True),       # one tile, MHA
+    (1, 129, 257, 4, 4, 64, True),     # edges of the 128-row tiles
+    (1, 257, 129, 8, 8, 64, False),
+    (2, 257, 129, 8, 4, 64, True),     # Skv < Sq
+    (1, 127, 127, 6, 1, 64, True),     # rep 6 at head dim 64
+    (4, 1024, 1024, 32, 32, 64, True),   # musicgen-large's prefill
+    (1, 300, 300, 12, 2, 128, True),   # rep 6 (internvl2-26b's)
+    (1, 257, 129, 12, 2, 128, False),
+    (1, 1024, 1024, 48, 8, 128, True),   # internvl2-26b's prefill, batch 1
+])
+def test_cuda_flash_attention_wide_matches_plain(cuda_device, B, Sq, Skv, H,
+                                                 Hkv, D, causal):
+    """The dense configs' head dim 64 (musicgen-large) and 6 query heads a
+    kv head (internvl2-26b), row by row within the reference's bf16
+    tolerance."""
+    rng = np.random.default_rng(Sq * H + Skv + D)
+    q = _bf16(rng, (B, Sq, H, D), cuda_device)
+    k = _bf16(rng, (B, Skv, Hkv, D), cuda_device)
+    v = _bf16(rng, (B, Skv, Hkv, D), cuda_device)
+    got = na.flash_attention_cuda(q, k, v, causal=causal)
+    _row_close(got, na.flash_attention_plain(q, k, v, causal=causal))
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_head_dim_64_strided_and_empty(cuda_device):
+    """At head dim 64: q, k and v as views into one fused projection (a
+    row stride of 2 (H + 2 Hkv) 64 bytes), and no key at all (every row
+    0)."""
+    rng = np.random.default_rng(31)
+    B, S, H, Hkv = 2, 96, 4, 2
+    qkv = _bf16(rng, (B, S, H + 2 * Hkv, 64), cuda_device)
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + Hkv], qkv[:, :, H + Hkv:]
+    got = na.flash_attention_cuda(q, k, v)
+    assert torch.equal(got, na.flash_attention_cuda(
+        q.contiguous(), k.contiguous(), v.contiguous()))
+    _row_close(got, na.flash_attention_plain(q, k, v))
+    none = na.flash_attention_cuda(q, k[:, :0], v[:, :0], causal=False)
+    assert none.shape == q.shape and (none == 0).all()
+
+
 def _pos(p, device):
     """A position as the decode kernel takes it: a 0-d int32 on the card."""
     return torch.full((), p, dtype=torch.int32, device=device)
@@ -1102,10 +1146,10 @@ def _pos(p, device):
 
 def _decode_chunk(q, k):
     """The chunk the wrapper cuts this call's cache slice into."""
-    B, H = q.shape[:2]
+    B, H, D = q.shape
     S, Hkv = k.shape[1:3]
     return na.decode_chunk(B, S, Hkv, *na._decode_slots_of(
-        na.build.library(), q.device, H // Hkv))
+        na.build.library(), q.device, H // Hkv, D))
 
 
 @pytest.mark.cuda
@@ -1148,6 +1192,89 @@ def test_cuda_decode_attention_matches_plain(cuda_device, B, S, H, Hkv, pos,
     again = na.decode_attention_cuda(q, k, v, _pos(pos, cuda_device),
                                      start=start).float()
     assert torch.equal(again, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,Hkv,D,pos,start", [
+    (2, 600, 8, 8, 64, 0, 0),          # head dim 64: 16 row groups of 8 lanes
+    (2, 600, 8, 8, 64, 255, 0),
+    (2, 600, 8, 8, 64, 599, 0),
+    (2, 400, 8, 2, 64, 300, 50),       # a slice starting at 50
+    (2, 400, 8, 2, 64, 20, 50),        # nothing live
+    (2, 333, 12, 2, 64, 200, 0),       # rep 6 at head dim 64
+    (1, 4, 6, 1, 64, 3, 0),            # a slice shorter than one step
+    (4, 1040, 32, 32, 64, 1039, 0),    # musicgen-large's decode, S - 1
+    (3, 301, 12, 2, 128, 300, 0),      # rep 6 (internvl2-26b's)
+    (1, 333, 6, 1, 128, 100, 0),
+    (4, 1040, 48, 8, 128, 1030, 0),    # internvl2-26b's decode
+])
+def test_cuda_decode_attention_wide_matches_plain(cuda_device, B, S, H, Hkv,
+                                                  D, pos, start):
+    """Head dim 64 and 6 query heads a kv head against the plain version
+    row by row; the rows past pos NaN change nothing."""
+    rng = np.random.default_rng(S + pos + D)
+    q = _bf16(rng, (B, H, D), cuda_device)
+    k = _bf16(rng, (B, S, Hkv, D), cuda_device)
+    v = _bf16(rng, (B, S, Hkv, D), cuda_device)
+    got = na.decode_attention_cuda(q, k, v, _pos(pos, cuda_device),
+                                   start=start)
+    ref = na.decode_attention_plain(q, k, v, pos, start=start)
+    if pos < start:
+        assert (got == 0).all()
+    else:
+        _row_close(got, ref)
+    n_live = min(max(pos - start + 1, 0), S)
+    k[:, n_live:] = float("nan")
+    v[:, n_live:] = float("nan")
+    assert torch.equal(na.decode_attention_cuda(
+        q, k, v, _pos(pos, cuda_device), start=start), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,rep", [(64, 1), (64, 2), (64, 6), (64, 8),
+                                   (128, 6)])
+@pytest.mark.parametrize("edge", [-1, 0, 1])
+def test_cuda_decode_attention_wide_chunk_edges(cuda_device, D, rep, edge):
+    """As test_cuda_decode_attention_chunk_edges, at head dim 64 and at
+    rep 6."""
+    rng = np.random.default_rng(D * 100 + rep * 10 + edge)
+    B, Hkv, S = 2, 2, 2080
+    q = _bf16(rng, (B, Hkv * rep, D), cuda_device)
+    k = _bf16(rng, (B, S, Hkv, D), cuda_device)
+    v = _bf16(rng, (B, S, Hkv, D), cuda_device)
+    chunk = _decode_chunk(q, k)
+    assert chunk % na.DECODE_STEP == 0 and chunk < S
+    for pos in (chunk + edge, 2 * chunk + edge):
+        ref = na.decode_attention_plain(q, k, v, pos).float()
+        kp, vp = k.clone(), v.clone()
+        kp[:, pos + 1:] = float("nan")
+        vp[:, pos + 1:] = float("nan")
+        got = na.decode_attention_cuda(q, kp, vp, _pos(pos, cuda_device))
+        _row_close(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,rep", [(64, 1), (64, 6), (128, 6)])
+def test_cuda_decode_attention_wide_graph_replays(cuda_device, D, rep):
+    """Captured once, replayed at several positions, at head dim 64 and at
+    rep 6: each replay matches the plain version there, and the arrival
+    counters are back at 0."""
+    rng = np.random.default_rng(40 + D + rep)
+    q = _bf16(rng, (4, 4 * rep, D), cuda_device)
+    k = _bf16(rng, (4, 1040, 4, D), cuda_device)
+    v = _bf16(rng, (4, 1040, 4, D), cuda_device)
+    pos = _pos(0, cuda_device)
+    na.decode_attention_cuda(q, k, v, pos)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = na.decode_attention_cuda(q, k, v, pos)
+    for p in (1030, 0, 191, 192, 1039, 1030):
+        pos.fill_(p)
+        graph.replay()
+        torch.cuda.synchronize()
+        _row_close(out, na.decode_attention_plain(q, k, v, p))
+    assert int(na._arrival_counters(q.device, 1).abs().sum()) == 0
 
 
 @pytest.mark.cuda
@@ -1268,7 +1395,7 @@ def test_cuda_attention_and_norm_refuse_grad(cuda_device):
 def test_cuda_attention_wrappers_raise_on_inputs_they_do_not_take(
         cuda_device):
     rng = np.random.default_rng(5)
-    q = _bf16(rng, (1, 8, 4, 64), cuda_device)           # head dim 64
+    q = _bf16(rng, (1, 8, 4, 96), cuda_device)           # head dim 96
     with pytest.raises(ValueError, match="head dim"):
         na.flash_attention_cuda(q, q[:, :, :2], q[:, :, :2])
     q = _bf16(rng, (1, 8, 4, 128), cuda_device)
@@ -1352,6 +1479,53 @@ def test_cuda_generate_graph_matches_eager(cuda_device, arch, world):
     assert graph["captured_launches"]["decode_attention"] == cfg.n_layers
     assert graph["graph_replays"] == (n_gen - 1 if world is None
                                       else S - 1 + n_gen)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,heads", [
+    ("musicgen_large", (4, 4, 64)),      # MHA at head dim 64
+    ("internvl2_26b", (12, 2, 128)),     # 6 query heads a kv head
+])
+def test_cuda_generate_dense_head_structures(cuda_device, arch, heads):
+    """Reduced musicgen-large and internvl2-26b with their models' head
+    structures served through the three kernels, the captured decode step
+    against the eager one (the same tokens bit for bit); the prefill's
+    last logits against the plain versions' (chip_smoke's
+    SERVE_PLAIN_TOL)."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model_zoo as Z
+    h, hkv, hd = heads
+    cfg = dataclasses.replace(
+        reduced_config(get_config(arch), n_layers=2, d_model=256, vocab=512),
+        n_heads=h, n_kv_heads=hkv, head_dim=hd)
+    params = Z.init_params(cfg, seed=0, device=cuda_device,
+                           dtype=Z.compute_dtype(cfg))
+    B, S, n_gen = 4, 40, 6
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=torch.
+                            Generator().manual_seed(0)).to(cuda_device)
+    before = (na.flash_attention_cuda.launches,
+              na.decode_attention_cuda.launches)
+    graph = generate(cfg, params, prompts, n_gen)
+    assert na.flash_attention_cuda.launches > before[0]
+    assert na.decode_attention_cuda.launches > before[1]
+    eager = generate(cfg, params, prompts, n_gen, cuda_graph=False)
+    assert torch.equal(graph["tokens"], eager["tokens"])
+    def prefill():
+        cache = Z.init_cache(cfg, B, S, dtype=Z.compute_dtype(cfg),
+                             device=cuda_device)
+        with torch.inference_mode():
+            return Z.prefill(cfg, params, cache, prompts)[0]
+    got = prefill()
+    originals = {n: ops.KERNELS[n] for n in ("rmsnorm", "flash_attention",
+                                             "decode_attention")}
+    try:
+        ops.KERNELS.update({n: (p, p) for n, (_, p) in originals.items()})
+        ref = prefill()
+    finally:
+        ops.KERNELS.update(originals)
+    err = float((got - ref).abs().max())
+    assert err <= 0.04 * float(ref.abs().max())
 
 
 @pytest.mark.cuda
@@ -1684,7 +1858,7 @@ def test_cuda_decode_attention_paged_equals_contiguous(cuda_device,
         ops.decode_attention_paged(q, k_id, v_id, ident, posv), paged)
     kc = k[idx].reshape(4, S, 8, 128).contiguous()
     vc = v[idx].reshape(4, S, 8, 128).contiguous()
-    slots = na._decode_slots_of(na.build.library(), q.device, 4)
+    slots = na._decode_slots_of(na.build.library(), q.device, 4, 128)
     chunk = na.decode_chunk(B, S, 8, *slots)
     monkeypatch.setattr(na, "decode_chunk", lambda *a: chunk)
     assert torch.equal(ops.decode_attention_paged(q, k, v, tables, posv),
@@ -1692,7 +1866,7 @@ def test_cuda_decode_attention_paged_equals_contiguous(cuda_device,
                                                 _pos(pos[0], cuda_device)))
 
 
-def _paged_bulk(rng, device, pos, H, Hkv, bs, nb, spare=5):
+def _paged_bulk(rng, device, pos, H, Hkv, bs, nb, spare=5, D=128):
     """Pools in bulk for the sequences' positions ``pos``: each table row
     nb pool blocks of a random permutation (every column allocated, those
     wholly past pos too), ``spare`` blocks no table names; every pool row
@@ -1701,16 +1875,16 @@ def _paged_bulk(rng, device, pos, H, Hkv, bs, nb, spare=5):
     NB = B * nb + spare
     tables = torch.from_numpy(rng.permutation(NB)[:B * nb].astype(
         np.int32)).reshape(B, nb).to(device)
-    k = _bf16(rng, (NB, bs, Hkv, 128), device)
-    v = _bf16(rng, (NB, bs, Hkv, 128), device)
+    k = _bf16(rng, (NB, bs, Hkv, D), device)
+    v = _bf16(rng, (NB, bs, Hkv, D), device)
     posv = torch.tensor(pos, dtype=torch.int32, device=device)
     j = torch.arange(nb * bs, device=device)
     rows = tables.long()[:, j // bs] * bs + j % bs
     read = torch.zeros(NB * bs, dtype=torch.bool, device=device)
     read[rows[j[None, :] <= posv.long()[:, None]]] = True
     for t in (k, v):
-        t.view(NB * bs, Hkv, 128)[~read] = float("nan")
-    q = _bf16(rng, (B, H, 128), device)
+        t.view(NB * bs, Hkv, D)[~read] = float("nan")
+    q = _bf16(rng, (B, H, D), device)
     return q, k, v, tables, posv
 
 
@@ -1728,6 +1902,41 @@ def test_cuda_decode_attention_paged_blocks_and_reps(cuda_device, bs, rep):
                                         Hkv, bs, nb)
     got = na.decode_attention_paged_cuda(q, k, v, tables, posv)
     _row_close(got, na.decode_attention_paged_plain(q, k, v, tables, posv))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,rep", [(64, 1), (64, 6), (128, 6)])
+@pytest.mark.parametrize("bs", [8, 16])
+def test_cuda_decode_attention_paged_wide(cuda_device, D, rep, bs):
+    """Head dim 64 (musicgen-large's cache) and rep 6 (internvl2-26b's)
+    through block tables: ragged pos about block and chunk edges, NaN in
+    every unread row, against the plain version; and, with one pos for
+    every sequence and the rows gathered back into a contiguous cache,
+    against the contiguous kernel at the same chunk, bit for bit."""
+    Hkv = 2
+    pos = (2 * bs - 1, 2 * bs, 700, 1030, 0)
+    nb = 1030 // bs + 3
+    rng = np.random.default_rng(D + rep * 10 + bs)
+    q, k, v, tables, posv = _paged_bulk(rng, cuda_device, pos, Hkv * rep,
+                                        Hkv, bs, nb, D=D)
+    got = na.decode_attention_paged_cuda(q, k, v, tables, posv)
+    _row_close(got, na.decode_attention_paged_plain(q, k, v, tables, posv))
+    B, S = len(pos), nb * bs
+    posv.fill_(S - 1)
+    k, v = (torch.nan_to_num(t) for t in (k, v))
+    paged = na.decode_attention_paged_cuda(q, k, v, tables, posv)
+    kc, vc = (t[tables.long()].reshape(B, S, Hkv, D).contiguous()
+              for t in (k, v))
+    slots = na._decode_slots_of(na.build.library(), q.device, rep, D,
+                                "decode_attention_paged")
+    chunk = na.paged_chunk(B, nb, bs, Hkv, *slots)
+    saved = na.decode_chunk
+    na.decode_chunk = lambda *a: chunk
+    try:
+        cont = na.decode_attention_cuda(q, kc, vc, _pos(S - 1, cuda_device))
+    finally:
+        na.decode_chunk = saved
+    assert torch.equal(paged, cont)
 
 
 @pytest.mark.cuda
@@ -1761,7 +1970,7 @@ def test_cuda_decode_attention_paged_wide_tables(cuda_device):
     pos = tuple(int(p) for p in rng.integers(0, nb, B))
     q, k, v, tables, posv = _paged_bulk(rng, cuda_device, pos, Hkv, Hkv, 1,
                                         nb)
-    slots = na._decode_slots_of(na.build.library(), q.device, 1,
+    slots = na._decode_slots_of(na.build.library(), q.device, 1, 128,
                                 "decode_attention_paged")
     assert na.paged_chunk(B, nb, 1, Hkv, *slots) == na.PAGED_MAX_COLS
     _row_close(na.decode_attention_paged_cuda(q, k, v, tables, posv),
@@ -1830,9 +2039,9 @@ def test_cuda_new_kernels_refuse_grad_and_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match="int32"):
         na.decode_attention_paged_cuda(q, k, v, tables.long(), posv)
     with pytest.raises(ValueError, match="head dim"):
-        na.decode_attention_paged_cuda(q[..., :64].contiguous(),
-                                       k[..., :64].contiguous(),
-                                       v[..., :64].contiguous(), tables, posv)
+        na.decode_attention_paged_cuda(q[..., :96].contiguous(),
+                                       k[..., :96].contiguous(),
+                                       v[..., :96].contiguous(), tables, posv)
     with pytest.raises(ValueError, match="query heads a kv head"):
         na.decode_attention_paged_cuda(q[:, :24].contiguous(), k, v, tables,
                                        posv)

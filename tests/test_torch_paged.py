@@ -50,6 +50,9 @@ def _both(q, kp, vp, bt, pos):
     (3, 6, 2, 32, 8, (7, 8, 23)),     # pos on and just past a block edge
     (1, 9, 3, 32, 16, (0,)),          # rep 3, one live position
     (4, 8, 2, 32, 16, (40, 63, 17, 0)),   # ragged per-sequence pos
+    (2, 4, 4, 64, 16, (50, 3)),       # MHA at head dim 64 (musicgen-large)
+    (2, 6, 1, 64, 8, (19, 30)),       # rep 6 at head dim 64
+    (2, 12, 2, 128, 16, (40, 17)),    # rep 6 at head dim 128 (internvl2-26b)
 ])
 def test_paged_plain_matches_pallas(b, h, hkv, d, bs, pos):
     got, ref = _both(*_problem(0, b, h, hkv, d, bs, 32, 4, pos))

@@ -303,3 +303,54 @@ def test_placement_checks_hold_a_reduced_moonshot(monkeypatch):
         assert c["rel_err"] <= 1e-5 and c["dropped"] == 0.0
         assert len(c["load_phys"]) == c["physical_slots"]
     assert all(v["bit_identical"] for v in line["identity_vs_none"].values())
+
+
+def test_path_cases_lists_only_tagged_cases():
+    """``add_cases`` tags the cases of a path (serve-dense-wide's models);
+    the kernels line lists those, their numbers only."""
+    entry = {"cases": [{"ms": 1.0, "shapes": [[4, 1]], "device_traces": []},
+                       {"ms": 0.0123456789, "path": "musicgen_large (48 layers)",
+                        "shapes": [[4, 1024, 32, 64], [4, 1024, 32, 64]],
+                        "launches": 7, "device_traces": [{"calls": 10}],
+                        "work": {"bytes": 1}}]}
+    assert chip_smoke.path_cases(entry) == [
+        {"shape": [4, 1024, 32, 64], "path": "musicgen_large (48 layers)",
+         "launches": 7, "ms": 0.0123457}]
+    assert chip_smoke.path_cases({"cases": entry["cases"][:1]}) == []
+
+
+def test_dense_wide_cuts_and_positions():
+    """qwen2-72b is cut to the 32 layers that fit the card with room for
+    the cache (30.58B parameters, 61.2 GB in bf16); the paged cases'
+    positions lie in the last decode step's cache, and each replayed
+    position is at most that of the sequence whose table row it takes
+    over, so no NaN row of the pools is ever live."""
+    cut = dataclasses.replace(get_config("qwen2_72b"),
+                              n_layers=chip_smoke.DENSE_LAYERS["qwen2_72b"])
+    assert round(cut.param_count() / 1e9, 2) == 30.58
+    assert 2 * cut.param_count() / 1e9 < 62
+    for arch in chip_smoke.DENSE_WIDE:
+        if arch not in chip_smoke.DENSE_LAYERS:
+            assert 2 * get_config(arch).param_count() / 1e9 < 40
+    last = chip_smoke.DENSE_PROMPT + chip_smoke.DENSE_GEN - 2
+    assert max(chip_smoke.DENSE_PAGED_POS) == last
+    for new, old in zip(chip_smoke.DENSE_PAGED_REPLAY_POS,
+                        chip_smoke.PAGED_REPLAY_ORDER):
+        assert 0 <= new <= chip_smoke.DENSE_PAGED_POS[old]
+
+
+@pytest.mark.parametrize("arch", ["musicgen_large", "internvl2_26b"])
+def test_dense_plain_check_on_the_cpu(arch):
+    """``dense_plain_check`` on a reduced config on the CPU, where the
+    kernels' plain versions stand in on both sides: the prefill and the
+    decode step agree exactly, within the limit."""
+    cfg = dataclasses.replace(reduced_config(get_config(arch), d_model=64),
+                              dtype="float32")
+    params = Z.init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 12),
+                            generator=torch.Generator().manual_seed(0))
+    line = chip_smoke.dense_plain_check(cfg, params, prompts)
+    assert line["tokens"] == [2, 12]
+    for what in ("prefill", "decode"):
+        assert line[what]["rel_err"] == 0.0
+        assert line[what]["argmax_agree"] == 1.0

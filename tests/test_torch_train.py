@@ -1,11 +1,11 @@
 """The port's training slice against the reference on the same numpy
 inputs: ``loss_fn``'s loss and every gradient (reduced falcon-mamba,
 jamba, qwen2-moe, qwen3-4b and qwen3-1.7b with its tied head, fp32, no
-mesh), the optimizer (full and factored),
-the schedule, the synthetic data bit for bit, three ``train_loop`` steps
-from the same parameters; and the loop's own behaviour: checkpoint round
-trip, recovery from an injected failure, the watchdog, the CLI on the
-CPU."""
+mesh; internvl2-26b and musicgen-large with their frontend prefix), the
+optimizer (full and factored), the schedule, the synthetic data bit for
+bit, three ``train_loop`` steps from the same parameters (with a prefix
+too); and the loop's own behaviour: checkpoint round trip, recovery from
+an injected failure, the watchdog, the CLI on the CPU."""
 import dataclasses
 import importlib
 from functools import partial
@@ -120,6 +120,47 @@ def test_loss_and_grads_match_jax(arch, dtype, monkeypatch):
     if arch == "jamba_1_5_large_398b":          # both kinds of layer
         assert set(tp["blocks"][0]) == {"ln1", "ln2", "attn", "mlp"}
         assert set(tp["blocks"][1]) == {"ln1", "ln2", "mamba", "moe"}
+
+
+# the frontend-prefix models: internvl2's patch and musicgen's frame
+# embeddings (reduced: 4 prefix positions)
+PREFIX_ARCHS = ["internvl2_26b", "musicgen_large"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", PREFIX_ARCHS)
+def test_loss_and_grads_with_prefix_match_jax(arch, dtype):
+    """A batch with prefix embeddings: concatenated before the tokens in
+    the activation dtype, positions over both, the prefix positions
+    dropped before the cross entropy.  Loss and every gradient against
+    jax.value_and_grad at test_loss_and_grads_match_jax's tolerances."""
+    jcfg, cfg = _cfgs(arch, dtype=dtype)
+    assert cfg.frontend_prefix == jcfg.frontend_prefix == 4
+    jp = JZ.init_params(jcfg, jax.random.PRNGKey(1))
+    rng = np.random.default_rng(1)
+    toks = rng.integers(0, 512, (2, 12)).astype(np.int32)
+    labs = rng.integers(0, 512, (2, 12)).astype(np.int32)
+    labs[0, 3] = -1                                 # an unlabelled token
+    prefix = rng.standard_normal((2, cfg.frontend_prefix, 64)).astype(
+        np.float32)
+    (jl, _), jg = jax.value_and_grad(
+        lambda p: JZ.loss_fn(jcfg, p, toks, labs, prefix), has_aux=True)(jp)
+    tp = _torch_params(cfg, jax.tree.map(np.asarray, jp))
+    loss, m = Z.loss_fn(cfg, tp, torch.from_numpy(toks).long(),
+                        torch.from_numpy(labs).long(),
+                        torch.from_numpy(prefix))
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(jl),
+                               rtol=1e-6 if dtype == "float32"
+                               else BF16_LOSS_RTOL)
+    ref = params_from_jax(cfg, jax.tree.map(np.asarray, jg), device="cpu")
+    grads = adamw.tree_map(lambda t: t.grad, tp)
+    _close_tree(grads, ref, 2e-5 if dtype == "float32" else BF16_GRAD_TOL,
+                arch)
+    # the prefix counts: the loss without it differs
+    no_prefix, _ = Z.loss_fn(cfg, tp, torch.from_numpy(toks).long(),
+                             torch.from_numpy(labs).long())
+    assert float(no_prefix.detach()) != float(loss.detach())
 
 
 def test_causal_skip_attention_matches_jax():
@@ -246,24 +287,55 @@ def test_train_loop_matches_jax(arch):
     _close_tree(tstate.params, ref, 1e-3, arch)
 
 
+@pytest.mark.parametrize("arch", PREFIX_ARCHS)
+def test_train_loop_with_prefix_matches_jax(arch):
+    """Three ``train_loop`` steps on batches that carry the config's
+    frontend prefix (the launchers' ``DataConfig(prefix_len=
+    cfg.frontend_prefix)``): the same history and parameters after, at
+    test_train_loop_matches_jax's tolerances."""
+    jcfg, cfg = _cfgs(arch)
+    hp_kw = dict(peak_lr=1e-3, warmup=1, total_steps=3, loss_chunk=8)
+    dc_kw = dict(vocab_size=cfg.vocab_size, batch=2, seq_len=12, seed=4,
+                 prefix_len=cfg.frontend_prefix, d_model=cfg.d_model)
+    assert "prefix" in tdata.synth_batch(tdata.DataConfig(**dc_kw), 0)
+    jp = JZ.init_params(jcfg, jax.random.PRNGKey(3))
+    np_params = jax.tree.map(np.asarray, jp)
+    jstate = JT.TrainState(jp, jadamw.init_state(jp))
+    jstate, jhist = JT.train_loop(
+        jcfg, JT.HParams(**hp_kw), None,
+        partial(jdata.synth_batch, jdata.DataConfig(**dc_kw)), steps=3,
+        state=jstate, log_every=0, log_fn=lambda s: None)
+    tp = _torch_params(cfg, np_params)
+    tstate = T.TrainState(tp, adamw.init_state(tp))
+    tstate, thist = T.train_loop(
+        cfg, T.HParams(**hp_kw), None,
+        partial(tdata.synth_batch, tdata.DataConfig(**dc_kw)), steps=3,
+        state=tstate, log_every=0, log_fn=lambda s: None, device="cpu")
+    assert len(thist) == len(jhist) == 3
+    for g, r in zip(thist, jhist):
+        assert set(g) == set(r), (set(g) ^ set(r))
+        for k in r:
+            np.testing.assert_allclose(g[k], r[k], rtol=2e-5, atol=1e-7,
+                                       err_msg=k)
+    ref = params_from_jax(cfg, jax.tree.map(np.asarray, jstate.params),
+                          device="cpu")
+    adamw.tree_map(lambda g, r: np.testing.assert_allclose(
+        g.detach().numpy(), r.numpy(), rtol=0, atol=2 * 3 * 1e-3),
+        tstate.params, ref)
+    _close_tree(tstate.params, ref, 1e-3, arch)
+
+
 def _small_cfg(arch="falcon_mamba_7b"):
     return reduced_config(get_config(arch), n_layers=2, d_model=32, vocab=256)
 
 
 def test_training_refuses_what_is_not_ported():
     """Settings the port does not train with raise rather than do nothing:
-    parameters in another dtype than fp32, a batch with prefix
-    embeddings."""
+    parameters in another dtype than fp32."""
     cfg = _small_cfg()
     with pytest.raises(NotImplementedError, match="param_dtype"):
         T.init_state(dataclasses.replace(cfg, param_dtype="bfloat16"),
                      device="cpu")
-    state = T.init_state(cfg, device="cpu")
-    batch = tdata.synth_batch(tdata.DataConfig(
-        vocab_size=cfg.vocab_size, batch=1, seq_len=8, prefix_len=2,
-        d_model=cfg.d_model), 0)
-    with pytest.raises(NotImplementedError, match="prefix"):
-        T.train_step(cfg, T.HParams(), None, state, batch)
 
 
 def test_checkpoint_round_trip(tmp_path):
@@ -325,6 +397,7 @@ def test_watchdog_flags_stragglers():
     ("falcon_mamba_7b", []),
     ("jamba_1_5_large_398b", ["--fail-at", "2", "--ckpt-every", "1"]),
     ("qwen2_moe_a2_7b", ["--mesh", "local", "--local-model-axis", "2"]),
+    ("musicgen_large", []),           # batches with a frontend prefix
 ])
 def test_train_cli_cpu(arch, extra, tmp_path, capsys):
     if "--fail-at" in extra:
