@@ -214,7 +214,30 @@ Phases, each printed as one JSON line:
    grad norm and seconds, text tokens/s and positions/s over steps 2-5,
    peak memory; the serving kernels launch 0 times (training keeps its
    norms and attention in tensor code); losses and grad norms finite, the
-   last loss below the first.
+   last loss below the first;
+20. serve-rdma (last, after phase 17's kernel checks): qwen2-moe-a2.7b at
+   full width and all 24 layers, random bf16 weights from seed 0, served
+   through ``generate`` with ``moe.ep_backend = "simulated_rdma"`` over
+   an EP world of 4: every MoE layer's dispatch and combine on the host
+   transport substrate (FIFO rings, CPU proxies, the SRD network model),
+   its experts through the ``grouped_swiglu`` kernel.  Batch 4, a 64-token
+   prompt through the batched HT prefill, 8 greedy tokens through eager
+   LL decode steps (a host backend cannot run inside a captured graph) on
+   the fp32 wire, then 4 on the fp8 wire.  The launches of
+   ``RDMA_KERNELS`` (> 0) and ``RDMA_IDLE_KERNELS`` (exactly 0), set to 0
+   just before and read just after; TTFT, eager decode tokens/s, each MoE
+   layer's host seconds beside its expert kernel's device ms, peak memory
+   and the process's peak RSS.  Layer 0's MoE output through the substrate
+   (HT and LL, fp32 and fp8 wires) against the dense oracle within
+   ``MOE_TOL``; the last prefill logits against the collectives' HT
+   prefill with every capacity lifted, on the substrate run's routing
+   choices (``pinned_prefill``: bf16 near-ties), within
+   ``SERVE_PLAIN_TOL`` (and, reported, without the pin); the
+   substrate's counters (commands, messages, wire bytes, drains, clock)
+   on layer 0's routing through the CPU world and the card run's, equal;
+   and the substrate's first LL (bucketed counts) and HT (flat counts)
+   grouped_swiglu calls against the plain version, timed, joining that
+   kernel's entry as cases of this path; the phase's seconds.
 
 Then the kernels line ``{"kernels": [...]}`` (all seventeen kernels), the
 nvidia-smi line, and as the last line ``{"ok": true, "device": {...}}``.
@@ -435,6 +458,21 @@ DENSE_PAGED_POS, DENSE_PAGED_REPLAY_POS = (1038, 1023, 515, 17), (12, 500,
 # batch 4, 5 AdamW steps on one batch
 PREFIX_TRAIN_LAYERS, PREFIX_TRAIN_BATCH, PREFIX_TRAIN_SEQ = 12, 4, 960
 PREFIX_TRAIN_STEPS = 5
+# serving qwen2-moe through the host transport substrate (simulated_rdma):
+# full width and all 24 layers over an EP world of 4, batch 4, a 64-token
+# prompt through the batched HT prefill, 8 greedy tokens through eager LL
+# decode steps on the fp32 wire, then 4 on the fp8 wire.  The prompt is
+# 64, not serve's 256: the substrate runs every MoE layer's dispatch and
+# combine in numpy on the host, and the phase is to stay near a minute
+RDMA_BATCH, RDMA_PROMPT, RDMA_GEN, RDMA_GEN_FP8 = 4, 64, 8, 4
+# the kernels this path launches (each > 0) and those it must not (each
+# exactly 0): the substrate neither fuses the expert gather/scatter nor
+# quantizes on the card (its codec encodes on the host)
+RDMA_KERNELS = ("grouped_swiglu", "flash_attention", "decode_attention",
+                "rmsnorm")
+RDMA_IDLE_KERNELS = ("gather_swiglu_scatter", "gather_quantize",
+                     "dequantize")
+RDMA_PATH = "qwen2_moe_a2_7b simulated_rdma"
 
 
 def emit(obj) -> None:
@@ -3194,6 +3232,425 @@ def train_musicgen_prefix(dev) -> dict:
             "init_params_s": init_s, "peak_mem_gb": peak_gb}
 
 
+def rdma_launch_check(launches: dict) -> None:
+    """The serve-rdma window's launches: every kernel of ``RDMA_KERNELS``
+    more than 0 times, every one of ``RDMA_IDLE_KERNELS`` exactly 0."""
+    missing = [n for n in RDMA_KERNELS if not launches.get(n, 0) > 0]
+    stray = {n: launches.get(n) for n in RDMA_IDLE_KERNELS
+             if launches.get(n) != 0}
+    if missing or stray:
+        raise AssertionError(f"serve-rdma launches {launches}: not launched "
+                             f"{missing}, launched but must not be {stray}")
+
+
+def substrate_counters(world) -> dict:
+    """A substrate world's counters after a run: commands pushed, quiesce
+    drains, dispatch messages and bytes, every message delivered, the wire
+    bytes and the event clock (all deterministic with inline proxies)."""
+    tl = world.timeline
+    return {"cmds": int(tl["cmds_per_step"]),
+            "drains": int(tl["drains_per_step"]),
+            "dispatch_msgs": int(tl["dispatch_msgs"]),
+            "dispatch_payload_bytes": int(tl["dispatch_payload_bytes"]),
+            "dispatch_wire_bytes": int(tl["dispatch_wire_bytes"]),
+            "msgs": int(world.net.delivered),
+            "wire_bytes": int(world.net.wire_bytes_moved),
+            "clock_us": float(world.net.clock_us)}
+
+
+def same_world(cpu, card, what: str, tol: float) -> dict:
+    """The CPU world's run against the card's on one routing, each a pair
+    (counters, output): the counters equal key for key and the outputs
+    within ``tol`` of the CPU output's largest, or raise.  Returns the
+    card's counters with the outputs' relative error."""
+    import numpy as np
+    (c_cpu, y_cpu), (c_card, y_card) = cpu, card
+    if c_cpu != c_card:
+        diff = {k: (c_cpu.get(k), c_card.get(k))
+                for k in set(c_cpu) | set(c_card)
+                if c_cpu.get(k) != c_card.get(k)}
+        raise AssertionError(f"{what}: the substrate's counters differ "
+                             f"between the CPU and the card run: {diff}")
+    err = float(np.abs(y_cpu - y_card).max() / np.abs(y_cpu).max())
+    if not err <= tol:
+        raise AssertionError(f"{what}: the card run's output is {err} of "
+                             f"the CPU's largest from it (tol {tol})")
+    return {**c_card, "out_rel_err": err, "out_tol": tol}
+
+
+def host_profile(fn, top: int = 8) -> dict:
+    """``fn()`` once under cProfile: its seconds, and the ``top``
+    functions by own time (file:line name, own s, calls)."""
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
+    t = time.perf_counter()
+    prof.runcall(fn)
+    seconds = time.perf_counter() - t
+    stats = pstats.Stats(prof).stats
+    rows = sorted(stats.items(), key=lambda kv: -kv[1][2])[:top]
+    return {"profiled_s": seconds, "top_own": [
+        {"fn": f"{Path(f).name}:{line} {name}", "own_s": st[2],
+         "calls": st[1]} for (f, line, name), st in rows]}
+
+
+class SubstrateCalls:
+    """Stands in for the ``grouped_swiglu`` CUDA wrapper while the
+    substrate serves: calls it, keeps the inputs of its first call with
+    bucketed (E, R) counts (LL's grouped barrier) and of its first with
+    flat (E,) counts (HT's (source, chunk) buckets), the weights by
+    reference, and brackets every call on the card in CUDA events, so
+    that ``take_ms`` gives the device time of the calls since the last
+    take."""
+
+    def __init__(self, fn, weights=frozenset()):
+        self.fn, self.weights = fn, weights
+        self.cases, self.events, self.calls = {}, [], 0
+
+    def __call__(self, x, wg, wu, wd, counts=None):
+        import torch
+        kind = None if counts is None else ("ll" if counts.dim() == 2
+                                            else "ht")
+        if kind is not None and kind not in self.cases:
+            self.cases[kind] = (tuple(
+                a if a is None or a.data_ptr() in self.weights
+                else a.detach().clone() for a in (x, wg, wu, wd, counts)),
+                {})
+        self.calls += 1
+        if not x.is_cuda:
+            return self.fn(x, wg, wu, wd, counts)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        y = self.fn(x, wg, wu, wd, counts)
+        end.record()
+        self.events.append((start, end))
+        return y
+
+    def take_ms(self) -> float:
+        import torch
+        if not self.events:
+            return 0.0
+        self.events[-1][1].synchronize()
+        ms = sum(s.elapsed_time(e) for s, e in self.events)
+        self.events = []
+        return ms
+
+    def path_cases(self) -> list:
+        """The recorded (args, kwargs): LL's first call, then HT's."""
+        missing = [k for k in ("ll", "ht") if k not in self.cases]
+        if missing:
+            raise AssertionError(f"the substrate never called grouped_swiglu "
+                                 f"with {missing} counts")
+        return [self.cases["ll"], self.cases["ht"]]
+
+
+def pinned_prefill(cfg_a, cfg_b, params, prompts, dist) -> dict:
+    """The last prefill logits of ``prompts`` through ``cfg_a`` (its MoE
+    routers' choices recorded) and through ``cfg_b`` twice: with the
+    routers' choices of the ``cfg_a`` run (``top_idx`` laid out over the
+    ranks as ``cfg_b``'s path lays out its tokens; the weights from its
+    own probabilities, as ``plain_check`` pins them) and free.  In bf16
+    two paths round apart, and a router whose k-th and (k+1)-th experts
+    lie that close sends a token elsewhere, which is no error of either
+    path; ``routing_choices_differing`` counts the choices ``cfg_b``'s
+    own routers would have made otherwise."""
+    import torch
+
+    from repro_torch.core import moe as tmoe
+    from repro_torch.models import model_zoo as Z
+    B, S = prompts.shape
+    route, taken, differing = tmoe.route, [], []
+
+    def record(mcfg, rp, t, n):
+        out = route(mcfg, rp, t, n)
+        taken.append(out.top_idx.reshape(B, S, -1))
+        return out
+
+    def replay(mcfg, rp, t, n):
+        out = route(mcfg, rp, t, n)
+        top = taken[len(differing)]
+        top = (tmoe.to_ranks(dist, top) if out.top_idx.dim() == 3
+               else top.reshape(out.top_idx.shape))
+        # a choice another router would not make (their order aside)
+        differing.append(int((out.top_idx.sort(-1).values
+                              != top.sort(-1).values).sum()))
+        w = torch.gather(out.probs, -1, top.long())
+        w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+        return out._replace(top_idx=top, top_w=w.to(out.top_w.dtype))
+
+    def prefill(c):
+        cache = Z.init_cache(c, B, S, dtype=Z.compute_dtype(c),
+                             device=prompts.device)
+        with torch.inference_mode():
+            logits, _, aux = Z.prefill(c, params, cache, prompts, dist=dist,
+                                       moe_mode="ht")
+        if float(aux["dropped"]) != 0.0:
+            raise AssertionError(f"{c.moe.ep_backend}: the prefill dropped "
+                                 "choices")
+        return logits
+    try:
+        tmoe.route = record
+        a = prefill(cfg_a)
+        tmoe.route = replay
+        b = prefill(cfg_b)
+    finally:
+        tmoe.route = route
+    free = prefill(cfg_b)
+    return {"rel_err": rel_err(a, b), "argmax_agree": float(
+                (a.argmax(-1) == b.argmax(-1)).float().mean()),
+            "unpinned_rel_err": rel_err(a, free),
+            "unpinned_argmax_agree": float(
+                (a.argmax(-1) == free.argmax(-1)).float().mean()),
+            "router_calls": len(taken),
+            "routing_choices_differing": sum(differing)}
+
+
+def layer_times(rows: list, n_layers: int) -> list:
+    """Per MoE layer, from ``rows`` of (host s, kernel device ms, calls) in
+    call order (the prefill's layers, then each decode step's): the
+    prefill's numbers and the decode steps' means."""
+    out = []
+    for i in range(n_layers):
+        dec = rows[n_layers + i::n_layers]
+        h, k, c = rows[i]
+        out.append({"layer": i, "prefill_host_s": h, "prefill_kernel_ms": k,
+                    "prefill_kernel_calls": c,
+                    "decode_host_s": (sum(r[0] for r in dec) / len(dec)
+                                      if dec else None),
+                    "decode_kernel_ms": (sum(r[1] for r in dec) / len(dec)
+                                         if dec else None)})
+    return out
+
+
+def serve_rdma(dev, kernels) -> None:
+    """serve-rdma: qwen2-moe at full width and all 24 layers served through
+    ``generate`` with ``moe.ep_backend = "simulated_rdma"`` over an EP
+    world of 4 (``RDMA_*``): every MoE layer's dispatch and combine run on
+    the host transport substrate, its experts through the
+    ``grouped_swiglu`` kernel, the decode steps eagerly.  Checks the
+    launches (``rdma_launch_check``), layer 0's MoE output against the
+    dense oracle, the last prefill logits against the collectives' with
+    every capacity lifted and the same routing choices
+    (``pinned_prefill``), the substrate's counters on the CPU against the
+    card run's on layer 0's routing, and every kernel of the path against
+    its plain version on the inputs a second, instrumented fp32 run
+    recorded: the cases join the kernels' entries of the kernels line as
+    cases of this path.  TTFT, tokens/s and the launches come from the
+    uninstrumented runs."""
+    import resource
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import moe as moe_mod
+    from repro_torch.core.backend import get_backend
+    from repro_torch.distributed.sharding import make_dist_ctx
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import blocks
+    from repro_torch.models import model_zoo as Z
+    from repro_torch.optim.adamw import tree_leaves
+
+    t_phase = time.perf_counter()
+    base = get_config("qwen2_moe_a2_7b")
+
+    def with_moe(**kw):
+        return dataclasses.replace(base, moe=dataclasses.replace(base.moe,
+                                                                 **kw))
+    cfg = with_moe(ep_backend="simulated_rdma")
+    cfg_fp8 = with_moe(ep_backend="simulated_rdma", wire_dtype="fp8")
+    dist = make_dist_ctx(cfg, model=4)
+    B, S = RDMA_BATCH, RDMA_PROMPT
+    t0 = time.perf_counter()
+    params = Z.init_params(cfg, seed=0, device=dev,
+                           dtype=Z.compute_dtype(cfg))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator().manual_seed(0)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen).to(dev)
+    generate(cfg, params, prompts[:, :8], 2, dist=dist, batched_prefill=True)
+    torch.cuda.synchronize()
+
+    # the served run, uninstrumented: TTFT, tokens/s and the launches
+    names = RDMA_KERNELS + RDMA_IDLE_KERNELS
+    cudas = {n: ops.KERNELS[n][0] for n in names}
+    for c in cudas.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    res = generate(cfg, params, prompts, RDMA_GEN, dist=dist,
+                   batched_prefill=True)
+    launches32 = {n: c.launches for n, c in cudas.items()}
+    res8 = generate(cfg_fp8, params, prompts, RDMA_GEN_FP8, dist=dist,
+                    batched_prefill=True)
+    launches = {n: c.launches for n, c in cudas.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rdma_launch_check(launches)
+    for r, n_gen in ((res, RDMA_GEN), (res8, RDMA_GEN_FP8)):
+        if (r["tokens"].shape != (B, n_gen)
+                or not torch.isfinite(r["logits"]).all()
+                or not ((r["tokens"] >= 0)
+                        & (r["tokens"] < cfg.vocab_size)).all()):
+            raise AssertionError("serve-rdma: wrong shape, a token outside "
+                                 "the vocab, or non-finite logits")
+        if r["cuda_graph"] or r["graph_replays"]:
+            raise AssertionError("serve-rdma: a host backend must decode "
+                                 "eagerly")
+
+    # the fp32 run again, instrumented: every kernel of the path recorded,
+    # each MoE layer's host seconds and its grouped_swiglu calls' device ms
+    weights = frozenset(t.data_ptr() for t in tree_leaves(params))
+    original = ops.KERNELS["grouped_swiglu"]
+    rec = SubstrateCalls(original[0], weights)
+    rows, seen = [], []
+    moe_apply = blocks.moe_apply
+
+    def timed_moe(c, d, p, x, **kw):
+        # the first call is the prefill's layer 0: its input is kept; the
+        # synchronize leaves the attention's kernels out of the host time
+        if not seen:
+            seen.append(x.clone())
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        n0 = rec.calls
+        y, aux = moe_apply(c, d, p, x, **kw)
+        host = time.perf_counter() - t
+        rows.append((host, rec.take_ms(), rec.calls - n0))
+        return y, aux
+
+    recs, restore = recording(NORM_ATTN_KERNELS, weights)
+    ops.KERNELS["grouped_swiglu"] = (rec, original[1])
+    blocks.moe_apply = timed_moe
+    try:
+        res_i = generate(cfg, params, prompts, RDMA_GEN, dist=dist,
+                         batched_prefill=True)
+    finally:
+        restore()
+        ops.KERNELS["grouped_swiglu"] = original
+        blocks.moe_apply = moe_apply
+    rss_gb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+    emit({"phase": "serve-rdma", "model": cfg.arch_id, "width": "full",
+          "layers": cfg.n_layers, "ep_world": "model=4",
+          "ep_backend": cfg.moe.ep_backend, "batch": B, "prompt": S,
+          "generated": RDMA_GEN, "generated_fp8": RDMA_GEN_FP8,
+          "ttft_s": res["ttft_s"],
+          "eager_decode_tokens_per_s": res["decode_tokens_per_s"],
+          "tokens_per_s": res["tokens_per_s"], "total_s": res["total_s"],
+          "fp8_ttft_s": res8["ttft_s"],
+          "fp8_eager_decode_tokens_per_s": res8["decode_tokens_per_s"],
+          "instrumented_ttft_s": res_i["ttft_s"],
+          "instrumented_eager_decode_tokens_per_s":
+              res_i["decode_tokens_per_s"],
+          "instrumented_tokens_equal": torch.equal(res_i["tokens"],
+                                                   res["tokens"]),
+          "cuda_graph": res["cuda_graph"],
+          "prefill_dropped": res["prefill_dropped"],
+          "decode_dropped": res["decode_dropped"],
+          "launches_fp32": launches32, "launches": launches,
+          "first_tokens": res["tokens"][0].tolist(),
+          "init_params_s": init_s, "peak_mem_gb": peak_gb,
+          "peak_rss_gb": rss_gb, "card": nvidia_smi()})
+    emit({"phase": "serve_rdma_layers", "wire": "fp32", "instrumented": True,
+          "per_layer": layer_times(rows, cfg.n_layers),
+          "prefill_host_s": sum(r[0] for r in rows[:cfg.n_layers]),
+          "prefill_kernel_ms": sum(r[1] for r in rows[:cfg.n_layers]),
+          "decode_host_s": sum(r[0] for r in rows[cfg.n_layers:]),
+          "decode_kernel_ms": sum(r[1] for r in rows[cfg.n_layers:])})
+
+    # layer 0's MoE output through the substrate against the dense oracle
+    x0 = seen[0]
+    p0 = {k: v for k, v in params["blocks"][0]["moe"].items()
+          if k != "shared"}
+    checks = []
+    with torch.inference_mode():
+        y_ref, _ = moe_mod.moe_apply(cfg, None, p0, x0, mode="ref")
+        scale = float(y_ref.float().abs().max())
+        for c in (cfg, cfg_fp8):
+            for mode in ("ht", "ll"):
+                y, aux = moe_mod.moe_apply(c, dist, p0, x0, mode=mode)
+                err = float((y.float() - y_ref.float()).abs().max()) / scale
+                wire = c.moe.wire_dtype
+                checks.append({"mode": mode, "wire": wire, "rel_err": err,
+                               "tol": MOE_TOL[wire],
+                               "dropped": float(aux["dropped"])})
+                if not err <= MOE_TOL[wire] or float(aux["dropped"]) != 0.0:
+                    raise AssertionError(f"serve-rdma layer 0 {mode}/{wire}"
+                                         f": {checks[-1]}")
+
+    # the last prefill logits against the collectives' HT prefill, every
+    # capacity lifted (no choice dropped), on the same weights and the
+    # same routing choices
+    cf_all = float(p0["w_gate"].shape[0] / cfg.moe.top_k)
+    cfg_coll = with_moe(capacity_factor=cf_all)
+    pinned = pinned_prefill(cfg, cfg_coll, params, prompts, dist)
+    if not pinned["rel_err"] <= SERVE_PLAIN_TOL:
+        raise AssertionError(f"serve-rdma: last prefill logits against the "
+                             f"collectives: {pinned}")
+
+    # the substrate on layer 0's routing: the CPU port's world against the
+    # card run's, HT at the prefill shape and LL at decode's; then the HT
+    # call on the card once more under cProfile, for where its host time
+    # goes
+    from repro_torch.core.routing import RouterParams, route
+    with torch.inference_mode():
+        t = x0.reshape(-1, x0.shape[-1])
+        rout = route(cfg.moe, RouterParams(p0["router_w"],
+                                           p0.get("router_b")), t,
+                     cfg.moe.n_experts)
+        xs = t.float().cpu().numpy()
+        ti = rout.top_idx.cpu().numpy()
+        tw = rout.top_w.float().cpu().numpy()
+        w_cpu = {k: p0[k].cpu() for k in ("w_gate", "w_up", "w_down")}
+        counters = {}
+        for mode in ("ht", "ll"):
+            spec = moe_mod.make_ep_spec(cfg, dist, mode=mode)
+            # HT: the prompt's tokens; LL: a decode step's, one a rank
+            n_tok = xs.shape[0] if mode == "ht" else spec.degree
+            got = {}
+            for where, w in (("cpu", w_cpu), ("card", p0)):
+                be = get_backend("simulated_rdma")
+                th = time.perf_counter()
+                out = be.dispatch_combine(
+                    spec, xs[:n_tok], ti[:n_tok], tw[:n_tok],
+                    moe_mod._host_expert_fn(w["w_gate"], w["w_up"],
+                                            w["w_down"]))
+                got[where] = (substrate_counters(be.last_world), out.out,
+                              time.perf_counter() - th)
+            counters[mode] = {
+                **same_world(got["cpu"][:2], got["card"][:2],
+                             f"layer 0 {mode}", MOE_TOL[cfg.moe.wire_dtype]),
+                "tokens": int(n_tok),
+                "cpu_s": got["cpu"][2], "card_s": got["card"][2]}
+        del w_cpu
+        spec = moe_mod.make_ep_spec(cfg, dist, mode="ht")
+        fn = moe_mod._host_expert_fn(p0["w_gate"], p0["w_up"], p0["w_down"])
+        profile = host_profile(lambda: get_backend(
+            "simulated_rdma").dispatch_combine(spec, xs, ti, tw, fn))
+    emit({"phase": "serve_rdma_checks", "layer0": checks,
+          "last_prefill": pinned, "tol": SERVE_PLAIN_TOL,
+          "capacity_factor_collectives": cf_all,
+          "substrate": counters})
+    emit({"phase": "serve_rdma_host_profile", "mode": "ht", "layer": 0,
+          "tokens": int(xs.shape[0]), **profile})
+
+    # every kernel of the path on the inputs the instrumented run recorded
+    # (the substrate's two kinds of grouped_swiglu call; the 64-token
+    # prefill's attention and norms, the decode steps') against its plain
+    # version, joining the kernel's entry as cases of this path
+    recorded = {"grouped_swiglu": rec.path_cases(),
+                **{n: list(recs[n].cases.values())
+                   for n in NORM_ATTN_KERNELS}}
+    for n, cases in recorded.items():
+        if not cases:
+            raise AssertionError(f"serve-rdma: {n} was never recorded")
+        entry = next(k for k in kernels if k["name"] == n)
+        more = add_cases(entry, cases, path=RDMA_PATH, launches=launches[n])
+        emit({"phase": "kernel", "path": RDMA_PATH,
+              **{k: v for k, v in entry.items() if k != "cases"},
+              "rdma_launches": launches[n], "cases": more})
+    emit({"phase": "serve_rdma_seconds",
+          "seconds": time.perf_counter() - t_phase})
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3290,6 +3747,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
     kernels += ep_kernels
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_rdma(dev, kernels)
 
     emit({"kernels": [{**{k: v for k, v in kk.items()
                           if k not in ("tolerance", "cases", "max_rel_err")},

@@ -7,13 +7,16 @@ out over the ranks as the reference's ``x_spec = P(bd, sq, None)`` does
 (:func:`token_layout`) and runs the backend over the rank-stacked world;
 without one (``dist=None`` or ``mode="ref"``) it runs the dense oracle
 :func:`~repro_torch.core.ep.moe_ref`, as the JAX package does without a
-mesh.
+mesh.  A host backend (``jit_compatible`` False: ``simulated_rdma``) takes
+:func:`_moe_host_sim` first, whatever ``dist`` is, as the reference's
+does.
 """
 from __future__ import annotations
 
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, _round_up
@@ -92,7 +95,10 @@ def moe_apply(cfg: ModelConfig, dist: Optional[DistCtx], p: dict, x: Tensor,
               *, mode: str = "ht", chunks: int = 1,
               backend=None) -> tuple[Tensor, dict]:
     """x: (B, S, D) -> (y, aux).  mode: "ht" | "ll" | "ref".  ``backend``
-    (default ``cfg.moe.ep_backend``) is a registered name or an instance."""
+    (default ``cfg.moe.ep_backend``) is a registered name (an unknown one
+    raises) or an :class:`~repro_torch.core.backend.EPBackend` instance:
+    the persistent-session path, where a model passes ONE instance to all
+    its MoE layers (DESIGN §16)."""
     B, S, D = x.shape
     mcfg = cfg.moe
     e_pad = p["w_gate"].shape[0]
@@ -100,7 +106,9 @@ def moe_apply(cfg: ModelConfig, dist: Optional[DistCtx], p: dict, x: Tensor,
     be = backend if backend is not None else mcfg.ep_backend
     ep_be = get_backend(be) if isinstance(be, str) else be
 
-    if dist is None or not dist.ep_axes or mode == "ref":
+    if not ep_be.jit_compatible and mode != "ref":
+        y, aux = _moe_host_sim(cfg, dist, rparams, p, x, mode, ep_be)
+    elif dist is None or not dist.ep_axes or mode == "ref":
         t = x.reshape(-1, D)
         rout = route(mcfg, rparams, t, mcfg.n_experts)
         y = moe_ref(t, rout.top_idx, rout.top_w, p["w_gate"], p["w_up"],
@@ -117,6 +125,72 @@ def moe_apply(cfg: ModelConfig, dist: Optional[DistCtx], p: dict, x: Tensor,
     if mcfg.d_shared and "shared" in p:
         y = y + swiglu(p["shared"], x)
     return y, aux
+
+
+def _host_expert_fn(wg: Tensor, wu: Tensor, wd: Tensor):
+    """The host substrate's expert function: ``fn(tokens, counts)`` takes
+    the received rows (numpy fp32 (E, N, D)) to the weights' device and
+    dtype, runs ``ops.grouped_swiglu`` with the substrate's per-expert (E,)
+    or bucketed (E, B) counts (the CUDA kernel on the card, its plain
+    version on the CPU) and returns fp32 numpy."""
+    def fn(tokens, counts=None):
+        x = torch.from_numpy(np.ascontiguousarray(tokens, np.float32)).to(
+            device=wg.device, dtype=wg.dtype)
+        c = (None if counts is None else torch.from_numpy(
+            np.ascontiguousarray(counts, np.int32)).to(wg.device))
+        y = kops.grouped_swiglu(x, wg, wu, wd, c)
+        return y.to(torch.float32).cpu().numpy()
+    return fn
+
+
+def _moe_host_sim(cfg: ModelConfig, dist: Optional[DistCtx],
+                  rparams: RouterParams, p: dict, x: Tensor, mode: str,
+                  ep_be) -> tuple[Tensor, dict]:
+    """Host-backend path: the MoE layer's dispatch/combine on numpy arrays
+    (the simulated-RDMA substrate), its expert compute on the weights'
+    device through :func:`_host_expert_fn`.  The (B*S) tokens split
+    row-major over the ranks; the spec comes from :func:`make_ep_spec`
+    with an EP world, else its degree is the largest of 1, 2 and 4 that
+    divides both the token count and the padded experts.  The substrate
+    carries no gradient: under autograd it raises."""
+    if torch.is_grad_enabled() and (x.requires_grad or any(
+            isinstance(v, Tensor) and v.requires_grad for v in p.values())):
+        raise RuntimeError(
+            f"moe_apply: the {ep_be.name} backend runs on the host and "
+            "carries no gradient; run it under torch.no_grad() or "
+            "torch.inference_mode()")
+    B, S, D = x.shape
+    mcfg = cfg.moe
+    t = x.reshape(-1, D)
+    rout = route(mcfg, rparams, t, mcfg.n_experts)
+    e_pad = p["w_gate"].shape[0]
+    if dist is not None and dist.ep_axes:
+        spec = make_ep_spec(cfg, dist, mode=mode, dtype=x.dtype)
+    else:
+        degree = max(d for d in (1, 2, 4) if (B * S) % d == 0
+                     and e_pad % d == 0)
+        spec = EPSpec(axes=("sim",), sizes=(degree,), n_experts=e_pad,
+                      top_k=mcfg.top_k, mode=mode,
+                      wire_dtype=mcfg.wire_dtype)
+    res = ep_be.dispatch_combine(
+        spec, t.to(torch.float32).cpu().numpy(),
+        rout.top_idx.cpu().numpy(),
+        rout.top_w.to(torch.float32).cpu().numpy(),
+        _host_expert_fn(p["w_gate"], p["w_up"], p["w_down"]))
+    load = planlib.expert_load(rout.top_idx, e_pad)
+    # with a replicated placement the backend's physical-slot stat is the
+    # truth; without one, report over the real (unpadded) logical experts
+    if spec.placement is not None:
+        imb = torch.tensor(float(res.aux["imbalance"]), device=x.device)
+    else:
+        imb = planlib.load_imbalance(load[:mcfg.n_experts])
+    aux = {"aux_loss": rout.aux_loss,
+           "dropped": torch.tensor(float(res.aux["dropped"]),
+                                   device=x.device),
+           "load": load, "imbalance": imb}
+    y = torch.from_numpy(np.asarray(res.out, np.float32)).to(
+        device=x.device, dtype=x.dtype)
+    return y.reshape(B, S, D), aux
 
 
 def token_layout(dist: DistCtx, B: int, S: int) -> tuple[int, int]:

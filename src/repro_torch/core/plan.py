@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import inspect
 import weakref
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -83,6 +83,27 @@ def effective_chunks(T: int, chunks: int) -> int:
     while T % chunks:
         chunks -= 1
     return chunks
+
+
+def receive_bucket_table(n_buckets: int, base: int, stride: int,
+                         extent: Optional[int] = None, gid0: int = 0,
+                         ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Receive-bucket registration table ``(bases, extents, guard_ids)``
+    (numpy int64, built on the host for the transport substrate).
+
+    Bucket ``g`` occupies bytes ``[base + g*stride, base + g*stride +
+    extent)`` and owns guard id ``gid0 + g``: the table the EP executor
+    registers with each rank's proxy, so that the receiver resolves a
+    write's landing offset to its completion-fence guard (DESIGN.md §12).
+    ``extent`` defaults to ``stride``.  ``gid0`` offsets the ids into a
+    per-layer namespace when several layers' tables coexist in one EP
+    session (DESIGN.md §16)."""
+    ext = stride if extent is None else extent
+    assert 0 < ext <= stride, (extent, stride)
+    gids = gid0 + np.arange(n_buckets, dtype=np.int64)
+    bases = base + np.arange(n_buckets, dtype=np.int64) * stride
+    extents = np.full(n_buckets, ext, np.int64)
+    return bases, extents, gids
 
 
 # ------------------------------------------------------------ wire layout --

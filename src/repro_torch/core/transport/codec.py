@@ -9,13 +9,18 @@ scale (1.0 in place of a zero scale), a clip to the representable range,
 then fp8 rounds f32 -> f16 -> e4m3 (both RTNE; a direct f32 -> e4m3 cast
 disagrees on about 0.3% of values) and int8 rounds half to even and clips
 to +-127.  Decode always returns fp32.
+
+The substrate's row codecs (:class:`WireCodec`, :func:`get_codec`) pack
+numpy fp32 rows into the inline-scale wire layout on the host, through
+these torch functions on CPU tensors (numpy has no fp8 dtype): the bytes
+equal the reference's ``repro.core.transport.codec`` row codecs.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.core.plan import WIRE_BLOCK
+from repro_torch.core.plan import WIRE_BLOCK, WireLayout, wire_layout
 
 FP8_MAX = 448.0      # float8_e4m3fn finite max (no inf encoding)
 INT8_MAX = 127.0
@@ -63,3 +68,77 @@ def dequantize_blocked(q: torch.Tensor, scales: torch.Tensor,
     qf = _blocked(q.to(torch.float32), block)
     out = qf * scales[..., None].to(torch.float32)
     return out.reshape(q.shape[:-1] + (qf.shape[-2] * block,))[..., :d]
+
+
+# ------------------------------------------------------- substrate codecs --
+def _host(a: np.ndarray) -> torch.Tensor:
+    """A CPU tensor over a contiguous numpy array (copied only when the
+    array is read-only, which ``torch.from_numpy`` refuses to share)."""
+    a = np.ascontiguousarray(a)
+    return torch.from_numpy(a if a.flags.writeable else a.copy())
+
+
+class WireCodec:
+    """Row codec for the host transport substrate: fp32 rows <-> wire
+    bytes.  ``encode`` packs (N, D) fp32 into (N, wire_bytes(D)) uint8 in
+    the inline-scale layout ``[D quantized bytes | nb fp32 scales]`` (fp32
+    passes its 4 * D bytes through); ``decode`` is its fp32 inverse."""
+
+    name = "fp32"
+
+    def layout(self, d: int) -> WireLayout:
+        return wire_layout(d, self.name)
+
+    def wire_bytes(self, d: int) -> int:
+        return self.layout(d).token_bytes
+
+    def encode(self, x: np.ndarray) -> np.ndarray:
+        x = np.ascontiguousarray(x, np.float32)
+        return x.view(np.uint8).reshape(x.shape[0], -1)
+
+    def decode(self, buf: np.ndarray, d: int) -> np.ndarray:
+        buf = np.ascontiguousarray(buf, np.uint8)
+        return buf.view(np.float32).reshape(buf.shape[0], d).copy()
+
+
+class _QuantCodec(WireCodec):
+    def encode(self, x: np.ndarray) -> np.ndarray:
+        x = np.ascontiguousarray(x, np.float32)
+        n, d = x.shape
+        lo = self.layout(d)
+        q, scales = quantize_blocked(_host(x), self.name)
+        out = np.empty((n, lo.token_bytes), np.uint8)
+        out[:, :lo.q_bytes] = q.view(torch.uint8).numpy()
+        out[:, lo.q_bytes:] = np.ascontiguousarray(
+            scales.numpy(), np.float32).view(np.uint8).reshape(
+                n, lo.scale_bytes)
+        return out
+
+    def decode(self, buf: np.ndarray, d: int) -> np.ndarray:
+        lo = self.layout(d)
+        buf = np.asarray(buf, np.uint8)
+        q = _host(buf[:, :lo.q_bytes])
+        scales = np.ascontiguousarray(buf[:, lo.q_bytes:]).view(
+            np.float32).reshape(buf.shape[0], lo.n_blocks)
+        return dequantize_blocked(q.view(WIRE_QDTYPE[self.name]),
+                                  _host(scales)).numpy()
+
+
+class Fp8Codec(_QuantCodec):
+    name = "fp8"
+
+
+class Int8Codec(_QuantCodec):
+    name = "int8"
+
+
+_CODECS = {"fp32": WireCodec(), "fp8": Fp8Codec(), "int8": Int8Codec()}
+WIRE_DTYPES = tuple(_CODECS)
+
+
+def get_codec(name: str) -> WireCodec:
+    try:
+        return _CODECS[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown wire_dtype: {name!r} (have {WIRE_DTYPES})") from None

@@ -34,6 +34,12 @@ Mamba layers (falcon-mamba, the jamba hybrid) always runs its prompt
 through decode steps, as the reference's does: a batched prefill would
 need the recurrent state after the prompt.  Decode goes token by token
 through LL.
+
+``--ep-backend simulated_rdma`` runs every MoE layer's dispatch and
+combine over the host transport substrate (``repro_torch.core.transport``)
+and its experts through the ``grouped_swiglu`` kernel on the card.  A host
+backend reads device values on the host, which no CUDA graph can hold, so
+``generate`` then decodes through the eager step.
 """
 from __future__ import annotations
 
@@ -44,6 +50,16 @@ from typing import Optional
 
 
 WARMUP_STEPS = 2    # eager decode steps before a capture
+
+
+def host_backend(cfg) -> bool:
+    """True when ``cfg``'s MoE layers run a host backend (one that is not
+    ``jit_compatible``), which reads device values on the host and so
+    cannot run inside a captured CUDA graph."""
+    if not cfg.moe.enabled:
+        return False
+    from repro_torch.core.backend import get_backend
+    return not get_backend(cfg.moe.ep_backend).jit_compatible
 
 
 class CapturedStep:
@@ -142,15 +158,24 @@ def generate(cfg, params, prompts, n_gen, *, dist=None,
     step is captured once (:func:`capture_decode_step`) before the clock
     starts, reported as ``capture_s``, and replayed for every decode step,
     the per-token prefill's included; the prefill stays eager.  True on the
-    CPU raises; False keeps the eager step.  Times on the host clock around
-    work that ends in a device synchronise."""
+    CPU raises; False keeps the eager step.  With a host EP backend
+    (:func:`host_backend`, e.g. ``simulated_rdma``) None means no, and True
+    raises: the host path reads device values, which a capture cannot
+    hold.  Times on the host clock around work that ends in a device
+    synchronise."""
     import torch
 
     from repro_torch.models import model_zoo as Z
 
     dev = prompts.device
+    on_host = host_backend(cfg)
     if cuda_graph is None:
-        cuda_graph = dev.type == "cuda"
+        cuda_graph = dev.type == "cuda" and not on_host
+    elif cuda_graph and on_host:
+        raise ValueError(f"generate: cuda_graph=True with the host EP "
+                         f"backend {cfg.moe.ep_backend!r}, which reads "
+                         "device values on the host; a capture cannot hold "
+                         "that (decode eagerly: cuda_graph=False)")
     elif cuda_graph and dev.type != "cuda":
         raise ValueError(f"generate: cuda_graph=True needs the prompts on a "
                          f"CUDA device, not {dev}")

@@ -63,9 +63,10 @@ def block_init_cache(cfg: ModelConfig, layer_idx: int, batch: int,
     return mamba_init_cache(cfg, batch, dtype, device)._asdict()
 
 
-def _ffn(cfg, dist, p, h, mode, chunks):
+def _ffn(cfg, dist, p, h, mode, chunks, backend=None):
     if "moe" in p:
-        return moe_apply(cfg, dist, p["moe"], h, mode=mode, chunks=chunks)
+        return moe_apply(cfg, dist, p["moe"], h, mode=mode, chunks=chunks,
+                         backend=backend)
     if "mlp" in p:
         return swiglu(p["mlp"], h), {}
     return torch.zeros_like(h), {}
@@ -73,9 +74,14 @@ def _ffn(cfg, dist, p, h, mode, chunks):
 
 def block_apply(cfg: ModelConfig, dist: Optional[DistCtx], p: dict,
                 x: Tensor, positions: Tensor, *, moe_mode: str = "ht",
-                moe_chunks: int = 1,
-                causal_skip: bool = False) -> tuple[Tensor, dict]:
-    """Training/prefill block: x (B, S, D) residual -> (x', aux)."""
+                moe_chunks: int = 1, causal_skip: bool = False,
+                moe_backend=None) -> tuple[Tensor, dict]:
+    """Training/prefill block: x (B, S, D) residual -> (x', aux).
+
+    ``moe_backend``: a backend name or :class:`EPBackend` instance handed to
+    :func:`moe_apply` (default ``cfg.moe.ep_backend``); a model passes one
+    instance to all its blocks for the persistent-session path
+    (registration once per step, DESIGN §16)."""
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     if "attn" in p:
         h = attention(cfg, p["attn"], h, positions, causal_skip=causal_skip)
@@ -83,7 +89,7 @@ def block_apply(cfg: ModelConfig, dist: Optional[DistCtx], p: dict,
         h = mamba_apply(cfg, p["mamba"], h)
     x = x + h
     h, aux = _ffn(cfg, dist, p, rmsnorm(x, p["ln2"], cfg.norm_eps),
-                  moe_mode, moe_chunks)
+                  moe_mode, moe_chunks, moe_backend)
     return x + h, aux
 
 

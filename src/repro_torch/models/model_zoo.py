@@ -87,21 +87,25 @@ def lm_head_weight(cfg: ModelConfig, params: dict) -> Tensor:
 def forward(cfg: ModelConfig, params: dict, tokens: Tensor,
             prefix_embeds: Optional[Tensor] = None, *,
             dist: Optional[DistCtx] = None, moe_mode: str = "ht",
-            moe_chunks: int = 1,
-            causal_skip: bool = False) -> tuple[Tensor, dict]:
+            moe_chunks: int = 1, causal_skip: bool = False,
+            moe_backend=None) -> tuple[Tensor, dict]:
     """tokens (B, S_txt) [+ prefix_embeds (B, S_pre, D), cast to the
     activation dtype and put before the token embeddings, positions running
     over both] -> hidden (B, S, D), aux: ``aux_loss`` summed over layers,
     ``dropped`` as the reference reads it (each scan period's dropped
     fractions summed, then the mean over periods; 0 without MoE), and
-    ``loads``, each MoE layer's expert loads by layer index."""
+    ``loads``, each MoE layer's expert loads by layer index.
+    ``moe_backend``: a backend name or instance shared by every MoE layer
+    (default ``cfg.moe.ep_backend``): one ``simulated_rdma`` instance with
+    ``session_layers`` set registers its transport state once a step."""
     x = B.vocab_embed(params["embed"], tokens)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None].expand(x.shape[0], S)
     layer = functools.partial(B.block_apply, cfg, dist, moe_mode=moe_mode,
-                              moe_chunks=moe_chunks, causal_skip=causal_skip)
+                              moe_chunks=moe_chunks, causal_skip=causal_skip,
+                              moe_backend=moe_backend)
     aux_loss = torch.zeros((), dtype=torch.float32, device=x.device)
     _, n_periods = scan_period(cfg)
     dropped = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -126,7 +130,7 @@ def loss_fn(cfg: ModelConfig, params: dict, tokens: Tensor, labels: Tensor,
             prefix_embeds: Optional[Tensor] = None, *,
             dist: Optional[DistCtx] = None, moe_mode: str = "ht",
             moe_chunks: int = 1, causal_skip: bool = False,
-            loss_chunk: int = 2048) -> tuple[Tensor, dict]:
+            loss_chunk: int = 2048, moe_backend=None) -> tuple[Tensor, dict]:
     """Next-token cross entropy over a seq-chunked head, plus the routers'
     aux loss.  ``params`` are fp32; they are cast to ``cfg.dtype`` here,
     inside the graph, so their gradients come back in fp32.  The prefix
@@ -135,7 +139,7 @@ def loss_fn(cfg: ModelConfig, params: dict, tokens: Tensor, labels: Tensor,
     dtype = compute_dtype(cfg)
     x, aux = forward(cfg, cast_params(params, dtype), tokens, prefix_embeds,
                      dist=dist, moe_mode=moe_mode, moe_chunks=moe_chunks,
-                     causal_skip=causal_skip)
+                     causal_skip=causal_skip, moe_backend=moe_backend)
     head = lm_head_weight(cfg, params).to(dtype)
     if prefix_embeds is not None:
         x = x[:, prefix_embeds.shape[1]:]

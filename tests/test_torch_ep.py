@@ -140,7 +140,7 @@ def _compare(got, ref):
 
 
 def test_registry():
-    assert available_backends() == ["torch_collectives"]
+    assert available_backends() == ["simulated_rdma", "torch_collectives"]
     with pytest.raises(KeyError):
         get_backend("no_such_transport")
     # a placement is taken: the identity one reads as none, a replicated

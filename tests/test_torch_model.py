@@ -172,9 +172,13 @@ def test_serve_generate_reports():
 
 def test_port_imports_no_jax():
     """Every module of repro_torch, and chip_smoke, import without JAX or
-    the JAX package in the process."""
+    the JAX package in the process; and the transport substrate runs
+    without them too (an fp8 row through the port's codec, and a small
+    EPWorld over the fp8 wire, LL and HT), so that a lazy ``ml_dtypes``
+    import would show."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
+        import numpy as np
         sys.path[:0] = [%r, %r]
         import repro_torch
         names = [m.name for m in pkgutil.walk_packages(
@@ -182,6 +186,24 @@ def test_port_imports_no_jax():
         for n in names:
             importlib.import_module(n)
         import chip_smoke
+        from repro_torch.core.transport import EPWorld, NetConfig, get_codec
+        rng = np.random.default_rng(0)
+        c = get_codec("fp8")
+        row = rng.standard_normal((1, 200)).astype(np.float32)
+        back = c.decode(c.encode(row), 200)
+        assert back.shape == (1, 200) and np.abs(back - row).max() < 0.2
+        R, E, K, D, Tl = 2, 4, 2, 8, 3
+        x = rng.standard_normal((R, Tl, D)).astype(np.float32)
+        ti = np.array([[[0, 1], [2, 3], [1, 2]], [[3, 0], [0, 2], [1, 3]]],
+                      np.int32)
+        tw = np.full((R, Tl, K), 0.5, np.float32)
+        w3 = [(rng.standard_normal(s) * 0.2).astype(np.float32)
+              for s in ((E, D, 8), (E, D, 8), (E, 8, D))]
+        w = EPWorld(n_ranks=R, n_experts=E, top_k=K, d=D, f=8,
+                    capacity=Tl * K, net_cfg=NetConfig(mode="srd", seed=0),
+                    wire_dtype="fp8")
+        for out in (w.run(x, ti, tw, *w3), w.run_ht(x, ti, tw, *w3)):
+            assert out.shape == (R, Tl, D) and np.isfinite(out).all()
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes",
                                             "repro"))

@@ -1,8 +1,11 @@
 """The checks ``chip_smoke.py`` makes on the card, run on the CPU at a
 reduced size, so that the checks themselves are tested: HT at its
 configured capacity (with drops) against the dense oracle restricted to
-the choices the plan keeps; and the launch accounting and decode cases of
-a captured decode step."""
+the choices the plan keeps; the launch accounting and decode cases of
+a captured decode step; and serve-rdma's helpers: its launch
+expectations, the CPU-against-card comparison of the substrate's counters
+and output, its host profile, and the recorder of the substrate's
+grouped_swiglu calls whose cases join the kernel's entry."""
 import dataclasses
 import sys
 from pathlib import Path
@@ -354,3 +357,159 @@ def test_dense_plain_check_on_the_cpu(arch):
     for what in ("prefill", "decode"):
         assert line[what]["rel_err"] == 0.0
         assert line[what]["argmax_agree"] == 1.0
+
+
+# ------------------------------------------------------------ serve-rdma --
+def test_rdma_launch_expectations():
+    """serve-rdma's launch check: its four kernels each > 0, the three the
+    substrate must not reach each exactly 0; any miss raises."""
+    ok = {"grouped_swiglu": 96, "flash_attention": 24,
+          "decode_attention": 264, "rmsnorm": 600,
+          "gather_swiglu_scatter": 0, "gather_quantize": 0, "dequantize": 0}
+    chip_smoke.rdma_launch_check(ok)
+    for n in chip_smoke.RDMA_KERNELS:
+        with pytest.raises(AssertionError, match=n):
+            chip_smoke.rdma_launch_check({**ok, n: 0})
+    for n in chip_smoke.RDMA_IDLE_KERNELS:
+        with pytest.raises(AssertionError, match=n):
+            chip_smoke.rdma_launch_check({**ok, n: 1})
+    with pytest.raises(AssertionError, match="dequantize"):
+        chip_smoke.rdma_launch_check({k: v for k, v in ok.items()
+                                      if k != "dequantize"})
+
+
+def _rdma_layer():
+    cfg = dataclasses.replace(reduced_config(
+        get_config("qwen2_moe_a2_7b"), n_layers=1, d_model=64, n_experts=8),
+        dtype="float32")
+    params = Z.init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
+    p = {k: v for k, v in params["blocks"][0]["moe"].items() if k != "shared"}
+    x = torch.randn((2, 8, cfg.d_model),
+                    generator=torch.Generator().manual_seed(0))
+    return cfg, p, x
+
+
+@pytest.mark.parametrize("mode", ["ht", "ll"])
+def test_substrate_counters_compare(mode):
+    """The CPU-against-card comparison: two runs of the substrate on one
+    routing give equal counters and outputs (relative error 0); a run whose
+    expert outputs are doubled keeps the counters and is caught by its
+    output, and a world whose traffic differs (another wire) by its
+    counters."""
+    from repro_torch.core import moe as moe_mod
+    from repro_torch.core.backend import get_backend
+    from repro_torch.core.routing import RouterParams, route
+    cfg, p, x = _rdma_layer()
+    dist = make_dist_ctx(cfg, model=4)
+    t = x.reshape(-1, cfg.d_model)
+    rout = route(cfg.moe, RouterParams(p["router_w"], p.get("router_b")), t,
+                 cfg.moe.n_experts)
+    args = (t.numpy(), rout.top_idx.numpy(), rout.top_w.numpy())
+    spec = moe_mod.make_ep_spec(cfg, dist, mode=mode)
+    fn = moe_mod._host_expert_fn(p["w_gate"], p["w_up"], p["w_down"])
+
+    def run(s, f):
+        be = get_backend("simulated_rdma")
+        out = be.dispatch_combine(s, *args, f)
+        return chip_smoke.substrate_counters(be.last_world), out.out
+    tol = chip_smoke.MOE_TOL["fp32"]
+    got = [run(spec, f) for f in
+           (fn, fn, lambda toks, counts=None: fn(toks, counts) * 2.0)]
+    c0 = got[0][0]
+    assert c0["cmds"] > 0 and c0["msgs"] > 0
+    assert c0["drains"] >= 1 and c0["wire_bytes"] > 0
+    same = chip_smoke.same_world(got[0], got[1], mode, tol)
+    assert same == {**got[1][0], "out_rel_err": 0.0, "out_tol": tol}
+    assert got[2][0] == c0
+    with pytest.raises(AssertionError, match="output"):
+        chip_smoke.same_world(got[0], got[2], mode, tol)
+    other = run(dataclasses.replace(spec, wire_dtype="fp8"), fn)
+    with pytest.raises(AssertionError, match="dispatch_wire_bytes"):
+        chip_smoke.same_world(got[0], other, mode, tol)
+
+
+def test_host_profile_lists_own_time():
+    """serve-rdma's host profile: the call's seconds and its functions by
+    own time, the heaviest first."""
+    import numpy as np
+
+    def work():
+        np.sort(np.random.default_rng(0).random(200_000))
+    prof = chip_smoke.host_profile(work, top=3)
+    assert prof["profiled_s"] > 0 and 1 <= len(prof["top_own"]) <= 3
+    own = [r["own_s"] for r in prof["top_own"]]
+    assert own == sorted(own, reverse=True)
+    assert all(r["calls"] >= 1 and ":" in r["fn"] for r in prof["top_own"])
+
+
+def test_substrate_calls_recorder_cases():
+    """The recorder of the substrate's grouped_swiglu calls keeps LL's
+    first call (bucketed counts) and HT's (flat counts), in that order,
+    whatever order they came in; the weights by reference, the rest
+    copied; it raises when a kind is missing.  The kept inputs reproduce
+    the recorded call's output through the plain version."""
+    from repro_torch.core import moe as moe_mod
+    from repro_torch.kernels import grouped_matmul as gm
+    cfg, p, x = _rdma_layer()
+    weights = frozenset(p[k].data_ptr() for k in ("w_gate", "w_up",
+                                                  "w_down"))
+    rec = chip_smoke.SubstrateCalls(gm.grouped_swiglu_plain, weights)
+    from repro_torch.kernels import ops
+    original = ops.KERNELS["grouped_swiglu"]
+    ops.KERNELS["grouped_swiglu"] = (original[0], rec)  # CPU runs "plain"
+    try:
+        with torch.no_grad():
+            with pytest.raises(AssertionError, match="ll"):
+                moe_mod.moe_apply(cfg, None, p, x, mode="ht",
+                                  backend="simulated_rdma")
+                rec.path_cases()
+            moe_mod.moe_apply(cfg, None, p, x, mode="ll",
+                              backend="simulated_rdma")
+    finally:
+        ops.KERNELS["grouped_swiglu"] = original
+    (ll, _), (ht, _) = rec.path_cases()
+    E = p["w_gate"].shape[0]
+    assert ll[4].shape == (E, 4) and ht[4].shape == (E,)
+    assert ll[1] is p["w_gate"] and ht[3] is p["w_down"]
+    assert rec.calls > 2
+    for args in (ll, ht):
+        assert int(args[4].sum()) > 0
+        y = gm.grouped_swiglu_plain(*args)
+        assert y.shape == args[0].shape and torch.isfinite(y).all()
+
+
+def test_layer_times_summary():
+    rows = [(0.5, 2.0, 4), (0.25, 1.0, 3),        # prefill, 2 layers
+            (0.1, 0.2, 1), (0.3, 0.4, 1),         # decode step 1
+            (0.2, 0.6, 1), (0.1, 0.2, 1)]         # decode step 2
+    out = chip_smoke.layer_times(rows, 2)
+    assert [o["layer"] for o in out] == [0, 1]
+    assert out[0]["prefill_host_s"] == 0.5 and out[1]["prefill_kernel_calls"] == 3
+    assert out[0]["decode_host_s"] == pytest.approx(0.15)
+    assert out[1]["decode_kernel_ms"] == pytest.approx(0.3)
+
+
+@pytest.mark.parametrize("model,S", [(4, 8), (4, 6)])
+def test_pinned_prefill_lays_the_choices_out_per_rank(model, S):
+    """serve-rdma's prefill comparison: the substrate's routing choices
+    (its tokens row-major) replayed in the collectives' run (their tokens
+    laid out over the ranks, the sequence split when the ranks divide it,
+    else replicated); in fp32 the two agree to summation order and no
+    router would have chosen otherwise.  A wrong layout would mix tokens'
+    choices and miss by far more."""
+    cfg = dataclasses.replace(reduced_config(
+        get_config("qwen2_moe_a2_7b"), n_layers=2, d_model=64, n_experts=8),
+        dtype="float32")
+    rdma = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, ep_backend="simulated_rdma"))
+    coll = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=8.0))
+    params = Z.init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
+    prompts = torch.randint(0, cfg.vocab_size, (4, S),
+                            generator=torch.Generator().manual_seed(S))
+    res = chip_smoke.pinned_prefill(rdma, coll, params, prompts,
+                                    make_dist_ctx(cfg, model=model))
+    assert res["router_calls"] == cfg.n_layers
+    assert res["routing_choices_differing"] == 0
+    assert res["rel_err"] <= 1e-5 and res["unpinned_rel_err"] <= 1e-5
+    assert res["argmax_agree"] == 1.0
