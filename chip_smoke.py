@@ -237,7 +237,32 @@ Phases, each printed as one JSON line:
    on layer 0's routing through the CPU world and the card run's, equal;
    and the substrate's first LL (bucketed counts) and HT (flat counts)
    grouped_swiglu calls against the plain version, timed, joining that
-   kernel's entry as cases of this path; the phase's seconds.
+   kernel's entry as cases of this path; the phase's seconds;
+21. serve-engine (last, after phase 20): the continuous-batching serving
+   engine (``repro_torch.serving.ServingEngine``: seeded Poisson requests,
+   the scheduler's chunked prefill and decode over a paged KV pool, every
+   step's 24 MoE layers through a persistent EP session on the host
+   substrate) at qwen2-moe's routed-expert widths (60 experts, top-4,
+   d_model 2048, d_ff 1408, EP degree 4; ``engine_config``) with the
+   reference fig13 benchmark's scheduler geometry, its experts on the card
+   through the ``grouped_swiglu`` kernel, one ``(1, n, 2048)`` launch an
+   expert with rows.  Run A: fp32 wire, the first 16 of a stream of 32
+   Poisson requests; run B: fp8 wire, two replicas an expert behind the
+   LoadBalancer, Zipf skew, its first 8; one step of run A profiled (the
+   kernel's device time a step, the card's busy share).
+   Every request completes; each step's launches equal the executor's
+   launched experts and no other hand-written kernel launches; the
+   event-clock stats (labelled as the simulated clock, not the card's),
+   host seconds a step (median, largest), the kernel's launches and device
+   ms a step, peak memory and RSS; run A's first 2 steps repeated with the
+   experts on the CPU hold the same state and the last layer's outputs
+   within ``MOE_TOL``; three recorded calls (the first, one row, the most
+   rows) against the plain version join the kernel's entry as cases of
+   this path.
+
+The lint phase (right after the build): ``repro_torch.analysis.lint``
+over the port's package, its CUDA sources' occupancy rule included; any
+finding fails the run.
 
 Then the kernels line ``{"kernels": [...]}`` (all seventeen kernels), the
 nvidia-smi line, and as the last line ``{"ok": true, "device": {...}}``.
@@ -473,6 +498,26 @@ RDMA_KERNELS = ("grouped_swiglu", "flash_attention", "decode_attention",
 RDMA_IDLE_KERNELS = ("gather_swiglu_scatter", "gather_quantize",
                      "dequantize")
 RDMA_PATH = "qwen2_moe_a2_7b simulated_rdma"
+# serve-engine: the continuous-batching engine (repro_torch.serving) at
+# qwen2-moe's routed-expert widths, all 24 layers, EP degree 4, with the
+# reference fig13 benchmark's scheduler geometry (benchmarks/
+# fig13_serving.py): a 32-token budget, 16-token prefill chunks, 512 KV
+# blocks of 16, 12 µs of non-MoE event clock a layer.  The requests: a
+# stream of 32 Poisson arrivals at fig13's knee load (2000 requests/s).
+# Run A: the fp32 wire, one slot an expert, the stream's first 16; run B:
+# the fp8 wire, two replicas an expert behind the LoadBalancer (120
+# physical slots), Zipf-skewed routing, its first 8.  Cut from 32 and 16
+# (scale only): at 32 and 16 the phase took 187 s on an H100, its steps
+# bound by the host substrate (~1.1 s a step), and it is to stay near two
+# minutes
+ENGINE_GEOMETRY = dict(ep_degree=4, token_budget=32, prefill_chunk=16,
+                       block_size=16, n_blocks=512, nonmoe_us=12.0,
+                       step_mode="pipelined")
+ENGINE_RATE_RPS, ENGINE_STREAM = 2000.0, 32
+ENGINE_REQUESTS, ENGINE_B_REQUESTS = 16, 8
+ENGINE_LENGTHS = dict(seed=7, prompt_len=(24, 48), gen_len=(8, 32))
+ENGINE_CPU_STEPS = 2     # run A's first steps repeated with the experts on the CPU
+ENGINE_PATH = "qwen2_moe_a2_7b serving engine"
 
 
 def emit(obj) -> None:
@@ -3307,8 +3352,7 @@ class SubstrateCalls:
         self.fn, self.weights = fn, weights
         self.cases, self.events, self.calls = {}, [], 0
 
-    def __call__(self, x, wg, wu, wd, counts=None):
-        import torch
+    def record(self, x, wg, wu, wd, counts) -> None:
         kind = None if counts is None else ("ll" if counts.dim() == 2
                                             else "ht")
         if kind is not None and kind not in self.cases:
@@ -3316,6 +3360,10 @@ class SubstrateCalls:
                 a if a is None or a.data_ptr() in self.weights
                 else a.detach().clone() for a in (x, wg, wu, wd, counts)),
                 {})
+
+    def __call__(self, x, wg, wu, wd, counts=None):
+        import torch
+        self.record(x, wg, wu, wd, counts)
         self.calls += 1
         if not x.is_cuda:
             return self.fn(x, wg, wu, wd, counts)
@@ -3651,6 +3699,299 @@ def serve_rdma(dev, kernels) -> None:
           "seconds": time.perf_counter() - t_phase})
 
 
+def engine_config(**over):
+    """The serving engine's config at qwen2-moe's routed-expert widths (the
+    shared expert bypasses EP; the engine has none) and serve-engine's
+    geometry, with ``over`` on top."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import EngineConfig
+    m = get_config("qwen2_moe_a2_7b")
+    return EngineConfig(**{
+        "n_layers": m.n_layers, "n_experts": m.moe.n_experts,
+        "top_k": m.moe.top_k, "d_model": m.d_model,
+        "d_ff": m.moe.d_expert, **ENGINE_GEOMETRY, **over})
+
+
+def engine_requests(n: int) -> list:
+    """The first ``n`` of serve-engine's stream of Poisson requests."""
+    from repro_torch.serving import poisson_arrivals
+    return poisson_arrivals(ENGINE_RATE_RPS, ENGINE_STREAM,
+                            **ENGINE_LENGTHS)[:n]
+
+
+class EngineCalls(SubstrateCalls):
+    """Stands in for the ``grouped_swiglu`` CUDA wrapper while the engine
+    serves (its calls timed as :class:`SubstrateCalls` times them), and
+    keeps copies of the inputs of three of its ``(1, n, D)`` calls: the
+    first, the first with one row, and the one with the most rows."""
+
+    def record(self, x, wg, wu, wd, counts) -> None:
+        n = x.shape[1]
+        keep = self.cases
+        for kind, want in (("first", "first" not in keep),
+                           ("one_row", n == 1 and "one_row" not in keep),
+                           ("most_rows", "most_rows" not in keep or n > keep[
+                               "most_rows"][0][0].shape[1])):
+            if want:
+                keep[kind] = (tuple(a if a is None else a.detach().clone()
+                                    for a in (x, wg, wu, wd, counts)), {})
+
+    def path_cases(self) -> list:
+        return list(self.cases.values())
+
+
+def drive_engine(eng, reqs, rec=None, max_steps: int = 1 << 30) -> list:
+    """Submit ``reqs`` and step ``eng`` until done (or ``max_steps``): per
+    step, the host wall seconds (to the last output on the host), the
+    ``grouped_swiglu`` CUDA wrapper's launches, the experts the executor
+    launched (its own count) and, with ``rec`` standing in for the
+    wrapper, the calls' device ms."""
+    from repro_torch.kernels import ops
+    cuda = ops.launch_counts
+    eng.submit_all(reqs)
+    rows = []
+    while len(rows) < max_steps:
+        n0 = cuda()["grouped_swiglu"]
+        t = time.perf_counter()
+        if not eng.step():
+            break
+        host = time.perf_counter() - t
+        rows.append({"host_s": host,
+                     "launches": cuda()["grouped_swiglu"] - n0,
+                     "experts": len(eng.backend.last_world.timeline[
+                         "compute_start_us"]),
+                     "device_ms": rec.take_ms() if rec is not None else None})
+    return rows
+
+
+def engine_launch_check(rows: list, launches: dict) -> None:
+    """serve-engine's launches: every step one ``grouped_swiglu`` launch an
+    expert the executor launched, and no other hand-written kernel
+    launched in the window (``launches``: the window's counts by name)."""
+    bad = [(i, r["launches"], r["experts"]) for i, r in enumerate(rows)
+           if r["launches"] != r["experts"] or not r["experts"]]
+    if bad:
+        raise AssertionError(f"serve-engine: steps whose grouped_swiglu "
+                             f"launches differ from the executor's launched "
+                             f"experts (step, launches, experts): {bad[:5]}")
+    stray = {n: k for n, k in launches.items()
+             if k and n != "grouped_swiglu"}
+    total = sum(r["launches"] for r in rows)
+    if stray or launches.get("grouped_swiglu") != total:
+        raise AssertionError(f"serve-engine launches {launches}: only "
+                             f"grouped_swiglu may launch, {total} times")
+
+
+def engine_state(eng) -> dict:
+    """What must not depend on where the experts compute: the stats (event
+    clock, counters, latencies, KV statistics) but the output digest, and
+    the scheduler's and the pool's state."""
+    sched = eng.sched
+    return {"stats": eng.stats(), "clock_us": eng.clock_us,
+            "running": {rid: dataclasses.astuple(st)
+                        for rid, st in sched.running.items()},
+            "finished": sorted(sched.finished),
+            "waiting": [r.rid for r in sched.waiting],
+            "pending": [r.rid for r in eng._pending],
+            "tables": {k: list(v) for k, v in eng.pool.tables.items()},
+            "free": list(eng.pool.free)}
+
+
+def same_engine(cpu, card, tol: float) -> dict:
+    """The CPU engine's state and last outputs against the card's, each a
+    pair (``engine_state``, per-layer outputs): the states equal and the
+    last layer's outputs within ``tol`` of the CPU output's largest, or
+    raise."""
+    import numpy as np
+    (s_cpu, o_cpu), (s_card, o_card) = cpu, card
+    if s_cpu != s_card:
+        diff = {k: (s_cpu[k], s_card[k]) for k in s_cpu
+                if s_cpu[k] != s_card.get(k)}
+        if "stats" in diff:
+            a, b = diff.pop("stats")
+            diff["stats"] = {k: (a.get(k), b.get(k)) for k in a
+                             if a.get(k) != b.get(k)}
+        raise AssertionError(f"serve-engine: the CPU and the card engine "
+                             f"differ: {diff}")
+    err = float(np.abs(o_cpu[-1] - o_card[-1]).max()
+                / np.abs(o_cpu[-1]).max())
+    if not err <= tol:
+        raise AssertionError(f"serve-engine: the card's last-layer outputs "
+                             f"are {err} of the CPU's largest from them "
+                             f"(tol {tol})")
+    return {"steps": s_cpu["stats"]["steps"], "clock_us": s_cpu["clock_us"],
+            "last_layer_rel_err": err, "tol": tol}
+
+
+def engine_summary(eng, rows: list) -> dict:
+    """A run's event-clock stats (the simulated clock, not the card's),
+    its host seconds a step (the steps run under the profiler left out)
+    and its kernel's launches, and the ms between CUDA events around each
+    kernel call a step: the launch and, where the card waits for the host,
+    the host's enqueue of it (``profile_step`` gives the device time)."""
+    import statistics
+    st = eng.stats()
+    host = [r["host_s"] for r in rows if not r.get("profiled")]
+    dev = [r["device_ms"] for r in rows if r["device_ms"] is not None]
+    return {
+        "event_clock": {k: st.get(k) for k in (
+            "elapsed_us", "tokens_per_s", "ttft_p50_us", "ttft_p99_us",
+            "itl_p50_us", "itl_p99_us", "rebalances", "drains", "cmds",
+            "dispatch_msgs", "dispatch_wire_bytes", "kv_high_water",
+            "generated_tokens", "sched_completed")},
+        "steps": len(rows), "host_s_per_step_median": statistics.median(host),
+        "host_s_per_step_max": max(host), "host_s": sum(host),
+        "grouped_swiglu_launches": sum(r["launches"] for r in rows),
+        "launches_per_step_max": max(r["launches"] for r in rows),
+        "kernel_event_ms_per_step_median":
+            statistics.median(dev) if dev else None,
+        "kernel_event_ms_per_step_max": max(dev) if dev else None}
+
+
+def serve_engine(dev, kernels) -> None:
+    """serve-engine: the continuous-batching serving engine
+    (``repro_torch.serving.ServingEngine``) at qwen2-moe's routed-expert
+    widths and all 24 layers (``engine_config``), its experts on the card
+    through the ``grouped_swiglu`` kernel, one launch a launched expert of
+    each layer of each step, its dispatch and combine on the host
+    substrate.  Run A (fp32 wire, one slot an expert, ``ENGINE_REQUESTS``
+    requests) and run B (fp8 wire, two replicas an expert behind the
+    LoadBalancer, Zipf skew, ``ENGINE_B_REQUESTS``) complete every
+    request; one step of run A runs under the profiler; each step's launches equal
+    the executor's launched experts and no other kernel launches
+    (``engine_launch_check``); run A's first ``ENGINE_CPU_STEPS`` steps
+    once more with the experts on the CPU (fp32) hold the same state and
+    the last layer's outputs within ``MOE_TOL`` (``same_engine``); the
+    kernel on three recorded calls against its plain version, joining its
+    entry of the kernels line as cases of this path."""
+    import resource
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving import ServingEngine
+
+    t_phase = time.perf_counter()
+    original = ops.KERNELS["grouped_swiglu"]
+    rec = EngineCalls(original[0])
+    window0 = ops.launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    runs, snap, prof = {}, None, None
+    ops.KERNELS["grouped_swiglu"] = (rec, original[1])
+    try:
+        for name, over, n_req in (
+                ("A", dict(wire_dtype="fp32"), ENGINE_REQUESTS),
+                ("B", dict(wire_dtype="fp8", replicas_per_expert=2,
+                           route_alpha=1.0), ENGINE_B_REQUESTS)):
+            cfg = engine_config(**over)
+            t0 = time.perf_counter()
+            eng = ServingEngine(cfg, device=dev)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            reqs = engine_requests(n_req)
+            rows = drive_engine(eng, reqs, rec, max_steps=ENGINE_CPU_STEPS)
+            if name == "A":
+                snap = (engine_state(eng), [o.copy() for o in eng.last_outs])
+                # one step warm, the next under the profiler: the kernel's
+                # device time a step and the card's busy share
+                n0 = len(rows)
+                prof = profile_step(
+                    "serve-engine run A step",
+                    lambda: rows.extend(drive_engine(eng, [], rec,
+                                                     max_steps=1)),
+                    by_name=True)
+                for r in rows[n0:]:
+                    r["profiled"] = True
+                kernel = [v for k, v in prof.pop("device_by_name").items()
+                          if "swiglu_tiles" in k]
+                prof.update(step=len(rows), launches=rows[-1]["launches"],
+                            grouped_swiglu_device_ms=sum(v[0] for v in kernel),
+                            grouped_swiglu_records=sum(v[1] for v in kernel))
+            rows += drive_engine(eng, [], rec)
+            st = eng.stats()
+            if st["sched_completed"] != n_req or eng.pool.n_used:
+                raise AssertionError(f"serve-engine run {name}: "
+                                     f"{st['sched_completed']} of {n_req} "
+                                     "requests completed")
+            if not all(np.isfinite(o).all() for o in eng.last_outs):
+                raise AssertionError(f"serve-engine run {name}: non-finite "
+                                     "outputs")
+            runs[name] = (cfg, eng, rows, init_s)
+            del eng
+            gc.collect()
+    finally:
+        ops.KERNELS["grouped_swiglu"] = original
+    launches = {n: k - window0[n] for n, k in ops.launch_counts().items()}
+    rows_all = runs["A"][2] + runs["B"][2]
+    engine_launch_check(rows_all, launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rss_gb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+    smi = nvidia_smi()
+    for name, (cfg, eng, rows, init_s) in runs.items():
+        emit({"phase": "serve-engine", "run": name, "model": "qwen2_moe_a2_7b",
+              "width": "full (routed experts)", "layers": cfg.n_layers,
+              "experts": cfg.n_experts, "physical_slots":
+                  cfg.n_experts * cfg.replicas_per_expert,
+              "top_k": cfg.top_k, "d_model": cfg.d_model, "d_ff": cfg.d_ff,
+              "ep_degree": cfg.ep_degree, "wire": cfg.wire_dtype,
+              "replicas_per_expert": cfg.replicas_per_expert,
+              "route_alpha": cfg.route_alpha,
+              "token_budget": cfg.token_budget,
+              "requests": ENGINE_REQUESTS if name == "A"
+              else ENGINE_B_REQUESTS,
+              "init_s": init_s, **engine_summary(eng, rows), "card": smi})
+    del runs
+    gc.collect()
+
+    # run A's first steps with the experts on the CPU: the same state and
+    # (within the bf16 weights' rounding) the same outputs
+    t0 = time.perf_counter()
+    cpu = ServingEngine(engine_config(wire_dtype="fp32"), device="cpu")
+    drive_engine(cpu, engine_requests(ENGINE_REQUESTS),
+                 max_steps=ENGINE_CPU_STEPS)
+    same = same_engine((engine_state(cpu), cpu.last_outs), snap,
+                       MOE_TOL["fp32"])
+    del cpu
+    gc.collect()
+    emit({**prof, "card": smi})
+    emit({"phase": "serve_engine_checks", "cpu_vs_card": same,
+          "cpu_s": time.perf_counter() - t0,
+          "launches": {n: k for n, k in launches.items() if k},
+          "peak_mem_gb": peak_gb, "peak_rss_gb": rss_gb, "card": smi})
+
+    # the kernel on the engine's (1, n, 2048) calls against its plain
+    # version, joining its entry as cases of this path
+    cases = rec.path_cases()
+    entry = next(k for k in kernels if k["name"] == "grouped_swiglu")
+    more = add_cases(entry, cases, path=ENGINE_PATH,
+                     launches=launches["grouped_swiglu"])
+    emit({"phase": "kernel", "path": ENGINE_PATH,
+          **{k: v for k, v in entry.items() if k != "cases"},
+          "engine_launches": launches["grouped_swiglu"],
+          "cases": [dict(c, case=kind) for c, kind in zip(more, rec.cases)]})
+    emit({"phase": "serve_engine_seconds",
+          "seconds": time.perf_counter() - t_phase})
+
+
+def lint_phase(root=None) -> dict:
+    """The repo lint (``repro_torch.analysis.lint``, its CUDA sources'
+    occupancy rule included) over the port's package; raises on any
+    finding."""
+    from repro_torch.analysis.lint import lint_paths
+    root = root or Path(__file__).resolve().parent / "src" / "repro_torch"
+    t = time.perf_counter()
+    findings = lint_paths([str(root)])
+    line = {"phase": "lint", "findings": [str(f) for f in findings],
+            "files": sum(1 for p in root.rglob("*")
+                         if p.suffix in (".py", ".cu", ".cuh")),
+            "seconds": time.perf_counter() - t}
+    if findings:
+        raise AssertionError(f"lint: {len(findings)} finding(s): "
+                             f"{line['findings']}")
+    return line
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3673,6 +4014,7 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": build.last_build_seconds, "library": so.name,
           "sources": [p.name for p in build.sources()]})
+    emit(lint_phase())
 
     from repro_torch.kernels import ops
     bwd = {n: ops.KERNELS[n][0] for n in EP_BWD_KERNELS}
@@ -3750,6 +4092,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     serve_rdma(dev, kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_engine(dev, kernels)
 
     emit({"kernels": [{**{k: v for k, v in kk.items()
                           if k not in ("tolerance", "cases", "max_rel_err")},

@@ -128,6 +128,12 @@ _RULES = [
          "Pallas kernels taking an occupancy/count ref must gate work "
          "with pl.when.",
          "rows past bucket occupancy hold padding garbage"),
+    Rule("LNT-CU-OCC", "cuda-kernel-occupancy-guarded",
+         "A __global__ CUDA kernel taking a count parameter must branch on "
+         "the count (return, skip) or bound its row loop by it, itself or "
+         "in a __device__ helper it passes the count to.",
+         "an unoccupied row block loaded and computed reads padding "
+         "garbage and spends the card's time on rows no token holds"),
 ]
 
 CATALOG: dict[str, Rule] = {r.id: r for r in _RULES}

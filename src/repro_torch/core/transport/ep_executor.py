@@ -34,8 +34,11 @@ The port of ``repro.core.transport.ep_executor``: the same command streams
 byte for byte, and with the numpy expert function the same outputs, event
 clock and counters.  On the card the model's ``expert_fn`` runs the
 expert compute through the ``grouped_swiglu`` kernel
-(:func:`repro_torch.core.moe._moe_host_sim`); the substrate itself stays on
-the host.
+(:func:`repro_torch.core.moe._moe_host_sim`), and so do per-expert
+weights given as tensors (:func:`tensor_swiglu`, the serving engine's
+path), one launch a launched expert; the substrate itself stays on the
+host, and its launch order, event clock and counters do not depend on
+where the experts compute.
 """
 from __future__ import annotations
 
@@ -48,6 +51,7 @@ import torch
 
 from repro_torch.core import plan as planlib
 from repro_torch.core.transport.codec import get_codec
+from repro_torch.kernels import ops as kops
 from repro_torch.core.transport.fifo import FLAG_FENCE, Op, pack_cmds
 from repro_torch.core.transport.proxy import Proxy, SymmetricMemory
 from repro_torch.core.transport.semantics import IMM_VAL_MAX
@@ -304,6 +308,28 @@ def np_grouped_swiglu(tokens: np.ndarray, wg, wu, wd,
     g = np.einsum("end,edf->enf", tokens, wg)
     u = np.einsum("end,edf->enf", tokens, wu)
     return np.einsum("enf,efd->end", g / (1 + np.exp(-g)) * u, wd)
+
+
+def tensor_swiglu(toks: np.ndarray, wg: torch.Tensor, wu: torch.Tensor,
+                  wd: torch.Tensor, e: int) -> np.ndarray:
+    """Expert ``e``'s SwiGLU over its received rows ``toks`` (N, D) fp32,
+    with tensor weights (E, D, F) / (E, F, D): only these rows go to the
+    weights' device, as one ``(1, N, D)`` group in the weights' dtype,
+    through ``ops.grouped_swiglu`` over ``w[e:e+1]`` (the CUDA kernel on
+    the card, its plain version on the CPU); fp32 numpy back."""
+    x = torch.from_numpy(np.ascontiguousarray(toks, F32)).to(
+        device=wg.device, dtype=wg.dtype)[None]
+    y = kops.grouped_swiglu(x, wg[e:e + 1], wu[e:e + 1], wd[e:e + 1])
+    return y[0].to(torch.float32).cpu().numpy()
+
+
+def _numpy_weights(where: str, wg) -> None:
+    """The per-weight paths other than the LL per-expert launch compute in
+    numpy: refuse tensor weights there rather than cast them."""
+    if isinstance(wg, torch.Tensor):
+        raise TypeError(f"{where}: tensor expert weights are taken by the LL "
+                        "per-expert launch only; pass numpy weights or an "
+                        "expert_fn")
 
 
 # occupancy-carrying expert_fn contract dispatch (legacy single-argument
@@ -647,7 +673,9 @@ class EPWorld:
         toks = self.codec.decode(np.concatenate(
             [mems[d].data[b:b + int(cnts[r]) * wb]
              for b, r in zip(bases, srcs)]).reshape(-1, wb), D)
-        if expert_fn is None:
+        if expert_fn is None and isinstance(wg, torch.Tensor):
+            out = tensor_swiglu(toks, wg, wu, wd, e)
+        elif expert_fn is None:
             out = np_swiglu(toks, wg[e], wu[e], wd[e])
         else:
             buf = np.zeros((E, len(toks), D), np.float32)
@@ -1051,6 +1079,7 @@ class EPWorld:
                            self.capacity, self.d)
         wb, tb = self.wire_tok_bytes, self.tok_bytes
         if expert_fn is None:
+            _numpy_weights("barrier-mode grouped compute", wg)
             expert_fn = lambda toks: np_grouped_swiglu(toks, wg, wu, wd)  # noqa: E731
         c_max = int(np.asarray(wp.counts).max())
         if not c_max:
@@ -1267,6 +1296,7 @@ class EPWorld:
         eps, E = self.eps, self.n_experts
         part = np.zeros((n, D), np.float64)
         if expert_fn is None:
+            _numpy_weights("HT bucket partials", wg)
             for el in range(eps):
                 i, k = np.nonzero(eids == el)
                 if not len(i):

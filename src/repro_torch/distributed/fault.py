@@ -1,7 +1,7 @@
-"""Failure injection for the train loop's checkpoint-restore path: the port
-of ``repro.distributed.fault.FailureInjector``.  Real deployments get
-failure signals from the platform; a deterministic injector stands in so
-the recovery path runs end to end."""
+"""Failure injection and recovery policy for the train loop's
+checkpoint-restore path: the port of ``repro.distributed.fault``.  Real
+deployments get failure signals from the platform; a deterministic
+injector stands in so the recovery path runs end to end."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
@@ -18,3 +18,14 @@ class FailureInjector:
             self.fired.add(step)
             return True
         return False
+
+
+@dataclass
+class RecoveryPolicy:
+    """Allows at most ``max_restarts`` restarts; each query counts one."""
+    max_restarts: int = 3
+    restarts: int = 0
+
+    def should_restart(self) -> bool:
+        self.restarts += 1
+        return self.restarts <= self.max_restarts

@@ -35,9 +35,12 @@ SIDES = {"port": (t_ep, t_fifo, t_verify_mod, TNet),
 
 
 def test_catalog_equal():
-    assert CATALOG.keys() == r_inv.CATALOG.keys()
-    for rid, rule in CATALOG.items():
-        ref = r_inv.CATALOG[rid]
+    """Every reference row equal, and exactly one row the reference does
+    not have: the CUDA sources' lint rule ``LNT-CU-OCC``."""
+    assert CATALOG.keys() - r_inv.CATALOG.keys() == {"LNT-CU-OCC"}
+    assert r_inv.CATALOG.keys() <= CATALOG.keys()
+    for rid, ref in r_inv.CATALOG.items():
+        rule = CATALOG[rid]
         assert (rule.id, rule.title, rule.statement) == \
             (ref.id, ref.title, ref.statement)
 

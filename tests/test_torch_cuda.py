@@ -2046,3 +2046,52 @@ def test_cuda_new_kernels_refuse_grad_and_bad_inputs(cuda_device):
         na.decode_attention_paged_cuda(q[:, :24].contiguous(), k, v, tables,
                                        posv)
     assert [c.launches for c in counters] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("over", [
+    dict(wire_dtype="fp32"),
+    dict(wire_dtype="fp8", replicas_per_expert=2, route_alpha=1.0),
+], ids=["fp32", "fp8-replicas2"])
+def test_cuda_serving_engine_launch_path(cuda_device, over):
+    """The serving engine with its experts on the card: one
+    ``grouped_swiglu`` kernel launch a launched expert of each layer (the
+    executor's own count), no other kernel, and the same event clock,
+    counters, latencies and KV statistics as the engine with its experts on
+    the CPU; each step's last-layer outputs within 2e-2 of their range
+    (bf16 weights on the card, fp32 on the CPU)."""
+    from repro_torch.serving import (EngineConfig, ServingEngine,
+                                     poisson_arrivals)
+    cfg = EngineConfig(n_layers=2, n_experts=8, top_k=2, d_model=128,
+                       d_ff=96, ep_degree=4, token_budget=16,
+                       prefill_chunk=8, block_size=8, n_blocks=64,
+                       nonmoe_us=10.0, **over)
+    reqs = poisson_arrivals(100_000.0, 8, seed=13, prompt_len=(1, 20),
+                            gen_len=(1, 8))
+    got = {}
+    for where in ("cpu", "cuda"):
+        eng = ServingEngine(cfg, device=where)
+        eng.submit_all(reqs)
+        outs, per_step = [], []
+        before = ops.launch_counts()
+        while True:
+            n0 = ops.launch_counts()["grouped_swiglu"]
+            if not eng.step():
+                break
+            outs.append(eng.last_outs[-1].copy())
+            per_step.append((ops.launch_counts()["grouped_swiglu"] - n0,
+                             len(eng.backend.last_world.timeline[
+                                 "compute_start_us"])))
+        launched = {n: k - before[n] for n, k in ops.launch_counts().items()}
+        got[where] = eng, outs, per_step, launched
+    cpu, card = got["cpu"], got["cuda"]
+    assert card[0]._wg.dtype == torch.bfloat16 and card[0]._wg.is_cuda
+    s_cpu, s_card = cpu[0].stats(), card[0].stats()
+    assert s_cpu == s_card and s_card["sched_completed"] == 8
+    assert all(k == 0 for k in cpu[3].values())
+    assert all(n == e > 0 for n, e in card[2])
+    assert card[3]["grouped_swiglu"] == sum(e for _, e in card[2])
+    assert {n for n, k in card[3].items() if k} == {"grouped_swiglu"}
+    for a, b in zip(cpu[1], card[1]):
+        assert np.isfinite(b).all()
+        assert np.abs(a - b).max() <= 2e-2 * np.abs(a).max()

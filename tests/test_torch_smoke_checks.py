@@ -5,7 +5,11 @@ the choices the plan keeps; the launch accounting and decode cases of
 a captured decode step; and serve-rdma's helpers: its launch
 expectations, the CPU-against-card comparison of the substrate's counters
 and output, its host profile, and the recorder of the substrate's
-grouped_swiglu calls whose cases join the kernel's entry."""
+grouped_swiglu calls whose cases join the kernel's entry; serve-engine's
+helpers: its config at qwen2-moe's widths and its requests, drive_engine's
+per-step rows, the launch check, the CPU-against-card comparison of the
+engine's state and outputs, the recorder of its (1, n, D) calls and the
+run summary; and the lint phase."""
 import dataclasses
 import sys
 from pathlib import Path
@@ -513,3 +517,154 @@ def test_pinned_prefill_lays_the_choices_out_per_rank(model, S):
     assert res["routing_choices_differing"] == 0
     assert res["rel_err"] <= 1e-5 and res["unpinned_rel_err"] <= 1e-5
     assert res["argmax_agree"] == 1.0
+
+
+# ---------------------------------------------------------- serve-engine --
+def _tiny_engine_cfg(**over):
+    """serve-engine's config cut to a CPU test's size (2 layers, 8 experts,
+    d_model 64), the phase's geometry kept."""
+    return chip_smoke.engine_config(**{"n_layers": 2, "n_experts": 8,
+                                       "d_model": 64, "d_ff": 32,
+                                       "token_budget": 16,
+                                       "prefill_chunk": 8, **over})
+
+
+def test_engine_config_takes_qwen2_moe_widths():
+    from repro.serving import EngineConfig as RConfig
+    cfg = chip_smoke.engine_config()
+    m = get_config("qwen2_moe_a2_7b")
+    assert (cfg.n_layers, cfg.n_experts, cfg.top_k, cfg.d_model, cfg.d_ff) \
+        == (24, 60, 4, 2048, 1408) == (m.n_layers, m.moe.n_experts,
+                                       m.moe.top_k, m.d_model,
+                                       m.moe.d_expert)
+    assert (cfg.ep_degree, cfg.token_budget, cfg.prefill_chunk,
+            cfg.block_size, cfg.n_blocks, cfg.nonmoe_us, cfg.step_mode) == (
+        4, 32, 16, 16, 512, 12.0, "pipelined")
+    b = chip_smoke.engine_config(wire_dtype="fp8", replicas_per_expert=2,
+                                 route_alpha=1.0)
+    assert b.n_experts * b.replicas_per_expert == 120
+    # the reference's config takes the same fields and checks
+    RConfig(**dataclasses.asdict(b))
+    from repro_torch.serving import poisson_arrivals
+    reqs = chip_smoke.engine_requests(chip_smoke.ENGINE_STREAM)
+    assert reqs == poisson_arrivals(2000.0, 32, seed=7, prompt_len=(24, 48),
+                                    gen_len=(8, 32))
+    assert chip_smoke.engine_requests(16) == reqs[:16]
+    assert (chip_smoke.ENGINE_REQUESTS, chip_smoke.ENGINE_B_REQUESTS) == (
+        16, 8)
+
+
+def _driven(over=None, n=6, steps=1 << 30):
+    from repro_torch.serving import ServingEngine
+    eng = ServingEngine(_tiny_engine_cfg(**(over or {})), device="cpu")
+    rows = chip_smoke.drive_engine(eng, chip_smoke.engine_requests(n),
+                                   max_steps=steps)
+    return eng, rows
+
+
+def test_drive_engine_rows_and_summary():
+    """drive_engine's rows, one a step: host seconds, the wrapper's launches
+    (0 on the CPU, where the plain version runs), the executor's launched
+    experts (at most a layer's experts times the layers); the summary's
+    event-clock stats are the engine's."""
+    eng, rows = _driven()
+    st = eng.stats()
+    assert len(rows) == st["steps"] and st["sched_completed"] == 6
+    assert all(r["host_s"] > 0 and r["launches"] == 0
+               and 0 < r["experts"] <= 2 * 8 and r["device_ms"] is None
+               for r in rows)
+    summ = chip_smoke.engine_summary(eng, rows)
+    assert summ["steps"] == len(rows)
+    assert summ["event_clock"]["tokens_per_s"] == st["tokens_per_s"]
+    assert summ["event_clock"]["kv_high_water"] == st["kv_high_water"]
+    assert summ["host_s_per_step_max"] >= summ["host_s_per_step_median"]
+    assert summ["kernel_event_ms_per_step_median"] is None
+    # a step run under the profiler counts in the launches, not in the
+    # host seconds
+    rows[0]["profiled"], rows[0]["host_s"] = True, 1e9
+    again = chip_smoke.engine_summary(eng, rows)
+    assert again["host_s_per_step_max"] < 1e9
+    assert again["grouped_swiglu_launches"] == summ["grouped_swiglu_launches"]
+    part, rows2 = _driven(steps=2)
+    assert len(rows2) == 2 and part.stats()["steps"] == 2
+    assert [r["experts"] for r in rows2] == [r["experts"] for r in rows[:2]]
+
+
+def test_engine_launch_check():
+    rows = [{"launches": 7, "experts": 7}, {"launches": 3, "experts": 3}]
+    ok = {"grouped_swiglu": 10, "gather_swiglu_scatter": 0,
+          "grouped_swiglu_db": 0}
+    chip_smoke.engine_launch_check(rows, ok)
+    with pytest.raises(AssertionError, match="executor"):
+        chip_smoke.engine_launch_check(
+            [rows[0], {"launches": 2, "experts": 3}], ok)
+    with pytest.raises(AssertionError, match="executor"):
+        chip_smoke.engine_launch_check(
+            rows + [{"launches": 0, "experts": 0}], ok)
+    with pytest.raises(AssertionError, match="only grouped_swiglu"):
+        chip_smoke.engine_launch_check(rows, {**ok, "grouped_swiglu_db": 1})
+    with pytest.raises(AssertionError, match="only grouped_swiglu"):
+        chip_smoke.engine_launch_check(rows, {**ok, "grouped_swiglu": 11})
+
+
+def test_same_engine_compares_state_and_outputs():
+    """Two CPU engines after the same steps hold the same state and
+    outputs; one step more, or outputs moved by more than the tolerance,
+    is caught."""
+    import numpy as np
+    a, _ = _driven(steps=2)
+    b, _ = _driven(steps=2)
+    tol = chip_smoke.MOE_TOL["fp32"]
+    pair = lambda e: (chip_smoke.engine_state(e), e.last_outs)  # noqa: E731
+    same = chip_smoke.same_engine(pair(a), pair(b), tol)
+    assert same["steps"] == 2 and same["last_layer_rel_err"] == 0.0
+    c, _ = _driven(steps=3)
+    with pytest.raises(AssertionError, match="differ"):
+        chip_smoke.same_engine(pair(a), pair(c), tol)
+    moved = [o.copy() for o in b.last_outs]
+    moved[-1] = moved[-1] + 2 * tol * np.abs(moved[-1]).max()
+    with pytest.raises(AssertionError, match="outputs"):
+        chip_smoke.same_engine(pair(a), (chip_smoke.engine_state(b), moved),
+                               tol)
+    # an earlier layer's outputs are not the ones held
+    early = [o + 1.0 for o in b.last_outs[:-1]] + [b.last_outs[-1]]
+    chip_smoke.same_engine(pair(a), (chip_smoke.engine_state(b), early), tol)
+
+
+def test_engine_calls_recorder_cases():
+    """The recorder of the engine's grouped_swiglu calls: one call an
+    expert with rows, each (1, n, D); it keeps copies of the first call's
+    inputs, the first with one row and the one with the most rows, whose
+    plain output reproduces the call's."""
+    from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.kernels import ops
+    original = ops.KERNELS["grouped_swiglu"]
+    rec = chip_smoke.EngineCalls(original[1])
+    ops.KERNELS["grouped_swiglu"] = (original[0], rec)   # CPU runs "plain"
+    try:
+        eng, rows = _driven()
+    finally:
+        ops.KERNELS["grouped_swiglu"] = original
+    assert rec.calls == sum(r["experts"] for r in rows)
+    assert set(rec.cases) == {"first", "most_rows", "one_row"}
+    (first, _), (one, _), (most, _) = (rec.cases[k] for k in
+                                       ("first", "one_row", "most_rows"))
+    assert one[0].shape == (1, 1, 64) and first[0].shape[0] == 1
+    assert most[0].shape[1] >= first[0].shape[1] > 0
+    assert most[1].shape == (1, 64, 32) and most[4] is None
+    assert most[1].data_ptr() != eng._wg.data_ptr()      # a copy
+    assert len(rec.path_cases()) == 3
+    for args in (first, one, most):
+        y = gm.grouped_swiglu_plain(*args)
+        assert y.shape == args[0].shape and torch.isfinite(y).all()
+
+
+def test_lint_phase_clean_and_failing(tmp_path):
+    line = chip_smoke.lint_phase()
+    assert line["phase"] == "lint" and line["findings"] == []
+    assert line["files"] > 50
+    (tmp_path / "k.cu").write_text(
+        "__global__ void k(const float* x, const int* cnt, float* y) {\n"
+        "  y[threadIdx.x] = x[threadIdx.x];\n}\n")
+    with pytest.raises(AssertionError, match="LNT-CU-OCC"):
+        chip_smoke.lint_phase(tmp_path)
