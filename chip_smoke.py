@@ -215,7 +215,7 @@ Phases, each printed as one JSON line:
    peak memory; the serving kernels launch 0 times (training keeps its
    norms and attention in tensor code); losses and grad norms finite, the
    last loss below the first;
-20. serve-rdma (last, after phase 17's kernel checks): qwen2-moe-a2.7b at
+20. serve-rdma (after phase 24): qwen2-moe-a2.7b at
    full width and all 24 layers, random bf16 weights from seed 0, served
    through ``generate`` with ``moe.ep_backend = "simulated_rdma"`` over
    an EP world of 4: every MoE layer's dispatch and combine on the host
@@ -258,7 +258,40 @@ Phases, each printed as one JSON line:
    experts on the CPU hold the same state and the last layer's outputs
    within ``MOE_TOL``; three recorded calls (the first, one row, the most
    rows) against the plain version join the kernel's entry as cases of
-   this path.
+   this path;
+22. train-elastic (after phase 17, before phase 20): the elastic restart
+   of EP training (``train_elastic``) on the state phase 16 ends with:
+   3 more HT steps at EP 4, then the plan from EP 4 to EP 2
+   (``plan_remesh``: 16 -> 32 of the 64 padded experts a rank) and
+   ``reshard_state``; ``loss_fn`` at both degrees on that state and the
+   batch, forward only, every capacity lifted (no drops), the cross
+   entropies within ``ELASTIC_LOSS_TOL`` (the router's aux loss, a
+   per-rank statistic, moves with the degree and is reported); then 3 HT
+   steps at EP 2 through ``train_loop``, the launches of
+   ``gather_swiglu_scatter`` and its backward set to 0 just before and
+   read just after (> 0).  Per step: loss, cross entropy, grad norm,
+   dropped share and seconds; tokens/s over steps 2-3 at both degrees;
+   the share of the bf16 peak a step reaches by 6 N_active tokens
+   (``roofline_share``); peak memory under ``PEAK_MEM_GB``.  Every loss
+   finite, the first cross entropy at EP 2 within the spread of the
+   three at EP 4 (``within_spread``).  The two kernels' first calls at
+   EP 2 join their entries as cases of this path (against the plain
+   versions, the backward also against autograd);
+23. distributed (after phase 22): ``ef_compressed_mean`` over 4
+   rank-stacked rows of 2^26 seeded fp32 values within the reference
+   test's bounds (``compression_checks``), its time by CUDA events beside
+   a plain fp32 mean, and the bytes it sends against an fp32 ring's
+   (``ring_bytes``, counted); ``sp_gather`` and ``sp_scatter`` over a
+   world of 4 at batch 4, 1024 positions a rank and d_model 2048, forward
+   and backward, and the rank-stacked collectives under them, bit for bit
+   against plain concatenations and sums in rank order;
+24. examples (after phase 23): the four examples of
+   ``repro_torch.examples`` (quickstart, serve_decode, train_moe_e2e at
+   100 of its 200 steps, elastic_restart) on the card, each with its OK
+   line and seconds, the
+   kernels each must launch (``EXAMPLE_KERNELS``) counted, and their first
+   calls of each kind joining the kernels' entries as cases of the
+   example's path.
 
 The lint phase (right after the build): ``repro_torch.analysis.lint``
 over the port's package, its CUDA sources' occupancy rule included; any
@@ -455,6 +488,47 @@ MOONSHOT_KERNELS = ("gather_swiglu_scatter", "grouped_swiglu",
 # wire
 EP_TRAIN_LAYERS, EP_TRAIN_BATCH, EP_TRAIN_SEQ, EP_TRAIN_STEPS = 4, 4, 1024, 5
 EP_TRAIN_MORE_STEPS = 2
+# train-elastic: from the state train-qwen2moe-ep ends with, 3 more HT
+# steps at EP 4, the re-mesh to EP 2 (32 of the 64 padded experts a rank,
+# not 16), then 3 HT steps at EP 2, on the same batch and hyper-parameters
+ELASTIC_STEPS = 3
+# the cross entropy at EP 4 and at EP 2 on one state and batch, every
+# capacity lifted, as a share of the EP 4 one: the two compute one
+# function, and only the order of the fp32 sums before each bf16 rounding
+# of a MoE output differs (the fused kernel's atomics add in any order at
+# either degree), which moves a rounding by at most one bf16 ulp (2^-8 of a
+# value); over 4 layers and the mean of 4,096 tokens' losses such flips
+# move it far less than 2^-8 of it.  (The router's aux loss is a mean over
+# ranks of each rank's own load statistic, in the reference as here, so it
+# moves with the degree; it is reported, not compared.)
+ELASTIC_LOSS_TOL = 2e-3
+# the card's 80 GB less room for the allocator's slack
+PEAK_MEM_GB = 78.0
+ELASTIC_PATH = "qwen2_moe_a2_7b training at EP 2"
+ELASTIC_KERNELS = ("gather_swiglu_scatter", "gather_swiglu_scatter_bwd")
+# distributed: the error-feedback compressed mean over P rank-stacked rows
+# of 2^26 fp32 values (268 MB a rank); the reference test's bounds
+# (tests/test_distributed.py:131): the mean within 0.05 x its largest
+# value + 0.05, and two rounds with the residuals no worse on average than
+# 1.05 x one round
+COMPRESS_P, COMPRESS_N = 4, 1 << 26
+COMPRESS_REL, COMPRESS_ABS, COMPRESS_EF = 0.05, 0.05, 1.05
+# the sequence-parallel collectives over a world of 4: batch 4, 1024
+# positions a rank (4096 in all), d_model 2048, fp32
+SP_RANKS, SP_BATCH, SP_SEQ, SP_D = 4, 4, 1024, 2048
+# the reference's four examples on the card (repro_torch.examples), the
+# arguments each runs with, and the kernels each must launch.
+# train_moe_e2e runs 100 of its 200 steps (scale only): its 200 host-bound
+# steps took 83 s on an H100, and the three phases are to add about two
+# minutes
+EXAMPLE_ARGS = {"train_moe_e2e": ["--steps", "100"]}
+EXAMPLE_KERNELS = {
+    "quickstart": ("grouped_swiglu", "gather_swiglu_scatter"),
+    "serve_decode": ("grouped_swiglu",),
+    "train_moe_e2e": ("gather_swiglu_scatter", "gather_swiglu_scatter_bwd"),
+    "elastic_restart": ("gather_swiglu_scatter",
+                        "gather_swiglu_scatter_bwd"),
+}
 # paged decoding at qwen3-4b's decode shape: ragged per-sequence positions
 # and 16-token blocks; a CUDA graph captured there is replayed with the
 # table rows in PAGED_REPLAY_ORDER and these positions, each at most that
@@ -1672,7 +1746,7 @@ def ht_unfused(cfg, params, x, dist) -> tuple[dict, list]:
     import torch
 
     from repro_torch.core.ep import dispatch_combine_ht
-    from repro_torch.core.moe import _expert_fn, make_ep_spec
+    from repro_torch.core.moe import expert_fn, make_ep_spec
     from repro_torch.core.routing import RouterParams, route
     from repro_torch.kernels import ops
 
@@ -1684,7 +1758,7 @@ def ht_unfused(cfg, params, x, dist) -> tuple[dict, list]:
     rout = route(cfg.moe, RouterParams(w=p["router_w"],
                                        bias=p.get("router_b")), t,
                  cfg.moe.n_experts)
-    fused = _expert_fn(p["w_gate"], p["w_up"], p["w_down"])
+    fused = expert_fn(p["w_gate"], p["w_up"], p["w_down"])
 
     def plain(tokens, counts):
         return fused(tokens, counts)
@@ -2071,7 +2145,7 @@ def ep_train_setup():
     return cfg, hp, batch, make_dist_ctx(cfg, model=4)
 
 
-def train_ep_phase(dev) -> tuple[list, dict, dict]:
+def train_ep_phase(dev) -> tuple[list, dict, dict, "TrainState"]:
     """The expert-parallel training path (``ep_train_setup``): 5 HT steps
     through ``train_loop`` (the fused HT kernel and its backward), then 2
     steps with LL (``grouped_swiglu`` and its backward) and 2 HT steps on
@@ -2080,7 +2154,7 @@ def train_ep_phase(dev) -> tuple[list, dict, dict]:
     more HT step under the profiler, and one AdamW update timed.  The
     first calls of each kind of the four EP kernels and their backward
     kernels are recorded.  Returns (phase lines, their Recorders, their
-    launches over the three runs)."""
+    launches over the three runs, the final train state)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -2190,7 +2264,7 @@ def train_ep_phase(dev) -> tuple[list, dict, dict]:
     prof["adamw_update_ms"] = cuda_ms(lambda: apply_updates(
         params, zeros, opt, lr=torch.tensor(0.0)), n=3, warmup=1)
     lines.append(prof)
-    return lines, recs, launches
+    return lines, recs, launches, holder[0]
 
 
 def autograd_grads(name: str, args, kwargs) -> tuple:
@@ -2239,31 +2313,44 @@ def check_ep_bwd(recs: dict, launches: dict) -> list:
             entry["pass_device_ms"] = bwd_passes(profile_step(
                 name, lambda: [cuda(*args, **kwargs) for _ in range(5)],
                 by_name=True)["device_by_name"])
-        rels = []
-        for (args, kwargs), case in zip(recs[name].cases.values(),
-                                        entry["cases"]):
-            got = cuda(*args, **kwargs)
-            got = got if isinstance(got, tuple) else (got,)
-            ref = autograd_grads(name, args, kwargs)
-            torch.cuda.synchronize()
-            per = []
-            for g, r in zip(got, ref):
-                err = float((g.float() - r).abs().max())
-                scale = float(r.abs().max())
-                per.append(err / max(scale, 1e-30))
-                if not err <= KERNEL_TOL[name] * scale:
-                    raise AssertionError(
-                        f"{name}: gradient {len(per) - 1} against autograd "
-                        f"through the plain forward: |err| {err} > "
-                        f"{KERNEL_TOL[name]} * {scale}")
-            case["autograd_rel_err"] = per
-            rels += per
-            del got, ref
-        entry["autograd_max_rel_err"] = max(rels)
+        entry["autograd_max_rel_err"] = autograd_check(
+            name, recs[name].cases.values(), entry["cases"])
         out.append(entry)
         gc.collect()
         torch.cuda.empty_cache()
     return out
+
+
+def autograd_check(name: str, arg_cases, cases) -> float:
+    """EP backward kernel ``name`` on each recorded (args, kwargs) of
+    ``arg_cases`` against ``torch.autograd.grad`` through the plain forward
+    (``autograd_grads``), each gradient within ``KERNEL_TOL`` of its
+    largest; each relative error is kept in the matching dict of ``cases``.
+    Returns the largest."""
+    import torch
+
+    from repro_torch.kernels import ops
+    cuda = ops.KERNELS[name][0]
+    rels = []
+    for (args, kwargs), case in zip(arg_cases, cases):
+        got = cuda(*args, **kwargs)
+        got = got if isinstance(got, tuple) else (got,)
+        ref = autograd_grads(name, args, kwargs)
+        torch.cuda.synchronize()
+        per = []
+        for g, r in zip(got, ref):
+            err = float((g.float() - r).abs().max())
+            scale = float(r.abs().max())
+            per.append(err / max(scale, 1e-30))
+            if not err <= KERNEL_TOL[name] * scale:
+                raise AssertionError(
+                    f"{name}: gradient {len(per) - 1} against autograd "
+                    f"through the plain forward: |err| {err} > "
+                    f"{KERNEL_TOL[name]} * {scale}")
+        case["autograd_rel_err"] = per
+        rels += per
+        del got, ref
+    return max(rels)
 
 
 def paged_pools(k, v, pos, bs):
@@ -2888,7 +2975,7 @@ def placement_checks(cfg, params, x, dist) -> dict:
 
     from repro_torch.core import ep
     from repro_torch.core import plan as planlib
-    from repro_torch.core.moe import _expert_fn, make_ep_spec, to_ranks
+    from repro_torch.core.moe import expert_fn, make_ep_spec, to_ranks
     from repro_torch.core.routing import RouterParams, route
     from repro_torch.kernels import ops
 
@@ -2922,7 +3009,7 @@ def placement_checks(cfg, params, x, dist) -> dict:
             load, MOONSHOT_PHYSICAL, math.prod(dist.ep_sizes))),
             ("uniform2", planlib.replicate_uniform(E, 2))):
         p2l = torch.as_tensor(pl.phys_to_logical, device=x.device).long()
-        fn = _expert_fn(wg[p2l], wu[p2l], wd[p2l])
+        fn = expert_fn(wg[p2l], wu[p2l], wd[p2l])
         for mode in ("ht", "ll"):
             res, launches = run(mode, pl, fn)
             ref = refs[mode].float()
@@ -2945,7 +3032,7 @@ def placement_checks(cfg, params, x, dist) -> dict:
                 raise AssertionError(f"placement {name} {mode}: {case}")
         del fn, p2l
     ident = planlib.identity_placement(E)
-    fn = _expert_fn(wg, wu, wd)
+    fn = expert_fn(wg, wu, wd)
     identity = {}
     for mode in ("ht", "ll"):
         (a, _), (b, _), (c, _) = (run(mode, None, fn), run(mode, ident, fn),
@@ -3974,6 +4061,412 @@ def serve_engine(dev, kernels) -> None:
           "seconds": time.perf_counter() - t_phase})
 
 
+def require_launches(launches: dict, names, what: str) -> None:
+    """Raises unless every kernel of ``names`` launched at least once in
+    ``launches`` ({name: count}) of the run ``what``."""
+    idle = [n for n in names if launches.get(n, 0) <= 0]
+    if idle:
+        raise AssertionError(f"{what}: kernels {idle} were not launched "
+                             f"({launches})")
+
+
+def loss_agreement(loss_a: float, loss_b: float, tol: float) -> float:
+    """|loss_a - loss_b| as a share of |loss_a|; raises past ``tol`` or
+    where either is not finite."""
+    if not (math.isfinite(loss_a) and math.isfinite(loss_b)):
+        raise AssertionError(f"non-finite loss: {loss_a} {loss_b}")
+    rel = abs(loss_a - loss_b) / max(abs(loss_a), 1e-30)
+    if not rel <= tol:
+        raise AssertionError(f"losses {loss_a} and {loss_b} differ by "
+                             f"{rel} of the first (> {tol})")
+    return rel
+
+
+def within_spread(first: float, last: list) -> dict:
+    """Whether ``first`` (the first loss after a re-mesh) lies within the
+    spread of ``last`` (the losses before it) from the last of them:
+    |first - last[-1]| <= max(last) - min(last).  Raises where it does
+    not."""
+    spread = max(last) - min(last)
+    gap = abs(first - last[-1])
+    if not (math.isfinite(first) and gap <= spread):
+        raise AssertionError(f"first loss {first} is {gap} from the last "
+                             f"{last[-1]}, past the spread {spread} of {last}")
+    return {"gap": gap, "spread": spread}
+
+
+def roofline_share(cfg, seconds: float, batch: int, seq: int) -> dict:
+    """The share of the card's bf16 peak that a training step of
+    ``seconds`` over batch x seq tokens reaches, by 6 N_active tokens
+    (``repro_torch.launch.roofline.model_flops``)."""
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch.mesh import PEAK_FLOPS_BF16
+    from repro_torch.launch.roofline import model_flops
+    flops = model_flops(cfg, ShapeCell("train-elastic", seq, batch,
+                                       "train"))
+    return {"model_flops": flops, "step_s": seconds,
+            "ideal_s": flops / PEAK_FLOPS_BF16,
+            "peak_share": flops / (seconds * PEAK_FLOPS_BF16)}
+
+
+def train_elastic(dev, state, kernels) -> "TrainState":
+    """Elastic restart of EP training (the mesh-restart half of
+    ``distributed/elastic.py``) from ``state``, the state
+    train-qwen2moe-ep ends with: ``ELASTIC_STEPS`` HT steps at EP 4; the
+    plan from EP 4 to EP 2 and ``reshard_state``; the cross entropy at
+    both degrees on that state and the batch with every capacity lifted
+    (no drops), within ``ELASTIC_LOSS_TOL`` (``losses_at_degrees``); then
+    ``ELASTIC_STEPS`` HT steps at EP 2, the launch counts of
+    ``ELASTIC_KERNELS`` set to 0 just before and read just after (both >
+    0), the first call of each kind recorded and added as cases to the
+    kernels' entries in ``kernels`` (the forward against its plain
+    version, the backward against its plain version and autograd).  Every
+    loss finite, the first cross entropy at EP 2 within the spread of the
+    last at EP 4, the peak device memory under ``PEAK_MEM_GB``.  Returns
+    the state."""
+    import torch
+
+    from repro_torch.core.moe import padded_experts_static
+    from repro_torch.distributed.elastic import plan_remesh, reshard_state
+    from repro_torch.distributed.sharding import make_dist_ctx
+    from repro_torch.kernels import ops
+    from repro_torch.training.train_loop import Watchdog, train_loop
+
+    cfg, hp, batch, dist4 = ep_train_setup()
+    padded = padded_experts_static(cfg)
+    B, S, N = EP_TRAIN_BATCH, EP_TRAIN_SEQ, ELASTIC_STEPS
+    torch.cuda.reset_peak_memory_stats()
+
+    def run(dist, state):
+        wd = Watchdog()
+        state, hist = train_loop(cfg, hp, dist, lambda step: batch,
+                                 steps=N, state=state, watchdog=wd,
+                                 log_every=0, device=dev)
+        detail = [{"step": i, "loss": h["loss"], "xent": h["xent"],
+                   "grad_norm": h["grad_norm"], "dropped": h["dropped"],
+                   "seconds": t}
+                  for i, (h, t) in enumerate(zip(hist, wd.history))]
+        return state, detail
+
+    state, ep4 = run(dist4, state)
+    dist2 = make_dist_ctx(cfg, model=2)
+    plan = plan_remesh(cfg, dist4, dist2)
+    state, dist2 = reshard_state(cfg, state, dist2)
+    emit({"phase": "train-elastic-plan", "old_shape": plan.old_shape,
+          "new_shape": plan.new_shape, "new_axis_names": plan.new_axis_names,
+          "ep_degree_old": plan.ep_degree_old,
+          "ep_degree_new": plan.ep_degree_new, "notes": plan.notes})
+
+    at = losses_at_degrees(cfg, state.params, batch, (dist4, dist2),
+                           hp.loss_chunk)
+    rel = loss_agreement(at[4][0], at[2][0], ELASTIC_LOSS_TOL)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cudas = {n: ops.KERNELS[n][0] for n in ELASTIC_KERNELS}
+    recs, restore = recording(ELASTIC_KERNELS)
+    try:
+        (state, ep2), launches = counted(cudas, lambda: run(dist2, state))
+    finally:
+        restore()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    require_launches(launches, ELASTIC_KERNELS, "training at EP 2")
+    values = [d[k] for d in ep4 + ep2 for k in ("loss", "grad_norm")]
+    if not all(map(math.isfinite, values)):
+        raise AssertionError(f"non-finite loss or grad norm: {ep4} {ep2}")
+    spread = within_spread(ep2[0]["xent"], [d["xent"] for d in ep4])
+    if not peak_gb < PEAK_MEM_GB:
+        raise AssertionError(f"peak device memory {peak_gb} GB")
+
+    # steps 2-3: the first carries first launches at its degree
+    step_s = {k: sum(d["seconds"] for d in det[1:]) / (N - 1)
+              for k, det in (("ep4", ep4), ("ep2", ep2))}
+    emit({"phase": "train-elastic", "model": "qwen2_moe_a2_7b",
+          "width": "full", "layers": cfg.n_layers, "batch": B, "seq": S,
+          "moe_mode": "ht", "wire": cfg.moe.wire_dtype,
+          "capacity_factor": cfg.moe.capacity_factor,
+          "experts_per_rank": {"ep4": padded // dist4.ep_degree,
+                               "ep2": padded // dist2.ep_degree},
+          "xent_cf_all": {"ep4": at[4][0], "ep2": at[2][0],
+                          "cf": at["cf"], "rel_diff": rel,
+                          "tol": ELASTIC_LOSS_TOL},
+          "aux_loss_cf_all": {"ep4": at[4][1], "ep2": at[2][1]},
+          "steps_ep4": ep4, "steps_ep2": ep2,
+          "first_ep2_vs_last_ep4": spread,
+          "tokens_per_s_steps_2_3": {k: B * S / t
+                                     for k, t in step_s.items()},
+          "roofline": {k: roofline_share(cfg, t, B, S)
+                       for k, t in step_s.items()},
+          "active_params": cfg.active_param_count(),
+          "peak_mem_gb": peak_gb, "peak_mem_limit_gb": PEAK_MEM_GB,
+          "launches": launches})
+
+    # the kernels' first calls at EP 2, held in their entries
+    for name in ELASTIC_KERNELS:
+        entry = next(k for k in kernels if k["name"] == name)
+        arg_cases = list(recs[name].cases.values())
+        more = add_cases(entry, arg_cases, path=ELASTIC_PATH,
+                         launches=launches[name])
+        line = {"phase": "kernel", "path": ELASTIC_PATH, "name": name,
+                "launches": launches[name], "cases": more}
+        if name.endswith("_bwd"):
+            line["autograd_max_rel_err"] = autograd_check(name, arg_cases,
+                                                          more)
+        emit(line)
+    del recs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return state
+
+
+def losses_at_degrees(cfg, params, batch, dists, loss_chunk: int) -> dict:
+    """``loss_fn`` on one state and batch (numpy tokens and labels) over
+    each EP world of ``dists``, forward only, HT with every capacity lifted
+    (an expert receives at most each token once, so cf = E / K holds them
+    all): {EP degree: (cross entropy, router aux loss), "cf": that
+    factor}.  Raises where a choice was dropped."""
+    import torch
+
+    from repro_torch.models import model_zoo as Z
+    cf = float(params["blocks"][0]["moe"]["w_gate"].shape[0] / cfg.moe.top_k)
+    cfg_all = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cf))
+    dev = params["embed"].device
+    toks, labs = (torch.as_tensor(batch[k], device=dev).long()
+                  for k in ("tokens", "labels"))
+    out = {"cf": cf}
+    with torch.no_grad():
+        for d in dists:
+            loss, m = Z.loss_fn(cfg_all, params, toks, labs, dist=d,
+                                moe_mode="ht", loss_chunk=loss_chunk)
+            if float(m["dropped"]) != 0.0:
+                raise AssertionError(f"EP {d.ep_degree} dropped "
+                                     f"{float(m['dropped'])} at cf {cf}")
+            out[d.ep_degree] = (float(m["xent"]), float(m["aux_loss"]))
+    return out
+
+
+def compression_checks(mean, mean2, true_mean) -> dict:
+    """The reference test's two bounds on an error-feedback compressed
+    mean (``mean``: one round; ``mean2``: a second round with the first's
+    residuals) against ``true_mean``: max |mean - true| below
+    ``COMPRESS_REL`` x max |true| + ``COMPRESS_ABS``, and the two rounds'
+    average no worse on average than ``COMPRESS_EF`` x one round.  Raises
+    where either fails."""
+    err = float((mean - true_mean).abs().max())
+    scale = float(true_mean.abs().max())
+    limit = COMPRESS_REL * scale + COMPRESS_ABS
+    base = float((mean - true_mean).abs().mean())
+    two = float(((mean + mean2) / 2 - true_mean).abs().mean())
+    out = {"max_abs_err": err, "limit": limit, "one_round_mean_err": base,
+           "two_round_mean_err": two, "ef_limit": COMPRESS_EF * base}
+    if not (err < limit and two <= COMPRESS_EF * base):
+        raise AssertionError(f"compressed mean out of bounds: {out}")
+    return out
+
+
+def ring_bytes(P: int, n: int) -> dict:
+    """Bytes the world's ranks send in all for one mean of P x n fp32
+    values (counted): the compressed ring's reduce-scatter (P - 1 hops a
+    rank, each an int8 chunk of n / P and its fp32 block scales) and its
+    fp32 all-gather of the reduced chunks, against an fp32 ring all-reduce
+    (reduce-scatter and all-gather, both fp32)."""
+    from repro_torch.distributed.compression import BLOCK
+    chunk = n // P
+    hops = P * (P - 1)
+    int8_rs = hops * (chunk + -(-chunk // BLOCK) * 4)
+    fp32_half = hops * chunk * 4
+    return {"int8_reduce_scatter": int8_rs, "fp32_all_gather": fp32_half,
+            "compressed_total": int8_rs + fp32_half,
+            "fp32_ring_all_reduce": 2 * fp32_half,
+            "reduce_scatter_ratio": fp32_half / int8_rs}
+
+
+def sp_checks(dist, x, ct, parts) -> None:
+    """``sp_gather`` and ``sp_scatter`` of x (B, S, D) over world ``dist``
+    (one pod of M model ranks), forward and backward with cotangent
+    ``ct``, and the rank-stacked collectives under them on ``parts`` (1,
+    M, B, S, D) of distinct per-rank values, each bit for bit against a
+    plain concatenation of the sequence shards or a sum in rank order.
+    Raises where one is not."""
+    import torch
+
+    from repro_torch.distributed import collectives as col
+    M = dist.axis_size("model")
+    s = x.shape[1] // M
+
+    def copies_sum(t):            # every model rank's copy, in rank order
+        acc = t
+        for _ in range(M - 1):
+            acc = acc + t
+        return acc
+
+    def same(a, b_, what):
+        if not torch.equal(a, b_):
+            raise AssertionError(f"{what}: not bit for bit the plain "
+                                 "concatenation and sums")
+
+    shards = [x[:, r * s:(r + 1) * s] for r in range(M)]
+    for name, fn, fwd_plain, bwd_plain in (
+            ("sp_gather", col.sp_gather, torch.cat(shards, 1),
+             copies_sum(ct)),
+            ("sp_scatter", col.sp_scatter, copies_sum(x), ct)):
+        xi = x.detach().requires_grad_(True)
+        y = fn(dist, xi)
+        dx, = torch.autograd.grad(y, xi, ct)
+        same(y, fwd_plain, f"{name} forward")
+        same(dx, bwd_plain, f"{name} backward")
+    gathered = col.all_gather_seq(parts[..., :s, :])
+    for r in range(M):
+        same(gathered[0, r], torch.cat([parts[0, j, :, :s]
+                                        for j in range(M)], 1),
+             "all_gather_seq")
+    plain = parts[0, 0]
+    for r in range(1, M):
+        plain = plain + parts[0, r]
+    rs = col.reduce_scatter_seq(parts)
+    for r in range(M):
+        same(rs[0, r], plain[:, r * s:(r + 1) * s], "reduce_scatter_seq")
+
+
+def distributed_phase(dev) -> dict:
+    """The rest of ``distributed/``: ``ef_compressed_mean`` over
+    ``COMPRESS_P`` rank-stacked rows of ``COMPRESS_N`` seeded fp32 values
+    (the reference test's bounds, ``compression_checks``; its time by CUDA
+    events beside a plain fp32 mean over the ranks; the bytes it sends,
+    ``ring_bytes``), and ``sp_gather`` / ``sp_scatter`` over a world of
+    ``SP_RANKS`` at (batch ``SP_BATCH``, ``SP_SEQ`` a rank, ``SP_D``),
+    forward and backward, and the rank-stacked collectives under them,
+    bit for bit against plain concatenations and sums in rank order."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed.compression import ef_compressed_mean
+    from repro_torch.distributed.sharding import make_dist_ctx
+
+    P, n = COMPRESS_P, COMPRESS_N
+    g = torch.Generator(device=dev).manual_seed(0)
+    grads = torch.randn((P, n), generator=g, device=dev)
+    true_mean = grads.mean(0)
+    mean, res = ef_compressed_mean(grads)
+    mean2, _ = ef_compressed_mean(grads, res)
+    comp = compression_checks(mean, mean2, true_mean)
+    del mean, mean2, res
+    comp.update(ms=cuda_ms(lambda: ef_compressed_mean(grads), n=5,
+                           warmup=1),
+                plain_mean_ms=cuda_ms(lambda: grads.mean(0), n=5, warmup=1),
+                bytes=ring_bytes(P, n), ranks=P, values_a_rank=n)
+    del grads, true_mean
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    M, b, s, D = SP_RANKS, SP_BATCH, SP_SEQ, SP_D
+    dist = make_dist_ctx(get_config("qwen2_moe_a2_7b"), model=M)
+    x, ct = (torch.randn((b, M * s, D), generator=g, device=dev)
+             for _ in range(2))
+    parts = torch.randn((1, M, b, M * s, D), generator=g, device=dev)
+    sp_checks(dist, x, ct, parts)
+    sp = {}
+    for name, fn in (("sp_gather", col.sp_gather),
+                     ("sp_scatter", col.sp_scatter)):
+        xi = x.detach().requires_grad_(True)
+        sp[name] = {"ms": cuda_ms(lambda: fn(dist, xi), n=5, warmup=1),
+                    "fwd_bwd_ms": cuda_ms(lambda: torch.autograd.grad(
+                        fn(dist, xi), xi, ct), n=5, warmup=1)}
+    sp["all_gather_seq_ms"] = cuda_ms(
+        lambda: col.all_gather_seq(parts[..., :s, :]), n=5, warmup=1)
+    sp["reduce_scatter_seq_ms"] = cuda_ms(
+        lambda: col.reduce_scatter_seq(parts), n=5, warmup=1)
+    return {"phase": "distributed", "compression": comp,
+            "sequence_parallel": {"world": f"model={M}", "batch": b,
+                                  "seq_a_rank": s, "d": D, "dtype": "fp32",
+                                  **sp}}
+
+
+def examples_phase(dev, kernels) -> dict:
+    """The reference's four examples on the card (``repro_torch.examples``:
+    each ``main`` on the card with its ``EXAMPLE_ARGS``, its output kept,
+    its OK line, seconds and ``example_summary`` reported), each kernel of
+    ``EXAMPLE_KERNELS`` launched (counts read before and after each), and
+    the first call of each kind of each such kernel added as a case to its
+    entry in ``kernels`` (against its plain version; a backward also
+    against autograd)."""
+    import contextlib
+    import importlib
+    import io
+
+    import torch
+
+    from repro_torch.kernels import ops
+    names = sorted({k for ks in EXAMPLE_KERNELS.values() for k in ks})
+    runs = []
+    for ex, needed in EXAMPLE_KERNELS.items():
+        mod = importlib.import_module(f"repro_torch.examples.{ex}")
+        recs, restore = recording(needed)
+        before = ops.launch_counts()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                res = mod.main(["--device", dev.type,
+                                *EXAMPLE_ARGS.get(ex, [])])
+            torch.cuda.synchronize()
+        finally:
+            restore()
+        secs = time.perf_counter() - t0
+        after = ops.launch_counts()
+        launches = {n: after[n] - before[n] for n in names}
+        require_launches(launches, needed, f"example {ex}")
+        ok = [ln for ln in out.getvalue().splitlines() if "OK" in ln]
+        if not ok:
+            raise AssertionError(f"example {ex}: no OK line")
+        cases = {}
+        for name in needed:
+            entry = next(k for k in kernels if k["name"] == name)
+            arg_cases = list(recs[name].cases.values())
+            more = add_cases(entry, arg_cases, path=f"example {ex}",
+                             launches=launches[name])
+            if name.endswith("_bwd"):
+                autograd_check(name, arg_cases, more)
+            cases[name] = [{k: c[k] for k in ("shapes", "max_abs_err",
+                                                "max_rel_err", "ms",
+                                                "plain_ms")}
+                           for c in more]
+        del recs
+        gc.collect()
+        torch.cuda.empty_cache()
+        runs.append({"example": ex, "args": EXAMPLE_ARGS.get(ex, []),
+                     "ok_line": ok[-1], "seconds": secs,
+                     **example_summary(ex, res),
+                     "launches": {n: launches[n] for n in needed},
+                     "cases": cases})
+    return {"phase": "examples", "runs": runs}
+
+
+def example_summary(ex: str, res: dict) -> dict:
+    """What an example's ``main`` returned, in short: the errors against
+    the oracle, the engine's steps and tokens, or the losses and the
+    steps' seconds."""
+    if ex == "quickstart":
+        return {"max_abs_err": res["max_abs_err"],
+                "oracle_max": res["oracle_max"]}
+    if ex == "serve_decode":
+        return {k: res[k] for k in ("steps", "generated_tokens",
+                                    "sched_completed")}
+    if ex == "train_moe_e2e":
+        secs = sorted(res["step_seconds"])
+        return {"steps_run": res["steps_run"],
+                "loss_first_last": [res["losses"][0], res["losses"][-1]],
+                "step_s_median": secs[len(secs) // 2]}
+    plan = res["plan"]
+    return {"ep": [plan.ep_degree_old, plan.ep_degree_new],
+            "restored_step": res["restored_step"],
+            "loss_start_before_after": [res["hist1"][0]["loss"],
+                                        res["hist1"][-1]["loss"],
+                                        res["hist2"][-1]["loss"]]}
+
+
 def lint_phase(root=None) -> dict:
     """The repo lint (``repro_torch.analysis.lint``, its CUDA sources'
     occupancy rule included) over the port's package; raises on any
@@ -4066,7 +4559,7 @@ def main() -> int:
     del scan_rec
     gc.collect()
     torch.cuda.empty_cache()
-    lines, ep_recs, ep_launches = train_ep_phase(dev)
+    lines, ep_recs, ep_launches, ep_state = train_ep_phase(dev)
     for line in lines:
         emit(line)
     gc.collect()
@@ -4089,6 +4582,17 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
     kernels += ep_kernels
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the state train-qwen2moe-ep ends with, re-meshed from EP 4 to EP 2
+    ep_state = train_elastic(dev, ep_state, kernels)
+    del ep_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(distributed_phase(dev))
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(examples_phase(dev, kernels))
     gc.collect()
     torch.cuda.empty_cache()
     serve_rdma(dev, kernels)

@@ -19,15 +19,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-
-def _items(tree):
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return list(zip(tree._fields, tree))
-    if isinstance(tree, dict):
-        return list(tree.items())
-    if isinstance(tree, (list, tuple)):
-        return list(enumerate(tree))
-    return None
+from repro_torch.optim.adamw import tree_items as _items
 
 
 def _flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:

@@ -65,7 +65,7 @@ def moe_init(cfg: ModelConfig, gen: torch.Generator, device,
     return out
 
 
-def _expert_fn(wg: Tensor, wu: Tensor, wd: Tensor):
+def expert_fn(wg: Tensor, wu: Tensor, wd: Tensor):
     """Occupancy-carrying expert_fn over the whole rank-stacked world:
     ``fn(tokens, counts)`` applies the grouped SwiGLU to (E, C, D) buffers,
     skipping rows beyond each bucket's count, and ``fn.fused`` is the fused
@@ -238,7 +238,7 @@ def _moe_dist(cfg: ModelConfig, dist: DistCtx, rparams: RouterParams,
     spec = make_ep_spec(cfg, dist, mode=mode, chunks=chunks, dtype=x.dtype)
     t = to_ranks(dist, x)
     rout = route(mcfg, rparams, t, mcfg.n_experts)
-    fn = _expert_fn(p["w_gate"], p["w_up"], p["w_down"])
+    fn = expert_fn(p["w_gate"], p["w_up"], p["w_down"])
     res = ep_backend.dispatch_combine(spec, t, rout.top_idx, rout.top_w, fn)
     # means over every rank, replicas included, as the reference's psums
     # over the mesh divided by its size

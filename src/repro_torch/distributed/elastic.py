@@ -1,22 +1,32 @@
-"""Elastic EP, its expert-level half: the port of the expert-level part of
-``repro.distributed.elastic`` (online expert re-placement and weight
-migration through the transport substrate; UltraEP arxiv 2606.04101 /
-UBEP 2607.06202, DESIGN.md §15).
+"""Elastic EP (paper §6, "Elastic EP with CPU proxy"): the port of
+``repro.distributed.elastic``, both halves.
 
-A :class:`LoadBalancer` tracks per-logical-expert token counts (the
-``aux["load"]`` stat every backend reports) over a sliding window and
-periodically recomputes a replicated placement by greedy bin-packing;
-rank-degradation recovery reuses the exact same placement-mutation code
-path (``degrade`` -> ``plan.greedy_placement`` ->
-:func:`migrate_expert_weights`), so a hot expert and a dead rank are the
-same event from the transport's point of view: a placement delta whose
-weight rows move through the substrate as coalesced, fenced bulk writes.
-Decisions, tables and statistics equal the reference's on the same
-inputs.
+The mesh-restart half (:class:`ElasticPlan`, :func:`plan_remesh`,
+:func:`reshard_state`).  A job that loses ranks restarts at a smaller EP
+degree: (1) take the latest checkpoint, (2) re-derive the world
+(``make_dist_ctx`` at the new size), (3) check that the new degree divides
+the padded experts and the model axis ``d_model``, and (4) restore the
+state under the new layout.  The reference re-shards its state onto a new
+device mesh.  The port's state is logical: full tensors on one device,
+the EP world only a layout of the compute (the P ranks of a rank-stacked
+world share one copy of the weights).  So restoring into a fresh
+``init_state`` is the whole of the data movement, and
+:func:`reshard_state` checks every EP-split leaf against the new degree
+(:func:`repro_torch.distributed.sharding.ep_split_leaves`) and moves
+leaves only to a device it is given.
 
-The reference's mesh-restart half (``plan_remesh``, ``reshard_state``:
-re-shard a training state onto a new mesh after node loss) is not ported
-here yet.
+The expert-level half (online expert re-placement and weight migration
+through the transport substrate; UltraEP arxiv 2606.04101 / UBEP
+2607.06202, DESIGN.md §15).  A :class:`LoadBalancer` tracks
+per-logical-expert token counts (the ``aux["load"]`` stat every backend
+reports) over a sliding window and periodically recomputes a replicated
+placement by greedy bin-packing; rank-degradation recovery reuses the
+exact same placement-mutation code path (``degrade`` ->
+``plan.greedy_placement`` -> :func:`migrate_expert_weights`), so a hot
+expert and a dead rank are the same event from the transport's point of
+view: a placement delta whose weight rows move through the substrate as
+coalesced, fenced bulk writes.  Decisions, tables and statistics equal
+the reference's on the same inputs.
 """
 from __future__ import annotations
 
@@ -25,11 +35,81 @@ from typing import Optional
 
 import numpy as np
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core import plan as planlib
 from repro_torch.core.backend import _load_imbalance
 from repro_torch.core.transport.fifo import FLAG_FENCE, Op, pack_cmds
 from repro_torch.core.transport.proxy import Proxy, SymmetricMemory
 from repro_torch.core.transport.simulator import Network, NetConfig
+from repro_torch.distributed.sharding import DistCtx, ep_split_leaves
+from repro_torch.optim.adamw import tree_map
+
+
+# ===================================================== mesh restart ==
+@dataclasses.dataclass(frozen=True)
+class ElasticPlan:
+    """A validated re-mesh: the old and new worlds' ``sizes`` (the port's
+    counterpart of a mesh's device shape), the new world's axes, the EP
+    degrees and what changes per shard."""
+
+    old_shape: tuple
+    new_shape: tuple
+    new_axis_names: tuple
+    ep_degree_old: int
+    ep_degree_new: int
+    notes: list
+
+
+def plan_remesh(cfg: ModelConfig, old: DistCtx, new: DistCtx) -> ElasticPlan:
+    """Validate a re-mesh from world ``old`` to world ``new`` and describe
+    what changes, with the reference's checks in its order and its error
+    texts."""
+    notes = []
+    if cfg.moe.enabled:
+        from repro_torch.core.moe import padded_experts_static
+        e = padded_experts_static(cfg)
+        if e % max(new.ep_degree, 1):
+            raise ValueError(
+                f"padded experts {e} not divisible by new EP degree "
+                f"{new.ep_degree}; choose a mesh whose EP axes divide {e}")
+        notes.append(f"experts/shard: {e // max(old.ep_degree, 1)} -> "
+                     f"{e // max(new.ep_degree, 1)}")
+    for name in new.axes:
+        if name == "model" and cfg.d_model % new.axis_size(name):
+            raise ValueError("d_model must divide the model axis")
+    return ElasticPlan(
+        old_shape=tuple(old.sizes), new_shape=tuple(new.sizes),
+        new_axis_names=tuple(new.axes),
+        ep_degree_old=old.ep_degree, ep_degree_new=new.ep_degree,
+        notes=notes)
+
+
+def reshard_state(cfg: ModelConfig, state, new: DistCtx, device=None):
+    """The train ``state`` laid out for world ``new``: (state, new_dist).
+    Checks that the new EP degree divides every EP-split leaf of the
+    parameters and both moments (ValueError where it does not), and keeps
+    ``opt.step``.  In a restart the leaves are already where they belong:
+    ``restore_latest(init_state(cfg, device=...))`` places them, and no
+    ``device`` is passed.  With ``device``, every tensor leaf but the step
+    (which the optimizer keeps on the CPU) moves there, keeping its
+    ``requires_grad``; a leaf already there, or every leaf without
+    ``device``, is left as it is, not copied.  ``cfg`` keeps the
+    reference's argument order: the layout follows from the tree and
+    ``new``."""
+    ep_split_leaves(new, state)
+    if device is None:
+        return state, new
+
+    def move(x):
+        y = x.to(device)
+        return x if y is x else y.detach().requires_grad_(x.requires_grad)
+
+    opt = state.opt._replace(mu=tree_map(move, state.opt.mu),
+                             nu=tree_map(move, state.opt.nu))
+    return state._replace(params=tree_map(move, state.params), opt=opt), new
+
+
+# ============================================ expert-level elasticity ==
 
 
 @dataclasses.dataclass

@@ -6,6 +6,13 @@ distributed structure left is the EP world, whose P ranks sit on a leading
 tensor axis (see :mod:`repro_torch.core.ep`).  ``DistCtx`` carries that
 world's axes and sizes: ``("model",)`` for a one-level world, ``("pod",
 "model")`` for the two-level hierarchy.
+
+The reference's partition rules (``param_pspecs``, ``cache_pspecs`` and
+the batch and activation specs) lay a model out over a device mesh; one
+card has no mesh to lay them on, so they have no counterpart here.  The
+one layout the port needs is that of the routed experts over the EP world
+(:func:`ep_split_leaves`), which a re-mesh checks
+(:mod:`repro_torch.distributed.elastic`).
 """
 from __future__ import annotations
 
@@ -14,6 +21,7 @@ from dataclasses import dataclass
 from typing import Optional
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.optim.adamw import tree_items
 
 
 @dataclass(frozen=True)
@@ -32,6 +40,12 @@ class DistCtx:
     axes: tuple[str, ...] = ()
     sizes: tuple[int, ...] = ()
 
+    @property
+    def ep_degree(self) -> int:
+        """Ranks of the EP world: the product of ``ep_sizes``, or 1 for a
+        model without MoE."""
+        return math.prod(self.ep_sizes) if self.ep_axes else 1
+
     def axis_size(self, name: str) -> int:
         return dict(zip(self.axes, self.sizes)).get(name, 1)
 
@@ -49,6 +63,43 @@ def make_dist_ctx(cfg: ModelConfig, *, model: int, pod: int = 1) -> DistCtx:
     if not cfg.moe.enabled:
         return DistCtx((), (), axes, sizes)
     return DistCtx(axes, sizes, axes, sizes)
+
+
+# the routed experts' weights, split over the EP world on their leading
+# (expert) axis, as the reference's rule splits them (sharding.py:97-100)
+EP_SPLIT_NAMES = ("w_gate", "w_up", "w_down")
+
+
+def ep_split_leaves(dist: Optional[DistCtx],
+                    tree) -> dict[str, tuple[int, ...]]:
+    """{path: per-rank shape} of each leaf of ``tree`` (parameters, a train
+    state, or optimizer moments mirroring the parameters) that the EP world
+    of ``dist`` splits: a routed expert's ``w_gate``, ``w_up`` or
+    ``w_down`` (under ``moe``, not under ``shared``), on its leading axis.
+    Paths join keys with "/" (``params/blocks/0/moe/w_gate``).  A factored
+    second moment's ``row``, ``col`` and ``full`` leaves are not split, as
+    the reference's rule leaves them whole.  Raises ValueError where the EP
+    degree does not divide a leaf's leading axis."""
+    deg = dist.ep_degree if dist is not None else 1
+    out: dict[str, tuple[int, ...]] = {}
+
+    def walk(node, keys):
+        kids = tree_items(node)
+        if kids is None:
+            if (keys and keys[-1] in EP_SPLIT_NAMES and "moe" in keys
+                    and "shared" not in keys):
+                path = "/".join(keys)
+                if node.shape[0] % deg:
+                    raise ValueError(
+                        f"{path}: {node.shape[0]} experts not divisible by "
+                        f"the EP degree {deg}")
+                out[path] = (node.shape[0] // deg, *node.shape[1:])
+            return
+        for k, v in kids:
+            walk(v, keys + [str(k)])
+
+    walk(tree, [])
+    return out
 
 
 def scan_period(cfg: ModelConfig) -> tuple[int, int]:

@@ -35,6 +35,18 @@ def tree_map(fn: Callable, tree, *rest):
     return fn(tree, *rest)
 
 
+def tree_items(tree):
+    """(key, child) pairs of a NamedTuple, dict, list or tuple node; None
+    for a leaf."""
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return list(zip(tree._fields, tree))
+    if isinstance(tree, dict):
+        return list(tree.items())
+    if isinstance(tree, (list, tuple)):
+        return list(enumerate(tree))
+    return None
+
+
 def tree_leaves(tree) -> list[Tensor]:
     out: list = []
     tree_map(out.append, tree)

@@ -682,7 +682,7 @@ def test_cuda_placement_dispatch_matches_plain(cuda_device, mode):
     source)."""
     from repro_torch.core import ep
     from repro_torch.core import plan as planlib
-    from repro_torch.core.moe import _expert_fn
+    from repro_torch.core.moe import expert_fn
     rng = np.random.default_rng(80)
     E, R, T, K, D, F, n_phys = 64, 4, 64, 6, 256, 128, 80
     pop = np.exp(0.8 * rng.standard_normal(E))
@@ -696,7 +696,7 @@ def test_cuda_placement_dispatch_matches_plain(cuda_device, mode):
     x = _bf16(rng, (R, T, D), cuda_device)
     ws = _bf16_weights(rng, E, D, F, cuda_device)
     p2l = torch.from_numpy(pl.phys_to_logical).long().to(cuda_device)
-    fn = _expert_fn(*[w[p2l] for w in ws])
+    fn = expert_fn(*[w[p2l] for w in ws])
     spec = ep.EPSpec(axes=("model",), sizes=(R,), n_experts=E, top_k=K,
                      capacity_factor=n_phys / K, dtype=torch.bfloat16,
                      mode=mode, placement=pl.key())

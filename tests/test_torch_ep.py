@@ -118,7 +118,7 @@ def _port(sizes, axes, mode, wire, cf, chunks, K, x, ti, tw, w,
                   capacity_factor=cf, chunks=chunks, dtype=torch.float32,
                   mode=mode, wire_dtype=wire)
     t = [torch.from_numpy(a) for a in (x, ti, tw)]
-    fn = tmoe._expert_fn(*[torch.from_numpy(a) for a in w])
+    fn = tmoe.expert_fn(*[torch.from_numpy(a) for a in w])
     res = get_backend("torch_collectives").dispatch_combine(
         spec, t[0].reshape(R, -1, D), t[1].reshape(R, -1, K),
         t[2].reshape(R, -1, K), _as_form(fn, form))
@@ -237,7 +237,7 @@ def test_ep_ht_plain_expert_fn_matches_fused(sizes, axes, cf, skew):
     x, ti, tw = _inputs(5, R, T, K, skew)
     w = _weights()
     calls = []
-    fn = tmoe._expert_fn(*[torch.from_numpy(a) for a in w])
+    fn = tmoe.expert_fn(*[torch.from_numpy(a) for a in w])
 
     def plain(tokens, counts):
         calls.append((tuple(tokens.shape), tuple(counts.shape)))

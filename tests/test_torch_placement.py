@@ -138,7 +138,7 @@ def _port(R, mode, placement, x, ti, tw, w):
     spec = EPSpec(axes=("model",), sizes=(R,), n_experts=E, top_k=K,
                   capacity_factor=CF, dtype=torch.float32, mode=mode,
                   placement=None if placement is None else placement.key())
-    fn = tmoe._expert_fn(*[torch.from_numpy(a[p2l]) for a in w])
+    fn = tmoe.expert_fn(*[torch.from_numpy(a[p2l]) for a in w])
     res = get_backend("torch_collectives").dispatch_combine(
         spec, *[torch.from_numpy(a).reshape(R, -1, *a.shape[1:])
                 for a in (x, ti, tw)], fn)

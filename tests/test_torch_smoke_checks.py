@@ -9,7 +9,10 @@ grouped_swiglu calls whose cases join the kernel's entry; serve-engine's
 helpers: its config at qwen2-moe's widths and its requests, drive_engine's
 per-step rows, the launch check, the CPU-against-card comparison of the
 engine's state and outputs, the recorder of its (1, n, D) calls and the
-run summary; and the lint phase."""
+run summary; the lint phase; and the checks of train-elastic (the cross
+entropy at two EP degrees, the launch counts, the spread of the losses,
+the roofline share), distributed (the compression bounds and bytes, the
+collectives bit for bit) and examples (their mains and kernels)."""
 import dataclasses
 import sys
 from pathlib import Path
@@ -668,3 +671,135 @@ def test_lint_phase_clean_and_failing(tmp_path):
         "  y[threadIdx.x] = x[threadIdx.x];\n}\n")
     with pytest.raises(AssertionError, match="LNT-CU-OCC"):
         chip_smoke.lint_phase(tmp_path)
+
+
+# ------------------------------------------ train-elastic, distributed --
+def test_loss_agreement_limit():
+    """The cross entropies of two EP degrees agree within a share of the
+    first; past it, or non-finite, they fail."""
+    tol = chip_smoke.ELASTIC_LOSS_TOL
+    assert chip_smoke.loss_agreement(2.0, 2.0, tol) == 0.0
+    assert chip_smoke.loss_agreement(2.0, 2.0 * (1 + tol / 2), tol) \
+        == pytest.approx(tol / 2)
+    with pytest.raises(AssertionError, match="differ by"):
+        chip_smoke.loss_agreement(2.0, 2.0 * (1 + 2 * tol), tol)
+    with pytest.raises(AssertionError, match="non-finite"):
+        chip_smoke.loss_agreement(2.0, float("nan"), tol)
+    # a flipped bf16 rounding moves a value by 2^-8 of itself: the limit
+    # sits below one such move of the whole loss
+    assert tol < 2.0 ** -8
+
+
+def test_losses_at_degrees_agree_in_fp32():
+    """``losses_at_degrees`` on a reduced qwen2-moe in fp32 (the plain
+    versions): every capacity lifted, nothing dropped, the cross entropy
+    at EP 4 and EP 2 equal within fp32 rounding, well inside
+    ``ELASTIC_LOSS_TOL``; the aux losses differ (a per-rank statistic)."""
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    cfg = dataclasses.replace(reduced_config(
+        get_config("qwen2_moe_a2_7b"), n_layers=2, d_model=64,
+        n_experts=8), dtype="float32")
+    params = Z.init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
+    batch = synth_batch(DataConfig(vocab_size=512, batch=2, seq_len=32,
+                                   seed=0), 0)
+    at = chip_smoke.losses_at_degrees(
+        cfg, params, batch, (make_dist_ctx(cfg, model=4),
+                             make_dist_ctx(cfg, model=2)), 64)
+    assert at["cf"] == 16 / cfg.moe.top_k
+    assert chip_smoke.loss_agreement(at[4][0], at[2][0], 1e-6) <= 1e-6
+    assert at[4][1] != at[2][1]
+
+
+def test_require_launches_and_within_spread():
+    chip_smoke.require_launches({"a": 3, "b": 1}, ("a", "b"), "run")
+    with pytest.raises(AssertionError, match=r"\['b'\] were not launched"):
+        chip_smoke.require_launches({"a": 3, "b": 0}, ("a", "b"), "run")
+    with pytest.raises(AssertionError, match=r"\['c'\]"):
+        chip_smoke.require_launches({"a": 3}, ("a", "c"), "run")
+    # the last losses before a re-mesh fall 3.0, 2.5, 2.2 (spread 0.8)
+    assert chip_smoke.within_spread(2.0, [3.0, 2.5, 2.2]) == {
+        "gap": pytest.approx(0.2), "spread": pytest.approx(0.8)}
+    assert chip_smoke.within_spread(2.9, [3.0, 2.5, 2.2])["gap"] <= 0.8
+    for bad in (3.1, 1.3, float("nan")):
+        with pytest.raises(AssertionError, match="spread"):
+            chip_smoke.within_spread(bad, [3.0, 2.5, 2.2])
+
+
+def test_roofline_share_counts_six_n_active_tokens():
+    """6 N_active tokens over a step's seconds at the bf16 peak: at
+    qwen2-moe's full width and 4 layers, 0.967B active parameters."""
+    cfg = dataclasses.replace(get_config("qwen2_moe_a2_7b"), n_layers=4)
+    r = chip_smoke.roofline_share(cfg, 0.5, 4, 1024)
+    assert r["model_flops"] == 6.0 * cfg.active_param_count() * 4096
+    assert 0.96e9 < cfg.active_param_count() < 0.97e9
+    assert r["ideal_s"] == pytest.approx(r["model_flops"] / 989e12)
+    assert r["peak_share"] == pytest.approx(r["ideal_s"] / 0.5)
+
+
+def test_compression_checks_bounds():
+    """The reference test's bounds hold for the compressed mean and fail
+    for a mean past them, or a second round that undoes the feedback."""
+    from repro_torch.distributed.compression import ef_compressed_mean
+    g = torch.randn((4, 4 * 256 * 4), generator=torch.Generator()
+                    .manual_seed(0))
+    true = g.mean(0)
+    mean, res = ef_compressed_mean(g)
+    mean2, _ = ef_compressed_mean(g, res)
+    out = chip_smoke.compression_checks(mean, mean2, true)
+    assert 0 < out["max_abs_err"] < out["limit"]
+    assert out["two_round_mean_err"] <= out["ef_limit"]
+    with pytest.raises(AssertionError, match="out of bounds"):
+        chip_smoke.compression_checks(mean + 1.0, mean2, true)
+    # a second round farther from the true mean than the first fails
+    worse = mean + 1.2 * (mean - true)
+    with pytest.raises(AssertionError, match="out of bounds"):
+        chip_smoke.compression_checks(mean, worse, true)
+
+
+def test_ring_bytes_counts_the_wire():
+    b = chip_smoke.ring_bytes(4, 1 << 26)
+    chunk = (1 << 26) // 4
+    assert b["int8_reduce_scatter"] == 12 * (chunk + chunk // 256 * 4)
+    assert b["fp32_all_gather"] == 12 * chunk * 4
+    assert b["fp32_ring_all_reduce"] == 2 * b["fp32_all_gather"]
+    assert b["reduce_scatter_ratio"] == pytest.approx(4 / (1 + 4 / 256))
+
+
+def test_sp_checks_pass_and_catch_a_wrong_order(monkeypatch):
+    """The collectives' bit-for-bit checks pass on the port and fail when
+    the reduce-scatter sums its ranks in another order."""
+    from repro_torch.distributed import collectives as col
+    g = torch.Generator().manual_seed(1)
+    cfg = reduced_config(get_config("qwen2_moe_a2_7b"), n_layers=1)
+    dist = make_dist_ctx(cfg, model=4)
+    x, ct = (torch.randn((2, 16, 8), generator=g) for _ in range(2))
+    parts = torch.randn((1, 4, 2, 16, 8), generator=g)
+    chip_smoke.sp_checks(dist, x, ct, parts)
+
+    def reversed_order(xs):
+        G, M, b, S, D = xs.shape
+        parts = xs.reshape(G, M, b, M, S // M, D)
+        acc = parts[:, M - 1]
+        for j in range(M - 2, -1, -1):
+            acc = acc + parts[:, j]
+        return acc.permute(0, 2, 1, 3, 4).contiguous()
+    monkeypatch.setattr(col, "reduce_scatter_seq", reversed_order)
+    with pytest.raises(AssertionError, match="not bit for bit"):
+        chip_smoke.sp_checks(dist, x, ct, parts)
+
+
+def test_examples_and_their_kernels():
+    """Every example the examples phase runs has a ``main`` taking an
+    argument list, its arguments parse, and the kernels it must launch
+    are registered kernels with an entry in the kernels line."""
+    import importlib
+
+    from repro_torch.kernels import ops
+    assert set(chip_smoke.EXAMPLE_KERNELS) == {
+        "quickstart", "serve_decode", "train_moe_e2e", "elastic_restart"}
+    for ex, names in chip_smoke.EXAMPLE_KERNELS.items():
+        mod = importlib.import_module(f"repro_torch.examples.{ex}")
+        assert callable(mod.main)
+        assert all(n in ops.KERNELS and n in chip_smoke.KERNEL_INFO
+                   for n in names)
+    assert set(chip_smoke.EXAMPLE_ARGS) <= set(chip_smoke.EXAMPLE_KERNELS)
