@@ -287,7 +287,9 @@ Phases, each printed as one JSON line:
    against plain concatenations and sums in rank order;
 24. examples (after phase 23): the four examples of
    ``repro_torch.examples`` (quickstart, serve_decode, train_moe_e2e at
-   100 of its 200 steps, elastic_restart) on the card, each with its OK
+   100 of its 200 steps, elastic_restart at the reference's 60 steps at
+   EP 4 and 120 at EP 2 from the checkpoint of step 60, which
+   ``example_summary`` requires) on the card, each with its OK
    line and seconds, the
    kernels each must launch (``EXAMPLE_KERNELS``) counted, and their first
    calls of each kind joining the kernels' entries as cases of the
@@ -295,7 +297,12 @@ Phases, each printed as one JSON line:
 
 The lint phase (right after the build): ``repro_torch.analysis.lint``
 over the port's package, its CUDA sources' occupancy rule included; any
-finding fails the run.
+finding fails the run.  Then the surface phase (``surface_phase``): every
+name of the ``__all__`` of the port's core, optim, training, data and
+distributed packages imported, and ``make_world_plan`` at qwen2-moe's LL
+decode and HT prefill shapes over the EP world of 4, with the router as
+made and skewed so that HT drops, on the card bit for bit the CPU's, every
+field and the world's scalar ``n_dropped``.
 
 Then the kernels line ``{"kernels": [...]}`` (all seventeen kernels), the
 nvidia-smi line, and as the last line ``{"ok": true, "device": {...}}``.
@@ -522,6 +529,9 @@ SP_RANKS, SP_BATCH, SP_SEQ, SP_D = 4, 4, 1024, 2048
 # steps took 83 s on an H100, and the three phases are to add about two
 # minutes
 EXAMPLE_ARGS = {"train_moe_e2e": ["--steps", "100"]}
+# elastic_restart at the reference's counts: 60 steps at EP 4, the
+# checkpoint of step 60 restored, then 120 steps at EP 2
+ELASTIC_EXAMPLE_COUNTS = (60, 120, 60)
 EXAMPLE_KERNELS = {
     "quickstart": ("grouped_swiglu", "gather_swiglu_scatter"),
     "serve_decode": ("grouped_swiglu",),
@@ -564,6 +574,12 @@ PREFIX_TRAIN_STEPS = 5
 # 64, not serve's 256: the substrate runs every MoE layer's dispatch and
 # combine in numpy on the host, and the phase is to stay near a minute
 RDMA_BATCH, RDMA_PROMPT, RDMA_GEN, RDMA_GEN_FP8 = 4, 64, 8, 4
+# the surface phase: the five packages whose names it imports, and
+# make_world_plan at qwen2-moe's served shapes over the EP world of 4 (batch
+# 4: LL decode at one token a sequence, HT prefill at 256)
+SURFACE_PACKAGES = ("core", "optim", "training", "data", "distributed")
+SURFACE_EP, SURFACE_BATCH, SURFACE_PROMPT = 4, 4, 256
+SURFACE_HOT = 6
 # the kernels this path launches (each > 0) and those it must not (each
 # exactly 0): the substrate neither fuses the expert gather/scatter nor
 # quantizes on the card (its codec encodes on the host)
@@ -1306,7 +1322,8 @@ def ht_kept_choices(cfg, dist, p, x):
                                                     hard_max=N * K))
     keep = keep1.clone()
     keep[keep1] = pl.keep[g[keep1], row[keep1], kk[keep1]]
-    return t, rout.top_idx, rout.top_w, keep, d1 + pl.n_dropped
+    return (t, rout.top_idx, rout.top_w, keep,
+            d1 + (pl.valid & ~pl.keep).reshape(P, -1).sum(1))
 
 
 def restricted_oracle(cfg, dist, p, x):
@@ -4447,7 +4464,8 @@ def examples_phase(dev, kernels) -> dict:
 def example_summary(ex: str, res: dict) -> dict:
     """What an example's ``main`` returned, in short: the errors against
     the oracle, the engine's steps and tokens, or the losses and the
-    steps' seconds."""
+    steps' seconds; elastic_restart's step counts must be
+    ``ELASTIC_EXAMPLE_COUNTS``."""
     if ex == "quickstart":
         return {"max_abs_err": res["max_abs_err"],
                 "oracle_max": res["oracle_max"]}
@@ -4460,11 +4478,110 @@ def example_summary(ex: str, res: dict) -> dict:
                 "loss_first_last": [res["losses"][0], res["losses"][-1]],
                 "step_s_median": secs[len(secs) // 2]}
     plan = res["plan"]
+    counts = (len(res["hist1"]), len(res["hist2"]), res["restored_step"])
+    if counts != ELASTIC_EXAMPLE_COUNTS:
+        raise AssertionError(f"elastic_restart ran (steps before, steps "
+                             f"after, restored step) {counts}, not "
+                             f"{ELASTIC_EXAMPLE_COUNTS}")
     return {"ep": [plan.ep_degree_old, plan.ep_degree_new],
+            "steps": [len(res["hist1"]), len(res["hist2"])],
             "restored_step": res["restored_step"],
             "loss_start_before_after": [res["hist1"][0]["loss"],
                                         res["hist1"][-1]["loss"],
                                         res["hist2"][-1]["loss"]]}
+
+
+def surface_phase(dev) -> dict:
+    """The port's package surface in the process that drives the card:
+    every name of the ``__all__`` of each of ``SURFACE_PACKAGES``
+    imported, and ``make_world_plan`` at qwen2-moe's LL decode and HT
+    prefill shapes (the routing tables and capacities
+    ``dispatch_combine_ll`` / ``dispatch_combine_ht`` hand it, recorded
+    while they run on the card with an identity expert function; each
+    with the router as made and with one skewed to ``SURFACE_HOT``
+    experts) held bit for bit, every field and the world's scalar
+    ``n_dropped``, to the same call on the CPU."""
+    import importlib
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import (WorldPlan, dispatch_combine_ht,
+                                  dispatch_combine_ll, padded_experts_static,
+                                  route, router_init)
+    from repro_torch.core import plan as planlib
+    from repro_torch.core.moe import make_ep_spec, to_ranks
+    from repro_torch.distributed import make_dist_ctx
+
+    t0 = time.perf_counter()
+    exported = {}
+    for pkg in SURFACE_PACKAGES:
+        mod = importlib.import_module(f"repro_torch.{pkg}")
+        for n in mod.__all__:
+            getattr(mod, n)
+        exported[pkg] = len(mod.__all__)
+    cfg = get_config("qwen2_moe_a2_7b")
+    dist = make_dist_ctx(cfg, model=SURFACE_EP)
+    g = torch.Generator(device=dev).manual_seed(0)
+    rp = router_init(cfg.d_model, padded_experts_static(cfg), g,
+                     cfg.moe.router_aux_free_bias, dev)
+
+    def identity(tokens, counts):
+        return tokens
+
+    real, calls = planlib.make_world_plan, []
+
+    def recording(group_idx, n_groups, capacity):
+        pl = real(group_idx, n_groups, capacity)
+        calls.append((group_idx, n_groups, capacity, pl))
+        return pl
+
+    # the router as made, and with a selection bias that sends most
+    # choices to SURFACE_HOT experts of rank 0, so that both HT stages drop
+    hot = torch.zeros_like(rp.w[0])
+    hot[:SURFACE_HOT] = 8.0
+    routers = {"": rp, "_skewed": rp._replace(bias=hot)}
+    shapes = {}
+    planlib.make_world_plan = recording
+    try:
+        for mode, S, fn in (("ll", 1, dispatch_combine_ll),
+                            ("ht", SURFACE_PROMPT, dispatch_combine_ht)):
+            x = torch.randn((SURFACE_BATCH, S, cfg.d_model), generator=g,
+                            device=dev).to(torch.bfloat16)
+            spec = make_ep_spec(cfg, dist, mode=mode, dtype=x.dtype)
+            t = to_ranks(dist, x)
+            for tag, r in routers.items():
+                rout = route(cfg.moe, r, t, cfg.moe.n_experts)
+                n = len(calls)
+                fn(spec, t, rout.top_idx, rout.top_w, identity)
+                if len(calls) != n + 1:
+                    raise AssertionError(f"{mode}: {len(calls) - n} "
+                                         "make_world_plan calls, not 1")
+                shapes[mode + tag] = calls[-1]
+    finally:
+        planlib.make_world_plan = real
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    out = {}
+    for mode, (gi, n_groups, cap, pl) in shapes.items():
+        cpu = real(gi.cpu(), n_groups, cap)
+        if not (isinstance(pl, WorldPlan) and pl.n_dropped.dim() == 0):
+            raise AssertionError(f"{mode}: make_world_plan returned "
+                                 f"{type(pl).__name__} with n_dropped "
+                                 f"{tuple(pl.n_dropped.shape)}")
+        if pl.rank.device.type != dev.type:
+            raise AssertionError(f"{mode}: the plan ran on {pl.rank.device}")
+        for f in WorldPlan._fields:
+            a, b = getattr(pl, f).cpu(), getattr(cpu, f)
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError(f"{mode}: WorldPlan.{f} on the card "
+                                     "differs from the CPU's")
+        out[mode] = {"table": list(gi.shape), "n_groups": n_groups,
+                     "capacity": cap, "n_dropped": int(pl.n_dropped),
+                     "valid": int(pl.valid.sum()),
+                     "kept": int(pl.keep.sum()), "bit_for_bit": True}
+    return {"phase": "surface", "exported": exported,
+            "make_world_plan": out, "seconds": time.perf_counter() - t0}
 
 
 def lint_phase(root=None) -> dict:
@@ -4508,6 +4625,7 @@ def main() -> int:
           "nvcc_seconds": build.last_build_seconds, "library": so.name,
           "sources": [p.name for p in build.sources()]})
     emit(lint_phase())
+    emit(surface_phase(dev))
 
     from repro_torch.kernels import ops
     bwd = {n: ops.KERNELS[n][0] for n in EP_BWD_KERNELS}

@@ -9,7 +9,8 @@ Registered here:
 
 - ``torch_collectives``: LL or HT per ``spec.mode`` over the rank-stacked
   EP world of :mod:`repro_torch.core.ep` (the counterpart of the JAX
-  package's ``jax_collectives``).
+  package's ``jax_collectives``; :class:`TorchCollectivesBackend` is its
+  ``JaxCollectivesBackend``).
 - ``simulated_rdma``: the transport-substrate path — numpy host execution
   over FIFO channels, CPU proxies and the ordered/unordered network model
   (:class:`repro_torch.core.transport.ep_executor.EPWorld`).  Bit-level

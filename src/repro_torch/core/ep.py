@@ -32,7 +32,8 @@ then physical slots, whose weights the caller gathers through
 
 Per-rank statistics (``dropped``, ``occupancy``) come back as ``(R,)``
 tensors; ``load_phys`` (the psum'd load of each physical slot) is one
-``(n_physical,)`` tensor.
+``(n_physical,)`` tensor.  The reference's ``NEG`` (an int32 -1 for the
+pad of a routing table, as a jnp constant) is the literal -1 here.
 """
 from __future__ import annotations
 
@@ -246,7 +247,7 @@ def dispatch_combine_ll(spec: EPSpec, x: Tensor, top_idx: Tensor,
                           contrib.to(torch.float32) * w_flat[..., None], 0.0)
     out = contrib.reshape(R, T, K, D).sum(2)
 
-    dropped = pl.n_dropped / torch.clamp(valid.sum(1), min=1)
+    dropped = (valid & ~keep).sum(1) / torch.clamp(valid.sum(1), min=1)
     occupancy = cnt.sum(1) / (E * C)
     load_phys = pl.counts.sum(0)                                 # psum
     return DispatchResult(out.to(x.dtype),
@@ -366,7 +367,8 @@ def _expert_apply(spec: EPSpec, x_in: Tensor, eid: Tensor, w: Tensor,
         part.index_add_(0, tgt, out_e.reshape(-1, D).to(torch.float32)
                         * w_of_slot[:, None])
         part = part[:-1]
-    return part.reshape(R, N, D), pl.n_dropped, occupancy
+    n_dropped = (pl.valid.reshape(R, N * K) & ~keep).sum(1)    # per rank
+    return part.reshape(R, N, D), n_dropped, occupancy
 
 
 def _combine_scatter(plan: _GroupPlan, ret: Tensor, T: int) -> Tensor:

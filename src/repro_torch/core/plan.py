@@ -189,11 +189,28 @@ def make_plan(group_idx: Tensor, n_groups: int, capacity: int) -> DispatchPlan:
     return DispatchPlan(rank, counts, valid, keep, (valid & ~keep).sum())
 
 
+class WorldPlan(NamedTuple):
+    """Per-rank plans for a whole (R, T, K) world, computed in one pass.
+
+    Slot namespaces are per (source rank, expert): rank r's choices for
+    expert e occupy slots [0, counts[r, e]) of the (r, e) receive bucket —
+    exactly the paper's sender-side slot metadata.
+    """
+
+    rank: Tensor       # (R, T, K) arrival-order slot per (src, expert)
+    counts: Tensor     # (R, n_groups)
+    valid: Tensor      # (R, T, K)
+    keep: Tensor       # (R, T, K)
+    n_dropped: Tensor  # scalar
+
+
 def make_world_plan(group_idx: Tensor, n_groups: int,
-                    capacity: int) -> DispatchPlan:
+                    capacity: int) -> WorldPlan:
     """Plan an (R, T, K) table; groups are independent per source rank, so
-    the result equals stacking :func:`make_plan` per rank (``counts`` is
-    (R, n_groups), ``n_dropped`` is (R,))."""
+    each rank's slice equals :func:`make_plan` of that rank.  ``n_dropped``
+    counts the whole world, as the reference's does; a rank-stacked caller
+    takes a rank's own count (what the reference's per-rank ``make_plan``
+    inside ``shard_map`` gives) from ``valid & ~keep``."""
     R = group_idx.shape[0]
     valid = group_idx >= 0
     r_of = torch.arange(R, device=group_idx.device).reshape(
@@ -203,8 +220,7 @@ def make_world_plan(group_idx: Tensor, n_groups: int,
     rank = rank_in_group(flat, R * n_groups, fv).reshape(group_idx.shape)
     counts = group_counts(flat, R * n_groups, fv).reshape(R, n_groups)
     keep = valid & (rank < capacity)
-    n_dropped = (valid & ~keep).reshape(R, -1).sum(1)
-    return DispatchPlan(rank, counts, valid, keep, n_dropped)
+    return WorldPlan(rank, counts, valid, keep, (valid & ~keep).sum())
 
 
 # ------------------------------------------------- replicated placement ---

@@ -71,8 +71,9 @@ F32 = np.dtype(np.float32)
 
 
 class WorldPlan(NamedTuple):
-    """Per-rank plans for a whole (R, T, K) world, as numpy arrays (the
-    reference's ``plan.WorldPlan``): slots are per (source rank, expert)."""
+    """The numpy view of :class:`planlib.WorldPlan`: per-rank plans for a
+    whole (R, T, K) world (the reference's ``plan.WorldPlan``), slots per
+    (source rank, expert)."""
 
     rank: np.ndarray       # (R, T, K) arrival-order slot per (src, expert)
     counts: np.ndarray     # (R, n_groups) int32
@@ -87,7 +88,7 @@ def _world_plan(group_idx: np.ndarray, n_groups: int,
     p = planlib.make_world_plan(torch.from_numpy(group_idx), n_groups,
                                 capacity)
     return WorldPlan(p.rank.numpy(), p.counts.numpy(), p.valid.numpy(),
-                     p.keep.numpy(), np.int64(p.n_dropped.sum()))
+                     p.keep.numpy(), np.int64(p.n_dropped))
 
 
 def _plan(group_idx: np.ndarray, n_groups: int, capacity: int):

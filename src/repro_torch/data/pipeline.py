@@ -8,9 +8,11 @@ without an external corpus.  Every batch is a pure function of
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Iterator
+from typing import Iterator, Optional
 
 import numpy as np
+
+from repro_torch.configs.base import ModelConfig, ShapeCell
 
 
 @dataclass(frozen=True)
@@ -53,3 +55,16 @@ def data_iterator(dc: DataConfig, start_step: int = 0) -> Iterator[dict]:
     while True:
         yield synth_batch(dc, step)
         step += 1
+
+
+def make_data_config(cfg: ModelConfig, cell: ShapeCell, *,
+                     batch: Optional[int] = None,
+                     seq: Optional[int] = None, seed: int = 0) -> DataConfig:
+    """The data of one shape cell (``batch``/``seq`` override the cell's):
+    the model's frontend prefix comes out of the sequence, so that prefix
+    and tokens together fill it."""
+    B = batch or cell.global_batch
+    S = seq or cell.seq_len
+    pre = cfg.frontend_prefix
+    return DataConfig(vocab_size=cfg.vocab_size, batch=B, seq_len=S - pre,
+                      seed=seed, prefix_len=pre, d_model=cfg.d_model)

@@ -7,9 +7,11 @@ tensor axis (see :mod:`repro_torch.core.ep`).  ``DistCtx`` carries that
 world's axes and sizes: ``("model",)`` for a one-level world, ``("pod",
 "model")`` for the two-level hierarchy.
 
-The reference's partition rules (``param_pspecs``, ``cache_pspecs`` and
-the batch and activation specs) lay a model out over a device mesh; one
-card has no mesh to lay them on, so they have no counterpart here.  The
+The reference's partition rules (``param_pspecs``, ``param_shardings``,
+``cache_pspecs``, the batch and activation specs ``batch_spec`` and
+``act_spec``, and the axis pickers ``effective_batch_axes`` and
+``cache_seq_axes``) lay a model out over a device mesh; one card has no
+mesh to lay them on, so they have no counterpart here.  The
 one layout the port needs is that of the routed experts over the EP world
 (:func:`ep_split_leaves`), which a re-mesh checks
 (:mod:`repro_torch.distributed.elastic`).

@@ -9,9 +9,11 @@ then 8.
 
   python -m repro_torch.examples.elastic_restart [--device cpu]
 
-The first half of ``STEPS`` runs at EP 4 and the second at EP 2, to step
-``STEPS`` (the reference's second loop restarts its step count at 0 and
-so runs 120 more).
+As in the reference, the first loop runs ``STEPS // 2`` steps at EP 4
+(60 of the reference's 120) and the second ``STEPS`` at EP 2 (120), on
+the batches that follow the checkpoint (60-179): the second loop counts
+its steps from 0, while the optimizer's step, which drives the
+learning-rate schedule, carries on from the checkpoint in both.
 """
 from __future__ import annotations
 
@@ -63,7 +65,7 @@ def main(argv=None) -> dict:
         state2, dist2 = reshard_state(cfg, restored, dist2)
         state2, hist2 = train_loop(cfg, hp, dist2,
                                    data_iterator(dc, start_step=step),
-                                   steps=STEPS - step, state=state2,
+                                   steps=STEPS, state=state2,
                                    log_every=20, device=args.device)
     l0, l1, l2 = hist1[0]["loss"], hist1[-1]["loss"], hist2[-1]["loss"]
     print(f"[elastic] loss: start={l0:.4f} before-failure={l1:.4f} "

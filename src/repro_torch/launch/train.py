@@ -17,8 +17,9 @@ on the card through the EP kernels and their backward kernels:
 A model with a frontend prefix (internvl2-26b, musicgen-large) trains on
 batches that carry ``frontend_prefix`` stub embeddings before the tokens,
 as the reference's launcher builds them.  The reference's TPU mesh
-choices (``single``, ``multi``) and its ``--xla-pipelining`` preset have
-no counterpart on one card.
+choices (``single``, ``multi``) and its ``--xla-pipelining`` preset
+(``XLA_PIPELINING_FLAGS``, ``apply_xla_pipelining_flags``: XLA's GPU
+latency-hiding flags) have no counterpart on one card.
 """
 from __future__ import annotations
 

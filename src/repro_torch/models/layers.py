@@ -10,6 +10,13 @@ of the reference, with its hierarchical causal decomposition behind
 ``causal_skip``), as the JAX package computes it in jnp; the serving path
 (``blocks.block_prefill`` / ``block_decode``) goes through the kernels of
 ``kernels.ops``.
+
+The reference's parameter and cache named tuples (``AttnParams``,
+``MLPParams``, ``KVCache``) are dicts with the same keys here (see
+``blocks.py``).  Its ``decode_attention_local`` (the partial decode
+attention of one cache slice, merged across a sequence-sharded cache by
+the decode island of its ``blocks.py``) has no counterpart: one card holds
+the whole cache, and decoding goes through ``kernels.ops.decode_attention``.
 """
 from __future__ import annotations
 

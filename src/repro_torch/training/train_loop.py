@@ -5,14 +5,17 @@ router-bias rule, watchdog straggler flags, checkpoint-restore recovery.
 The reference's XLA-only knobs have no counterpart: ``unroll`` (a Python
 loop for cost extraction; the port always loops), ``sp_islands`` (shard_map
 islands on a mesh) and ``remat_policy="dots"`` (an XLA checkpoint policy;
-``cfg.remat`` recomputes each whole layer).  There is no ``jit``: a step
-runs eagerly.
+``cfg.remat`` recomputes each whole layer), and ``state_shardings`` (the
+state's shardings over a mesh).  There is no ``jit``: a step
+runs eagerly, so :func:`make_train_step` binds the step's configuration
+and donates nothing (the step updates the state in place).
 """
 from __future__ import annotations
 
 import bisect
 import time
 from dataclasses import dataclass
+from functools import partial
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -126,6 +129,13 @@ def train_step(cfg: ModelConfig, hp: HParams, dist: Optional[DistCtx],
     return TrainState(params, opt), out
 
 
+def make_train_step(cfg: ModelConfig, hp: HParams,
+                    dist: Optional[DistCtx]) -> Callable:
+    """``step(state, batch) -> (state, metrics)``: :func:`train_step` with
+    its configuration bound (the reference jits this partial)."""
+    return partial(train_step, cfg, hp, dist)
+
+
 @dataclass
 class WatchdogEvent:
     step: int
@@ -185,6 +195,7 @@ def train_loop(cfg: ModelConfig, hp: HParams, dist, data, *,
     else:
         it = iter(data)
         get_batch = lambda s: next(it)  # noqa: E731
+    step_fn = make_train_step(cfg, hp, dist)
     start = 0
     if checkpointer is not None:
         restored = checkpointer.restore_latest(state)
@@ -201,8 +212,10 @@ def train_loop(cfg: ModelConfig, hp: HParams, dist, data, *,
             restored = checkpointer.restore_latest(state)
             if restored is not None:
                 state, step = restored
+            # a fresh step, as the reference builds a fresh executable
+            step_fn = make_train_step(cfg, hp, dist)
             continue
-        state, metrics = train_step(cfg, hp, dist, state, get_batch(step))
+        state, metrics = step_fn(state, get_batch(step))
         sync()
         elapsed = time.perf_counter() - t0
         if watchdog is not None:

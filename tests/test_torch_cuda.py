@@ -5,6 +5,7 @@ so that it runs where only the port is installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 import dataclasses
+import importlib
 
 import numpy as np
 import pytest
@@ -805,7 +806,7 @@ EP_TRAIN_TOL = 0.05
 
 def _ep_train_setup(device, mode, wire):
     from repro_torch.configs import get_config, reduced_config
-    from repro_torch.training import train_loop as T
+    T = importlib.import_module("repro_torch.training.train_loop")
     cfg = reduced_config(get_config("qwen2_moe_a2_7b"), n_layers=2,
                          d_model=128, vocab=512)
     cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
@@ -830,7 +831,7 @@ def test_cuda_train_ep_mesh_local(cuda_device, mode, wire):
     from repro_torch.distributed.sharding import make_dist_ctx
     from repro_torch.models import model_zoo as Z
     from repro_torch.optim import adamw
-    from repro_torch.training import train_loop as T
+    T = importlib.import_module("repro_torch.training.train_loop")
     cfg, cpu_state, hp = _ep_train_setup(cuda_device, mode, wire)
     dist = make_dist_ctx(cfg, model=2)
     batch = synth_batch(DataConfig(vocab_size=cfg.vocab_size, batch=2,

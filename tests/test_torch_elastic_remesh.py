@@ -13,6 +13,7 @@ against the port's at EP 4 then EP 2 from the same parameters, and both
 sides' losses at the two degrees on one state; and a checkpoint round trip
 across the re-mesh, bit for bit.  Everything in fp32."""
 import dataclasses
+import importlib
 import textwrap
 
 import numpy as np
@@ -36,7 +37,8 @@ from repro_torch.distributed.sharding import (ep_split_leaves,  # noqa: E402
                                               make_dist_ctx)
 from repro_torch.models import model_zoo as Z  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
-from repro_torch.training import train_loop as T  # noqa: E402
+# the module: the package's name train_loop is the function
+T = importlib.import_module("repro_torch.training.train_loop")  # noqa: E402
 
 pytestmark = pytest.mark.timeout(300)
 

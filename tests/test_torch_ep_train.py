@@ -14,6 +14,7 @@ over EP worlds model = 2 and (pod 2, model 2), and three ``train_loop``
 steps over model = 2, against the reference in ONE subprocess with 4 fake
 CPU devices.  Everything in fp32."""
 import dataclasses
+import importlib
 import textwrap
 
 import numpy as np
@@ -39,7 +40,8 @@ from repro_torch.kernels import grouped_matmul as gm  # noqa: E402
 from repro_torch.kernels import quantize_pack as qp  # noqa: E402
 from repro_torch.models import model_zoo as Z  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
-from repro_torch.training import train_loop as T  # noqa: E402
+# the module: the package's name train_loop is the function
+T = importlib.import_module("repro_torch.training.train_loop")  # noqa: E402
 
 E, C, D, F = 4, 12, 40, 24
 # fp32 on both sides, sums in other orders: each gradient within this

@@ -51,11 +51,34 @@ def test_make_world_plan_equals_stacked_plans(seed):
     ref = np_plan.make_world_plan(tabs, G, cap)
     np.testing.assert_array_equal(got.counts.numpy(), ref.counts)
     np.testing.assert_array_equal(got.keep.numpy(), ref.keep)
+    # a rank's own drop count, as the rank-stacked EP layers take it
+    per_rank = (got.valid & ~got.keep).reshape(R, -1).sum(1)
     for r in range(R):
         one = np_plan.make_plan(tabs[r], G, cap)
         np.testing.assert_array_equal(np.where(one.valid, got.rank[r].numpy(), 0),
                                       np.where(one.valid, one.rank, 0))
-        assert int(got.n_dropped[r]) == int(one.n_dropped)
+        assert int(per_rank[r]) == int(one.n_dropped)
+
+
+@pytest.mark.parametrize("seed,cap", [(0, 4), (1, 4), (0, 60)])
+def test_make_world_plan_equals_the_reference(seed, cap):
+    """Every field of the reference's ``WorldPlan``, the world's scalar
+    ``n_dropped`` included; capacity 60 holds every choice (no drops)."""
+    R, T, K, G = 3, 20, 3, 8
+    tabs = np.stack([_table(seed * 10 + r, T, K, G) for r in range(R)])
+    got = tplan.make_world_plan(_t(tabs), G, cap)
+    ref = np_plan.make_world_plan(tabs, G, cap)
+    assert isinstance(got, tplan.WorldPlan)
+    assert got._fields == ref._fields
+    for name in ("rank", "counts", "valid", "keep"):
+        r, g = getattr(ref, name), getattr(got, name).numpy()
+        assert g.shape == r.shape, name
+        if name == "rank":        # rank is only meaningful for valid rows
+            r, g = np.where(ref.valid, r, 0), np.where(ref.valid, g, 0)
+        np.testing.assert_array_equal(g, r, err_msg=name)
+    assert got.n_dropped.dim() == 0 and np.ndim(ref.n_dropped) == 0
+    assert int(got.n_dropped) == int(ref.n_dropped)
+    assert (int(ref.n_dropped) == 0) == (cap == 60)
 
 
 @pytest.mark.parametrize("seed,T,K,G,cap", [(0, 40, 4, 4, 9), (1, 33, 3, 2, 30),

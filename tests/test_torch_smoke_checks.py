@@ -803,3 +803,40 @@ def test_examples_and_their_kernels():
         assert all(n in ops.KERNELS and n in chip_smoke.KERNEL_INFO
                    for n in names)
     assert set(chip_smoke.EXAMPLE_ARGS) <= set(chip_smoke.EXAMPLE_KERNELS)
+
+
+def test_elastic_example_summary_holds_the_reference_counts():
+    """examples: elastic_restart's summary reports its step counts and
+    raises unless they are 60, 120 and the restored step 60."""
+    from repro_torch.distributed.elastic import ElasticPlan
+    plan = ElasticPlan((4,), (2,), ("model",), 4, 2, [])
+    hist = [{"loss": 1.0}]
+    res = {"plan": plan, "restored_step": 60, "hist1": hist * 60,
+           "hist2": hist * 120}
+    got = chip_smoke.example_summary("elastic_restart", res)
+    assert got["steps"] == [60, 120] and got["restored_step"] == 60
+    for bad in ({"hist2": hist * 60}, {"hist1": hist * 59},
+                {"restored_step": 30}):
+        with pytest.raises(AssertionError, match="elastic_restart ran"):
+            chip_smoke.example_summary("elastic_restart", {**res, **bad})
+
+
+def test_surface_phase_on_the_cpu():
+    """surface: every package name imports, and make_world_plan is
+    recorded once a dispatch at the four (shape, routing) cases and held
+    to itself on the CPU (on the card: the card's plan to the CPU's); the
+    skewed HT table drops."""
+    line = chip_smoke.surface_phase(torch.device("cpu"))
+    assert line["exported"] == {"core": 25, "optim": 5, "training": 7,
+                                "data": 4, "distributed": 2}
+    wp = line["make_world_plan"]
+    assert set(wp) == {"ll", "ll_skewed", "ht", "ht_skewed"}
+    B, S, P = (chip_smoke.SURFACE_BATCH, chip_smoke.SURFACE_PROMPT,
+               chip_smoke.SURFACE_EP)
+    assert wp["ll"]["table"] == [P, B, 4]         # decode: every rank, B rows
+    assert wp["ht"]["n_groups"] == 64 // P        # a rank's experts
+    assert all(v["bit_for_bit"] for v in wp.values())
+    assert wp["ht_skewed"]["n_dropped"] > 0
+    assert wp["ht_skewed"]["kept"] + wp["ht_skewed"]["n_dropped"] == (
+        wp["ht_skewed"]["valid"])
+    assert S * B // P * 4 <= wp["ht"]["valid"]

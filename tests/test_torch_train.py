@@ -16,6 +16,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
+import repro.configs as jcfgs  # noqa: E402
 from repro.configs import get_config as jget_config  # noqa: E402
 from repro.configs import reduced_config as jreduced  # noqa: E402
 from repro.data import pipeline as jdata  # noqa: E402
@@ -24,6 +25,7 @@ from repro.optim import adamw as jadamw  # noqa: E402
 from repro.optim.schedule import cosine_with_warmup as jcosine  # noqa: E402
 JT = importlib.import_module("repro.training.train_loop")  # noqa: E402
 from repro_torch.checkpoint import Checkpointer  # noqa: E402
+import repro_torch.configs as cfgs  # noqa: E402
 from repro_torch.configs import get_config, reduced_config  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.data import pipeline as tdata  # noqa: E402
@@ -33,7 +35,8 @@ from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models import model_zoo as Z  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.optim.schedule import cosine_with_warmup  # noqa: E402
-from repro_torch.training import train_loop as T  # noqa: E402
+# the module: the package's name train_loop is the function
+T = importlib.import_module("repro_torch.training.train_loop")  # noqa: E402
 
 ARCHS = ["falcon_mamba_7b", "jamba_1_5_large_398b", "qwen2_moe_a2_7b",
          "qwen3_4b", "qwen3_1_7b"]
@@ -247,6 +250,24 @@ def test_synth_batch_bit_for_bit(prefix):
                                   jdata.synth_batch(jdc, 2)["tokens"])
 
 
+@pytest.mark.parametrize("arch", list(jcfgs.ARCH_IDS))
+def test_make_data_config_matches_the_reference(arch):
+    """Every shape cell of the arch, and explicit batch / seq overrides:
+    the same DataConfig field by field (a frontend prefix comes out of the
+    sequence)."""
+    jcfg, cfg = jget_config(arch), get_config(arch)
+    assert cfgs.cells_for(cfg) == jcfgs.cells_for(jcfg)
+    for name in cfgs.cells_for(cfg):
+        cell, jcell = cfgs.SHAPES[name], jcfgs.SHAPES[name]
+        for kw in (dict(), dict(batch=3, seq=1100, seed=7)):
+            got = tdata.make_data_config(cfg, cell, **kw)
+            ref = jdata.make_data_config(jcfg, jcell, **kw)
+            assert isinstance(got, tdata.DataConfig)
+            assert dataclasses.asdict(got) == dataclasses.asdict(ref)
+            assert got.seq_len + got.prefix_len == kw.get("seq",
+                                                          cell.seq_len)
+
+
 # ---------------------------------------------------------- train loop --
 @pytest.mark.parametrize("arch", ["falcon_mamba_7b", "jamba_1_5_large_398b"])
 def test_train_loop_matches_jax(arch):
@@ -327,6 +348,31 @@ def test_train_loop_with_prefix_matches_jax(arch):
 
 def _small_cfg(arch="falcon_mamba_7b"):
     return reduced_config(get_config(arch), n_layers=2, d_model=32, vocab=256)
+
+
+@pytest.mark.parametrize("arch", ["falcon_mamba_7b", "qwen2_moe_a2_7b"])
+def test_make_train_step_is_train_step(arch):
+    """The bound step gives the same loss, metrics and parameters, bit for
+    bit, as ``train_step`` from the same state and batch."""
+    cfg = _small_cfg(arch)
+    hp = T.HParams(peak_lr=1e-3, total_steps=4, warmup=1, loss_chunk=16)
+    batch = tdata.synth_batch(tdata.DataConfig(
+        vocab_size=cfg.vocab_size, batch=2, seq_len=16, seed=4), 0)
+    a = T.init_state(cfg, seed=1, device="cpu")
+    b = T.init_state(cfg, seed=1, device="cpu")
+    step = T.make_train_step(cfg, hp, None)
+    for _ in range(2):
+        a, ma = step(a, batch)
+        b, mb = T.train_step(cfg, hp, None, b, batch)
+        assert set(ma) == set(mb)
+        for k in ma:
+            assert torch.equal(torch.as_tensor(ma[k]),
+                               torch.as_tensor(mb[k])), k
+    la, lb = adamw.tree_leaves(a.params), adamw.tree_leaves(b.params)
+    assert len(la) == len(lb) > 0
+    for i, (x, y) in enumerate(zip(la, lb)):
+        assert torch.equal(x, y), i
+    assert int(a.opt.step) == int(b.opt.step) == 2
 
 
 def test_training_refuses_what_is_not_ported():
