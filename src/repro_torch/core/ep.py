@@ -34,6 +34,12 @@ Per-rank statistics (``dropped``, ``occupancy``) come back as ``(R,)``
 tensors; ``load_phys`` (the psum'd load of each physical slot) is one
 ``(n_physical,)`` tensor.  The reference's ``NEG`` (an int32 -1 for the
 pad of a routing table, as a jnp constant) is the literal -1 here.
+
+Spans (``repro_torch.tracing``) cut both modes into ``ep.plan`` (the world
+plan, slots and counts; HT's dedup'd group plans), ``ep.dispatch`` (the
+payload gather, the wire's quantize and dequantize, the all-to-alls of
+tokens, ids, weights and counts), ``ep.experts`` and ``ep.combine`` (the
+return all-to-all and the weighted combine), never one inside another.
 """
 from __future__ import annotations
 
@@ -43,6 +49,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import plan as planlib
 from repro_torch.core.transport.codec import WIRE_QDTYPE
 from repro_torch.kernels import ops as kops
@@ -193,9 +200,6 @@ def dispatch_combine_ll(spec: EPSpec, x: Tensor, top_idx: Tensor,
     """
     R, T, D = x.shape
     K = spec.top_k
-    pl_obj = spec.placement_obj()
-    if pl_obj is not None:
-        top_idx = planlib.split_to_physical_world(pl_obj, top_idx)
     E, P, eps = spec.n_physical, spec.degree, spec.physical_per_shard
     if R != P:
         raise ValueError(f"{R} ranks stacked for an EP world of {P}")
@@ -203,49 +207,63 @@ def dispatch_combine_ll(spec: EPSpec, x: Tensor, top_idx: Tensor,
     # hard_max is T*K, not T: a table may send a token to one expert twice
     C = _cap(T * K / E, spec.capacity_factor, hard_max=T * K)
 
-    pl = planlib.make_world_plan(top_idx, E, C)
-    flat_e = top_idx.reshape(R, T * K)
-    rank, keep = pl.rank.reshape(R, T * K), pl.keep.reshape(R, T * K)
-    valid = pl.valid.reshape(R, T * K)
-    slot = planlib.flat_slots(flat_e, rank, keep, C, E).to(torch.int64)
+    with tracing.span("ep.plan"):
+        pl_obj = spec.placement_obj()
+        if pl_obj is not None:
+            top_idx = planlib.split_to_physical_world(pl_obj, top_idx)
+        pl = planlib.make_world_plan(top_idx, E, C)
+        flat_e = top_idx.reshape(R, T * K)
+        rank, keep = pl.rank.reshape(R, T * K), pl.keep.reshape(R, T * K)
+        valid = pl.valid.reshape(R, T * K)
+        slot = planlib.flat_slots(flat_e, rank, keep, C, E).to(torch.int64)
 
-    # index-indirection packing: scatter row ids, gather payloads once
-    rows = (torch.arange(T * K, device=dev) // K).expand(R, T * K)
-    src_of_slot = torch.full((R, E * C + 1), T, dtype=torch.int64,
-                             device=dev).scatter_(1, slot, rows)[:, :-1]
-    src = _shared_scratch_rows(src_of_slot, T)                  # (R, E*C)
-    cnt = torch.clamp(pl.counts, max=C)                         # (R, E)
-    if spec.wire_dtype == "fp32":
-        send = _ext(x, spec.dtype)[src].reshape(R, P, eps * C, D)
-        recv = _all_to_all(spec, send, spec.flat_axis())
-    else:
-        # quantize from the full-precision source, dequantize to fp32
-        deq = _quantized_a2a(spec, _ext(x, torch.float32), src.reshape(-1),
-                             cnt.reshape(-1), spec.flat_axis(), P)
-        recv = deq.to(spec.dtype).reshape(R, P, eps * C, D)
-    # (dest, src, eps, C, D) -> (dest, eps, src, C, D) = (E, P*C, D)
-    recv = recv.reshape(R, P, eps, C, D).transpose(1, 2).reshape(E, P * C, D)
+        # index-indirection packing: scatter row ids, gather payloads once
+        rows = (torch.arange(T * K, device=dev) // K).expand(R, T * K)
+        src_of_slot = torch.full((R, E * C + 1), T, dtype=torch.int64,
+                                 device=dev).scatter_(1, slot, rows)[:, :-1]
+        src = _shared_scratch_rows(src_of_slot, T)              # (R, E*C)
+        cnt = torch.clamp(pl.counts, max=C)                     # (R, E)
+    with tracing.span("ep.dispatch"):
+        if spec.wire_dtype == "fp32":
+            send = _ext(x, spec.dtype)[src].reshape(R, P, eps * C, D)
+            recv = _all_to_all(spec, send, spec.flat_axis())
+        else:
+            # quantize from the full-precision source, dequantize to fp32
+            deq = _quantized_a2a(spec, _ext(x, torch.float32),
+                                 src.reshape(-1), cnt.reshape(-1),
+                                 spec.flat_axis(), P)
+            recv = deq.to(spec.dtype).reshape(R, P, eps * C, D)
+        # (dest, src, eps, C, D) -> (dest, eps, src, C, D) = (E, P*C, D)
+        recv = recv.reshape(R, P, eps, C, D).transpose(1, 2).reshape(
+            E, P * C, D)
 
-    # occupancy exchange: per-(dest expert) occupied counts ride along so
-    # the expert kernel skips the capacity padding; layout (E, P sources)
-    cnt_recv = _all_to_all(spec, cnt.reshape(R, P, eps), spec.flat_axis())
-    out_e = planlib.call_expert_fn(
-        expert_fn, recv, cnt_recv.transpose(1, 2).reshape(E, P))
+        # occupancy exchange: per-(dest expert) occupied counts ride along
+        # so the expert kernel skips the capacity padding; layout (E, P
+        # sources)
+        cnt_recv = _all_to_all(spec, cnt.reshape(R, P, eps),
+                               spec.flat_axis())
+    with tracing.span("ep.experts"):
+        out_e = planlib.call_expert_fn(
+            expert_fn, recv, cnt_recv.transpose(1, 2).reshape(E, P))
 
-    back = out_e.reshape(R, eps, P, C, D).transpose(1, 2).reshape(
-        R, P, eps * C, D)
-    back = _all_to_all(spec, back, spec.flat_axis()).reshape(R, E * C, D)
+    with tracing.span("ep.combine"):
+        back = out_e.reshape(R, eps, P, C, D).transpose(1, 2).reshape(
+            R, P, eps * C, D)
+        back = _all_to_all(spec, back, spec.flat_axis()).reshape(
+            R, E * C, D)
 
-    # combine: each kept choice gathers its slot's row, weighted in fp32,
-    # and a token sums its K choices in one fixed order (dropped choices
-    # add 0).  No atomics: eager steps and a captured step's replays give
-    # the same bits, where index_add_ on the card adds in any order
-    w_flat = torch.where(keep, top_w.reshape(R, T * K).to(torch.float32), 0.0)
-    sel = torch.where(keep, flat_e * C + rank, 0).to(torch.int64)
-    contrib = torch.gather(back, 1, sel[..., None].expand(R, T * K, D))
-    contrib = torch.where(keep[..., None],
-                          contrib.to(torch.float32) * w_flat[..., None], 0.0)
-    out = contrib.reshape(R, T, K, D).sum(2)
+        # combine: each kept choice gathers its slot's row, weighted in
+        # fp32, and a token sums its K choices in one fixed order (dropped
+        # choices add 0).  No atomics: eager steps and a captured step's
+        # replays give the same bits, where index_add_ on the card adds in
+        # any order
+        w_flat = torch.where(keep, top_w.reshape(R, T * K).to(torch.float32),
+                             0.0)
+        sel = torch.where(keep, flat_e * C + rank, 0).to(torch.int64)
+        contrib = torch.gather(back, 1, sel[..., None].expand(R, T * K, D))
+        contrib = torch.where(keep[..., None], contrib.to(torch.float32)
+                              * w_flat[..., None], 0.0)
+        out = contrib.reshape(R, T, K, D).sum(2)
 
     dropped = (valid & ~keep).sum(1) / torch.clamp(valid.sum(1), min=1)
     occupancy = cnt.sum(1) / (E * C)
@@ -391,7 +409,8 @@ def dispatch_combine_ht(spec: EPSpec, x: Tensor, top_idx: Tensor,
     pl_obj = spec.placement_obj()
     if pl_obj is not None:
         # one replica split for the whole table, not one a chunk
-        top_idx = planlib.split_to_physical_world(pl_obj, top_idx)
+        with tracing.span("ep.plan"):
+            top_idx = planlib.split_to_physical_world(pl_obj, top_idx)
     n_chunks = planlib.effective_chunks(T, spec.chunks)
     Tc = T // n_chunks
     outs, occs = [], []
@@ -427,59 +446,74 @@ def _ht_one_chunk(spec: EPSpec, x: Tensor, top_idx: Tensor, top_w: Tensor,
         # one level: the groups are the EP ranks themselves
         P = spec.degree
         axis = spec.axes[0]
-        group_of = torch.where(valid, top_idx // eps, -1)
-        eid_local = torch.where(valid, top_idx % eps, -1)
         frac = 1.0 - (1.0 - 1.0 / P) ** K
         C = _cap(T * frac, cf, hard_max=T)
-        plan = _dedup_group_dispatch(eid_local, top_w, group_of, P, C)
-        rx = _wire_dispatch_a2a(spec, x, plan, axis, P, C)
-        re = _all_to_all(spec, plan.send_eid, axis)
-        rw = _all_to_all(spec, plan.send_w, axis)
-        part, d2, occ = _expert_apply(spec, rx.reshape(R, P * C, D),
-                                      re.reshape(R, P * C, K),
-                                      rw.reshape(R, P * C, K),
-                                      expert_fn, cf, n_tokens_hint=T)
-        ret = _all_to_all(spec, part.reshape(R, P, C, D).to(spec.dtype), axis)
-        out = _combine_scatter(plan, ret, T)
+        with tracing.span("ep.plan"):
+            group_of = torch.where(valid, top_idx // eps, -1)
+            eid_local = torch.where(valid, top_idx % eps, -1)
+            plan = _dedup_group_dispatch(eid_local, top_w, group_of, P, C)
+        with tracing.span("ep.dispatch"):
+            rx = _wire_dispatch_a2a(spec, x, plan, axis, P, C)
+            re = _all_to_all(spec, plan.send_eid, axis)
+            rw = _all_to_all(spec, plan.send_w, axis)
+        with tracing.span("ep.experts"):
+            part, d2, occ = _expert_apply(spec, rx.reshape(R, P * C, D),
+                                          re.reshape(R, P * C, K),
+                                          rw.reshape(R, P * C, K),
+                                          expert_fn, cf, n_tokens_hint=T)
+        with tracing.span("ep.combine"):
+            ret = _all_to_all(spec, part.reshape(R, P, C, D).to(spec.dtype),
+                              axis)
+            out = _combine_scatter(plan, ret, T)
         return out, plan.dropped + d2, occ
 
     # ---- two levels: outer = pod (RDMA domain), inner = model (NVLink) ----
     ax_o, ax_i = spec.axes
     Po, Pi = spec.sizes
     e_per_pod = E // Po
-    pod_of = torch.where(valid, top_idx // e_per_pod, -1)
-    eid_in_pod = torch.where(valid, top_idx % e_per_pod, -1)
     frac_o = 1.0 - (1.0 - 1.0 / Po) ** K
     C1 = _cap(T * frac_o, cf, hard_max=T)
-    plan1 = _dedup_group_dispatch(eid_in_pod, top_w, pod_of, Po, C1)
+    with tracing.span("ep.plan"):
+        pod_of = torch.where(valid, top_idx // e_per_pod, -1)
+        eid_in_pod = torch.where(valid, top_idx % e_per_pod, -1)
+        plan1 = _dedup_group_dispatch(eid_in_pod, top_w, pod_of, Po, C1)
     # inter-pod all-to-all (same rail: inner index unchanged), tokens once
-    rx = _wire_dispatch_a2a(spec, x, plan1, ax_o, Po, C1)
-    re = _all_to_all(spec, plan1.send_eid, ax_o)
-    rw = _all_to_all(spec, plan1.send_w, ax_o)
+    with tracing.span("ep.dispatch"):
+        rx = _wire_dispatch_a2a(spec, x, plan1, ax_o, Po, C1)
+        re = _all_to_all(spec, plan1.send_eid, ax_o)
+        rw = _all_to_all(spec, plan1.send_w, ax_o)
     N2 = Po * C1
     x2 = rx.reshape(R, N2, D)
     e2 = re.reshape(R, N2, K)                 # expert ids within my pod
     w2 = rw.reshape(R, N2, K)
     # intra-pod forwarding: group by inner rank
-    v2 = e2 >= 0
-    grp2 = torch.where(v2, e2 // eps, -1)
-    eid2 = torch.where(v2, e2 % eps, -1)
     frac_i = 1.0 - (1.0 - 1.0 / Pi) ** K
     C2 = _cap(N2 * frac_i, cf, hard_max=N2)
-    plan2 = _dedup_group_dispatch(eid2, w2, grp2, Pi, C2)
-    rx2 = _wire_dispatch_a2a(spec, x2, plan2, ax_i, Pi, C2)
-    re2 = _all_to_all(spec, plan2.send_eid, ax_i)
-    rw2 = _all_to_all(spec, plan2.send_w, ax_i)
-    part, d3, occ = _expert_apply(spec, rx2.reshape(R, Pi * C2, D),
-                                  re2.reshape(R, Pi * C2, K),
-                                  rw2.reshape(R, Pi * C2, K),
-                                  expert_fn, cf, n_tokens_hint=T)
-    # hierarchical combine A: partials return intra-pod, reduce per (t, pod)
-    ret2 = _all_to_all(spec, part.reshape(R, Pi, C2, D).to(spec.dtype), ax_i)
-    red2 = _combine_scatter(plan2, ret2, N2)
-    # hierarchical combine B: one vector per (token, pod) crosses pods back
-    ret1 = _all_to_all(spec, red2.reshape(R, Po, C1, D).to(spec.dtype), ax_o)
-    out = _combine_scatter(plan1, ret1, T)
+    with tracing.span("ep.plan"):
+        v2 = e2 >= 0
+        grp2 = torch.where(v2, e2 // eps, -1)
+        eid2 = torch.where(v2, e2 % eps, -1)
+        plan2 = _dedup_group_dispatch(eid2, w2, grp2, Pi, C2)
+    with tracing.span("ep.dispatch"):
+        rx2 = _wire_dispatch_a2a(spec, x2, plan2, ax_i, Pi, C2)
+        re2 = _all_to_all(spec, plan2.send_eid, ax_i)
+        rw2 = _all_to_all(spec, plan2.send_w, ax_i)
+    with tracing.span("ep.experts"):
+        part, d3, occ = _expert_apply(spec, rx2.reshape(R, Pi * C2, D),
+                                      re2.reshape(R, Pi * C2, K),
+                                      rw2.reshape(R, Pi * C2, K),
+                                      expert_fn, cf, n_tokens_hint=T)
+    with tracing.span("ep.combine"):
+        # hierarchical combine A: partials return intra-pod, reduce per
+        # (t, pod)
+        ret2 = _all_to_all(spec, part.reshape(R, Pi, C2, D).to(spec.dtype),
+                           ax_i)
+        red2 = _combine_scatter(plan2, ret2, N2)
+        # hierarchical combine B: one vector per (token, pod) crosses pods
+        # back
+        ret1 = _all_to_all(spec, red2.reshape(R, Po, C1, D).to(spec.dtype),
+                           ax_o)
+        out = _combine_scatter(plan1, ret1, T)
     return out, plan1.dropped + plan2.dropped + d3, occ
 
 

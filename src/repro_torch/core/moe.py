@@ -9,7 +9,8 @@ without one (``dist=None`` or ``mode="ref"``) it runs the dense oracle
 :func:`~repro_torch.core.ep.moe_ref`, as the JAX package does without a
 mesh.  A host backend (``jit_compatible`` False: ``simulated_rdma``) takes
 :func:`_moe_host_sim` first, whatever ``dist`` is, as the reference's
-does.
+does.  The spans ``moe.route`` and ``moe.shared`` (``repro_torch.tracing``)
+time the router and the shared expert.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig, _round_up
 from repro_torch.core import plan as planlib
 from repro_torch.core.backend import get_backend
@@ -110,7 +112,8 @@ def moe_apply(cfg: ModelConfig, dist: Optional[DistCtx], p: dict, x: Tensor,
         y, aux = _moe_host_sim(cfg, dist, rparams, p, x, mode, ep_be)
     elif dist is None or not dist.ep_axes or mode == "ref":
         t = x.reshape(-1, D)
-        rout = route(mcfg, rparams, t, mcfg.n_experts)
+        with tracing.span("moe.route"):
+            rout = route(mcfg, rparams, t, mcfg.n_experts)
         y = moe_ref(t, rout.top_idx, rout.top_w, p["w_gate"], p["w_up"],
                     p["w_down"]).reshape(B, S, D)
         load = planlib.expert_load(rout.top_idx, e_pad)
@@ -123,7 +126,8 @@ def moe_apply(cfg: ModelConfig, dist: Optional[DistCtx], p: dict, x: Tensor,
         y, aux = _moe_dist(cfg, dist, rparams, p, x, mode, chunks, ep_be)
 
     if mcfg.d_shared and "shared" in p:
-        y = y + swiglu(p["shared"], x)
+        with tracing.span("moe.shared"):
+            y = y + swiglu(p["shared"], x)
     return y, aux
 
 
@@ -162,7 +166,8 @@ def _moe_host_sim(cfg: ModelConfig, dist: Optional[DistCtx],
     B, S, D = x.shape
     mcfg = cfg.moe
     t = x.reshape(-1, D)
-    rout = route(mcfg, rparams, t, mcfg.n_experts)
+    with tracing.span("moe.route"):
+        rout = route(mcfg, rparams, t, mcfg.n_experts)
     e_pad = p["w_gate"].shape[0]
     if dist is not None and dist.ep_axes:
         spec = make_ep_spec(cfg, dist, mode=mode, dtype=x.dtype)
@@ -237,7 +242,8 @@ def _moe_dist(cfg: ModelConfig, dist: DistCtx, rparams: RouterParams,
     mcfg = cfg.moe
     spec = make_ep_spec(cfg, dist, mode=mode, chunks=chunks, dtype=x.dtype)
     t = to_ranks(dist, x)
-    rout = route(mcfg, rparams, t, mcfg.n_experts)
+    with tracing.span("moe.route"):
+        rout = route(mcfg, rparams, t, mcfg.n_experts)
     fn = expert_fn(p["w_gate"], p["w_up"], p["w_down"])
     res = ep_backend.dispatch_combine(spec, t, rout.top_idx, rout.top_w, fn)
     # means over every rank, replicas included, as the reference's psums

@@ -79,11 +79,14 @@ class CapturedStep:
 
     def __call__(self, tok, t):
         import torch
+
+        from repro_torch import tracing
         # the static buffers are inference tensors: written under its mode
-        with torch.inference_mode():
+        with tracing.span("serve.step"), torch.inference_mode():
             self.tok_s.copy_(tok)
             self.pos_s.fill_(t)
-            self.graph.replay()
+            with tracing.span("serve.graph_launch"):
+                self.graph.replay()
             self.replays += 1
             return self.logits_s.clone(), {k: v.clone()
                                            for k, v in self.aux_s.items()}
@@ -103,11 +106,18 @@ def capture_decode_step(cfg, params, cache, tokens, *, dist=None):
     place after the capture (``model_zoo.reset_cache``), as
     ``init_cache`` made it.
 
+    The capture runs under ``tracing.suspended()``, so the spans of the
+    step add no node to the graph; the graph is kept until it has been
+    counted (the gauges ``serve.graph_nodes``, the total, and
+    ``serve.graph_nodes.<kind>``, ``tracing.graph_nodes``), then
+    instantiated.
+
     Returns ``(step, captured)``: ``step`` a :class:`CapturedStep`,
     ``captured`` the launches one replay makes of each kernel.  A capture
     that fails raises."""
     import torch
 
+    from repro_torch import tracing
     from repro_torch.kernels import ops
     from repro_torch.models import model_zoo as Z
 
@@ -125,19 +135,25 @@ def capture_decode_step(cfg, params, cache, tokens, *, dist=None):
     # cudaMalloc its activations anew (TTFT)
     side = torch.cuda.Stream(dev)
     side.wait_stream(torch.cuda.current_stream(dev))
-    graph = torch.cuda.CUDAGraph()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.stream(side):
         for _ in range(WARMUP_STEPS):
             run()
         side.synchronize()
         before = ops.launch_counts()
-        graph.capture_begin()
-        try:
-            logits_s, aux_s = run()
-        finally:
-            graph.capture_end()
+        with tracing.suspended():
+            graph.capture_begin()
+            try:
+                logits_s, aux_s = run()
+            finally:
+                graph.capture_end()
         Z.reset_cache(cache)
     torch.cuda.current_stream(dev).wait_stream(side)
+    nodes = tracing.graph_nodes(graph.raw_cuda_graph())
+    tracing.gauge("serve.graph_nodes", nodes.pop("total"))
+    for kind, n in nodes.items():
+        tracing.gauge(f"serve.graph_nodes.{kind}", n)
+    graph.instantiate()
     captured = {n: c - before[n] for n, c in ops.launch_counts().items()}
     return CapturedStep(graph, tok_s, pos_s, logits_s, aux_s), captured
 

@@ -20,6 +20,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.routing import RouterParams, update_aux_free_bias
 from repro_torch.distributed.sharding import DistCtx
@@ -96,37 +97,44 @@ def train_step(cfg: ModelConfig, hp: HParams, dist: Optional[DistCtx],
     router-bias update.  ``batch``: tokens (B, S) and labels (B, S), and
     for a model with a frontend prefix (B, P, D) embeddings ``prefix``, as
     numpy arrays or tensors.  The parameters and the optimizer moments are
-    updated in place."""
-    params = state.params
-    b = _batch_to(batch, params["embed"].device)
-    leaves = adamw.tree_leaves(params)
-    for p in leaves:
-        p.grad = None
-    loss, metrics = Z.loss_fn(cfg, params, b["tokens"], b["labels"],
-                              b["prefix"], dist=dist, moe_mode=hp.moe_mode,
-                              moe_chunks=hp.moe_chunks,
-                              causal_skip=hp.causal_skip,
-                              loss_chunk=hp.loss_chunk)
-    loss.backward()
-    # a parameter outside the graph (the routers' selection-only bias) has
-    # a zero gradient, as under jax.grad
-    grads = adamw.tree_map(lambda p: p.grad if p.grad is not None
-                           else torch.zeros_like(p), params)
-    lr = cosine_with_warmup(state.opt.step, peak_lr=hp.peak_lr,
-                            warmup=hp.warmup, total=hp.total_steps)
-    params, opt, om = adamw.apply_updates(
-        params, grads, state.opt, lr=lr, b1=hp.b1, b2=hp.b2,
-        weight_decay=hp.weight_decay,
-        factored=(cfg.optimizer == "adafactor"),
-        max_grad_norm=hp.max_grad_norm)
-    del grads
-    for p in leaves:
-        p.grad = None
-    params = _update_router_biases(cfg, params, metrics.pop("loads"),
-                                   hp.router_bias_lr)
-    out = {"loss": loss.detach(), "lr": lr, **om,
-           **{k: v.detach() for k, v in metrics.items()}}
-    return TrainState(params, opt), out
+    updated in place.  The spans ``train.step`` and, inside it,
+    ``train.forward``, ``train.backward``, ``train.optimizer`` (clipping
+    included) and ``train.router_bias`` time its phases
+    (``repro_torch.tracing``)."""
+    with tracing.span("train.step"):
+        params = state.params
+        b = _batch_to(batch, params["embed"].device)
+        leaves = adamw.tree_leaves(params)
+        for p in leaves:
+            p.grad = None
+        with tracing.span("train.forward"):
+            loss, metrics = Z.loss_fn(
+                cfg, params, b["tokens"], b["labels"], b["prefix"],
+                dist=dist, moe_mode=hp.moe_mode, moe_chunks=hp.moe_chunks,
+                causal_skip=hp.causal_skip, loss_chunk=hp.loss_chunk)
+        with tracing.span("train.backward"):
+            loss.backward()
+        with tracing.span("train.optimizer"):
+            # a parameter outside the graph (the routers' selection-only
+            # bias) has a zero gradient, as under jax.grad
+            grads = adamw.tree_map(lambda p: p.grad if p.grad is not None
+                                   else torch.zeros_like(p), params)
+            lr = cosine_with_warmup(state.opt.step, peak_lr=hp.peak_lr,
+                                    warmup=hp.warmup, total=hp.total_steps)
+            params, opt, om = adamw.apply_updates(
+                params, grads, state.opt, lr=lr, b1=hp.b1, b2=hp.b2,
+                weight_decay=hp.weight_decay,
+                factored=(cfg.optimizer == "adafactor"),
+                max_grad_norm=hp.max_grad_norm)
+            del grads
+            for p in leaves:
+                p.grad = None
+        with tracing.span("train.router_bias"):
+            params = _update_router_biases(cfg, params, metrics.pop("loads"),
+                                           hp.router_bias_lr)
+        out = {"loss": loss.detach(), "lr": lr, **om,
+               **{k: v.detach() for k, v in metrics.items()}}
+        return TrainState(params, opt), out
 
 
 def make_train_step(cfg: ModelConfig, hp: HParams,

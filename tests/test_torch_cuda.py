@@ -2096,3 +2096,145 @@ def test_cuda_serving_engine_launch_path(cuda_device, over):
     for a, b in zip(cpu[1], card[1]):
         assert np.isfinite(b).all()
         assert np.abs(a - b).max() <= 2e-2 * np.abs(a).max()
+
+
+# ---- repro_torch.tracing on the card ---------------------------------------
+@pytest.mark.cuda
+def test_cuda_tracing_span_device_interval_matches_events(cuda_device,
+                                                          monkeypatch):
+    """A span's device interval around a run of matmuls agrees with CUDA
+    events recorded around the span, within 10%."""
+    from repro_torch import tracing
+    monkeypatch.setattr(tracing, "SAMPLE", 1)      # time every span
+    tracing.reset()
+    a = torch.randn(4096, 4096, device=cuda_device, dtype=torch.bfloat16)
+    for _ in range(3):
+        a @ a
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    with tracing.span("tracing.matmul"):
+        for _ in range(50):
+            a @ a
+    e1.record()
+    torch.cuda.synchronize()
+    ref = e0.elapsed_time(e1)
+    got = tracing.snapshot()["spans"]["tracing.matmul"]["unprofiled"]
+    tracing.reset()
+    assert got["count"] == got["device_count"] == 1
+    assert abs(got["device_ms"] - ref) <= 0.1 * ref, (got, ref)
+
+
+@pytest.mark.cuda
+def test_cuda_tracing_capture_adds_no_node(cuda_device):
+    """Code that opens spans, captured under ``tracing.suspended()``,
+    gives a graph of as many nodes, of each kind, as the same code without
+    spans, and records nothing."""
+    import contextlib
+
+    from repro_torch import tracing
+    x = torch.randn(256, 256, device=cuda_device)
+
+    def body(traced):
+        sp = tracing.span if traced else (
+            lambda name: contextlib.nullcontext())
+        with sp("tracing.outer"):
+            y = x @ x
+            with sp("tracing.inner"):
+                y = y + 1
+            return y.sum()
+    nodes = []
+    for traced in (False, True):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            body(traced)
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        tracing.reset()
+        g = torch.cuda.CUDAGraph(keep_graph=True)
+        with tracing.suspended(), torch.cuda.graph(g):
+            body(traced)
+        assert tracing.snapshot()["spans"] == {}
+        nodes.append(tracing.graph_nodes(g.raw_cuda_graph()))
+        g.instantiate()
+        g.replay()
+        torch.cuda.synchronize()
+    assert nodes[0] == nodes[1] and nodes[0]["kernel"] >= 2, nodes
+
+
+@pytest.mark.cuda
+def test_cuda_tracing_capture_decode_step_counts_its_graph(cuda_device,
+                                                           monkeypatch):
+    """``capture_decode_step`` sets the gauge ``serve.graph_nodes`` (the
+    total of the kinds), and each replay records ``serve.step`` and
+    ``serve.graph_launch``, the sampled ones with their device
+    intervals."""
+    from repro_torch import tracing
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.distributed.sharding import make_dist_ctx
+    from repro_torch.launch import serve
+    from repro_torch.models import model_zoo as Z
+    cfg = reduced_config(get_config("qwen2_moe_a2_7b"), n_layers=2,
+                         d_model=512, vocab=512)
+    dist = make_dist_ctx(cfg, model=2)
+    params = Z.init_params(cfg, seed=0, device=cuda_device,
+                           dtype=Z.compute_dtype(cfg))
+    cache = Z.init_cache(cfg, 4, 16, dtype=Z.compute_dtype(cfg),
+                         device=cuda_device)
+    tok = torch.zeros((4, 1), dtype=torch.int64, device=cuda_device)
+    monkeypatch.setattr(tracing, "SAMPLE", 2)
+    tracing.reset()
+    with torch.inference_mode():
+        step, _ = serve.capture_decode_step(cfg, params, cache, tok,
+                                            dist=dist)
+        for t in range(3):
+            step(tok, t)
+    snap = tracing.snapshot()
+    tracing.reset()
+    g = snap["gauges"]
+    kinds = sum(g[f"serve.graph_nodes.{k}"]
+                for k in ("kernel", "memcpy", "memset", "other"))
+    assert g["serve.graph_nodes"] == kinds and g[
+        "serve.graph_nodes.kernel"] > 0
+    for p in ("serve.step", "serve.step/serve.graph_launch"):
+        b = snap["spans"][p]["unprofiled"]
+        assert b["count"] == 3 and b["device_count"] == 1     # the 2nd
+    # the warm-up steps ran eagerly (every layer an MoE layer); the
+    # capture recorded nothing
+    assert snap["spans"]["ep.plan"]["unprofiled"]["count"] == (
+        serve.WARMUP_STEPS * cfg.n_layers)
+
+
+@pytest.mark.cuda
+def test_cuda_tracing_train_step_records_every_phase(cuda_device,
+                                                     monkeypatch):
+    """A reduced qwen2-moe train step over an EP world of 2 (HT) on the
+    card: every train span, and the MoE layer's spans under the forward
+    and under the backward's recompute (autograd's device thread), each
+    with a device interval."""
+    from repro_torch import tracing
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.distributed.sharding import make_dist_ctx
+    T = importlib.import_module("repro_torch.training.train_loop")
+    cfg, _, hp = _ep_train_setup(cuda_device, "ht", "fp32")
+    state = T.init_state(cfg, seed=0, device=cuda_device)
+    batch = synth_batch(DataConfig(vocab_size=cfg.vocab_size, batch=2,
+                                   seq_len=32, seed=1), 0)
+    monkeypatch.setattr(tracing, "SAMPLE", 1)
+    tracing.reset()
+    T.train_step(cfg, hp, make_dist_ctx(cfg, model=2), state, batch)
+    spans = tracing.snapshot()["spans"]
+    tracing.reset()
+    want = {"train.step", "train.step/train.forward",
+            "train.step/train.backward", "train.step/train.optimizer",
+            "train.step/train.router_bias",
+            "train.step/train.forward/moe.shared"}
+    for phase in ("forward", "backward"):
+        want |= {f"train.step/train.{phase}/{n}" for n in (
+            "moe.route", "ep.plan", "ep.dispatch", "ep.experts",
+            "ep.combine")}
+    assert want <= set(spans), sorted(want - set(spans))
+    for p in want:
+        b = spans[p]["unprofiled"]
+        assert b["count"] == b["device_count"] > 0 and b["device_ms"] > 0, p

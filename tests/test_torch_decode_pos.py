@@ -298,9 +298,13 @@ def test_captured_step_goes_with_its_last_reference():
     token and position in its static buffers, counts the replays, and
     holds no reference cycle: its graph is destroyed when the step is
     dropped, not by the cyclic collector at a later moment that may fall
-    inside another capture (destroying a graph there invalidates it)."""
+    inside another capture (destroying a graph there invalidates it).  A
+    call records one ``serve.step`` span and, inside it, one
+    ``serve.graph_launch``."""
     import gc
     import weakref
+
+    from repro_torch import tracing
 
     class Graph:
         replayed = 0
@@ -316,7 +320,12 @@ def test_captured_step_goes_with_its_last_reference():
     step = serve.CapturedStep(graph, tok_s, pos_s, logits_s,
                               {"dropped": torch.zeros(())})
     del graph
+    tracing.reset()
     logits, aux = step(torch.tensor([[5], [7]]), 9)
+    spans = tracing.snapshot()["spans"]
+    tracing.reset()
+    assert {p: b["unprofiled"]["count"] for p, b in spans.items()} == {
+        "serve.step": 1, "serve.step/serve.graph_launch": 1}
     assert step.replays == 1 and Graph.replayed == 1
     assert tok_s.tolist() == [[5], [7]] and int(pos_s) == 9
     assert torch.equal(logits, logits_s) and logits is not logits_s
