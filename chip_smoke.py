@@ -173,9 +173,15 @@ Phases, each printed as one JSON line:
    state, 2 steps with LL (``grouped_swiglu`` and its backward launch) and
    2 HT steps on the fp8 wire (``gather_quantize``, ``dequantize`` and
    both wire backwards launch), each counted the same way.  Every loss and
-   grad norm finite, the 5 HT steps' last loss below the first.  Then
+   grad norm finite, the 5 HT steps' last loss below the first; the
+   AdamW kernel launched 2 x 71 + 1 times a step in each run.  Then one
+   more HT step whose AdamW update (all 71 leaves, 3.04B parameters) is
+   held against its plain chain on the same inputs (``adamw_check``: p,
+   mu and nu within ``ADAMW_RTOL``, the norm against the fp64 norm; the
+   kernel's entry ``adamw`` of the kernels line).  Then
    train_qwen2moe_ep_profile: one HT step under the profiler, and one AdamW
-   update of every parameter timed;
+   update of every parameter timed (the kernel, the plain chain and
+   ``torch.optim.AdamW(fused=True)``);
 17. kernel (EP backward): each of the four backward kernels on the inputs
    of its first call of each kind in phase 16, against its plain backward
    (``KERNEL_TOL``) and timed as the kernels of phase 6 (the two SwiGLU
@@ -304,7 +310,7 @@ decode and HT prefill shapes over the EP world of 4, with the router as
 made and skewed so that HT drops, on the card bit for bit the CPU's, every
 field and the world's scalar ``n_dropped``.
 
-Then the kernels line ``{"kernels": [...]}`` (all seventeen kernels), the
+Then the kernels line ``{"kernels": [...]}`` (all eighteen kernels, AdamW's last), the
 nvidia-smi line, and as the last line ``{"ok": true, "device": {...}}``.
 Any failed check raises and the exit code is not 0.  Without a CUDA
 device, or without the rest of the repository beside it, it exits
@@ -2162,21 +2168,25 @@ def ep_train_setup():
     return cfg, hp, batch, make_dist_ctx(cfg, model=4)
 
 
-def train_ep_phase(dev) -> tuple[list, dict, dict, "TrainState"]:
+def train_ep_phase(dev) -> tuple[list, dict, dict, "TrainState", dict]:
     """The expert-parallel training path (``ep_train_setup``): 5 HT steps
     through ``train_loop`` (the fused HT kernel and its backward), then 2
     steps with LL (``grouped_swiglu`` and its backward) and 2 HT steps on
     the fp8 wire (the wire kernels and their backwards) on the same state,
-    each run's launch counts set to 0 just before and read just after; one
-    more HT step under the profiler, and one AdamW update timed.  The
-    first calls of each kind of the four EP kernels and their backward
-    kernels are recorded.  Returns (phase lines, their Recorders, their
-    launches over the three runs, the final train state)."""
+    each run's launch counts (the AdamW kernel's too: 2 x leaves + 1 a
+    step) set to 0 just before and read just after; one more HT step whose
+    AdamW update is held against its plain chain (``adamw_check``), one
+    under the profiler, and one AdamW update timed three ways
+    (``adamw_timing``).  The first calls of each kind of the four EP
+    kernels and their backward kernels are recorded.  Returns (phase
+    lines, their Recorders, their launches over the three runs, the final
+    train state, the AdamW kernel's entry of the kernels line)."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
-    from repro_torch.optim.adamw import apply_updates, tree_leaves, tree_map
+    from repro_torch.kernels import optim as fused
+    from repro_torch.optim.adamw import tree_leaves
     from repro_torch.training.train_loop import (Watchdog, init_state,
                                                  train_loop, train_step)
 
@@ -2191,7 +2201,8 @@ def train_ep_phase(dev) -> tuple[list, dict, dict, "TrainState"]:
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in tree_leaves(state.params))
     names = EP_KERNELS + EP_BWD_KERNELS
-    cudas = {n: ops.KERNELS[n][0] for n in names}
+    cudas = {**{n: ops.KERNELS[n][0] for n in names},
+             "adamw": fused.adamw_cuda}
     recs, restore = recording(names)
     runs = {}
     try:
@@ -2244,6 +2255,14 @@ def train_ep_phase(dev) -> tuple[list, dict, dict, "TrainState"]:
     if not losses[-1] < losses[0]:
         raise AssertionError(f"the loss did not fall: {losses}")
     launches = {k: sum(r[k] for r in runs.values()) for k in names}
+    # the AdamW kernel: a norm pass and an update a leaf, and the finish
+    leaves = sum(p.numel() > 0 for p in tree_leaves(state.params))
+    for run, n in (("ht", STEPS), ("ll", EP_TRAIN_MORE_STEPS),
+                   ("fp8", EP_TRAIN_MORE_STEPS)):
+        if runs[run]["adamw"] != n * (2 * leaves + 1):
+            raise AssertionError(
+                f"the {run} training steps launched the AdamW kernel "
+                f"{runs[run]['adamw']} times, not {n} x (2 x {leaves} + 1)")
     lines = [{"phase": "train-qwen2moe-ep", "model": "qwen2_moe_a2_7b",
               "width": "full", "d_model": cfg.d_model,
               "experts": cfg.moe.n_experts, "top_k": cfg.moe.top_k,
@@ -2266,6 +2285,9 @@ def train_ep_phase(dev) -> tuple[list, dict, dict, "TrainState"]:
              {"phase": "train_qwen2moe_ep_more", "runs": more}]
     holder = [state]
     del state
+    adamw = adamw_check(lambda: train_step(cfg, hp, dist, holder[0], batch),
+                        holder)
+    adamw["launches"] = sum(r["adamw"] for r in runs.values())
 
     def step():
         holder[0], _ = train_step(cfg, hp, dist, holder[0], batch)
@@ -2277,11 +2299,178 @@ def train_ep_phase(dev) -> tuple[list, dict, dict, "TrainState"]:
     # the HT backward's passes over the step's calls (one a layer)
     prof["ep_backward_passes"] = bwd_passes(prof.pop("device_by_name"))
     params, opt = holder[0]
-    zeros = tree_map(torch.zeros_like, params)
-    prof["adamw_update_ms"] = cuda_ms(lambda: apply_updates(
-        params, zeros, opt, lr=torch.tensor(0.0)), n=3, warmup=1)
+    timing = adamw_timing(params, opt)
+    prof.update(timing)
     lines.append(prof)
-    return lines, recs, launches, holder[0]
+    adamw.update(ms=timing["adamw_update_ms"],
+                 plain_ms=timing["adamw_plain_ms"],
+                 bound_ms=timing["adamw_bound_ms"], bound_by="bytes",
+                 library_ms=timing["adamw_library_ms"])
+    return lines, recs, launches, holder[0], adamw
+
+
+def adamw_timing(params, opt) -> dict:
+    """One optimizer update of every leaf of ``params`` (zero gradients,
+    lr 0: the bytes a real update moves), by CUDA events, three ways in
+    the same process: the kernel (``csrc/adamw.cu``) through
+    ``apply_updates`` (``adamw_update_ms``), its plain chain
+    (``adamw_plain_step``, ``adamw_plain_ms``) and, as the
+    yardstick the port never calls, ``torch.optim.AdamW(fused=True)`` over
+    the same moments (``adamw_library_ms``; it does not clip, so it needs
+    28 B a parameter).  The bound: 32 B a parameter (the gradient read for
+    the norm, then g, p, mu, nu read and p, mu, nu written) over the
+    card's memory rate; the share is the bound over the kernel's time."""
+    import torch
+
+    from repro_torch.optim.adamw import apply_updates, tree_map
+
+    zeros = tree_map(torch.zeros_like, params)
+    quads: list = []
+    tree_map(lambda *t: quads.append(t), params, zeros, opt.mu, opt.nu)
+    ps, gs, ms, vs = zip(*quads)
+    n = sum(p.numel() for p in ps)
+    lr = torch.tensor(0.0)
+    out = {"adamw_params": n,
+           "adamw_update_ms": cuda_ms(lambda: apply_updates(
+               params, zeros, opt, lr=lr), n=5, warmup=1),
+           "adamw_plain_ms": cuda_ms(lambda: adamw_plain_step(
+               ps, gs, ms, vs, max_grad_norm=1.0, lr=lr, c1=0.1, c2=0.05,
+               b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1), n=3,
+               warmup=1)}
+    for p, g in zip(ps, gs):
+        p.grad = g
+    lib = torch.optim.AdamW(ps, lr=0.0, betas=(0.9, 0.95),
+                            weight_decay=0.1, fused=True)
+    for p, m, v in zip(ps, ms, vs):
+        lib.state[p] = {"step": torch.zeros((), device=p.device),
+                        "exp_avg": m, "exp_avg_sq": v}
+    out["adamw_library_ms"] = cuda_ms(lib.step, n=5, warmup=1)
+    for p in ps:
+        p.grad = None
+    del lib
+    out["adamw_update_ms_again"] = cuda_ms(lambda: apply_updates(
+        params, zeros, opt, lr=lr), n=5, warmup=1)
+    out["adamw_bound_ms"] = 32 * n / HBM_BYTES_PER_S * 1e3
+    out["adamw_share"] = out["adamw_bound_ms"] / min(
+        out["adamw_update_ms"], out["adamw_update_ms_again"])
+    return out
+
+
+def adamw_plain_step(ps, gs, ms, vs, *, max_grad_norm, **hyper):
+    """``apply_updates``' plain path over lists of leaves, in place: the
+    global norm, the clip scale, ``adamw_leaf`` a leaf; the norm."""
+    import torch
+
+    from repro_torch.optim.adamw import adamw_leaf, global_norm
+    gnorm = global_norm(list(gs))
+    scale = None
+    if max_grad_norm is not None:
+        scale = torch.clamp(max_grad_norm / (gnorm + 1e-9), max=1.0)
+    for quad in zip(ps, gs, ms, vs):
+        adamw_leaf(*quad, scale, **hyper)
+    return gnorm
+
+
+# the AdamW kernel against its plain chain: p, mu and nu within rtol 1e-6
+# and 1e-6 of the leaf's largest |plain| (FMA contraction against separate
+# roundings, and b1 mu + (1 - b1) g may nearly cancel); the norm within
+# 1e-6 of the fp64 norm
+ADAMW_RTOL = 1e-6
+
+
+def adamw_check(step, holder) -> dict:
+    """One train step (``step()``, whose state ``holder[0]`` takes) with
+    its AdamW update held against the plain chain on the same inputs: the
+    gradients the step made and the parameters and moments as they were
+    before the update (kept on the host: a second copy of the state does
+    not fit the card).  Right after the update (before the router biases
+    move), the kernel's norm against the fp64 norm of the gradients; then
+    leaf by leaf, from one clip scale (the plain norm's), the plain update
+    on the card against the kernel's p, mu and nu.  Returns the kernel's
+    entry of the kernels line (its errors and tolerance)."""
+    import inspect
+
+    import torch
+
+    from repro_torch.optim import adamw
+    real = adamw.apply_updates
+    entries = []
+
+    @torch.no_grad()
+    def capture(params, grads, state, **kw):
+        quads = []
+        adamw.tree_map(lambda *t: quads.append(t), params, grads, state.mu,
+                       state.nu)
+        before = [tuple(t.cpu() for t in (p, mu, nu))
+                  for p, _, mu, nu in quads]
+        args = inspect.signature(real).bind(params, grads, state, **kw)
+        args.apply_defaults()
+        out = real(params, grads, state, **kw)
+        entries.append(adamw_compare(quads, before, out[2]["grad_norm"],
+                                     args.arguments))
+        return out
+    adamw.apply_updates = capture
+    try:
+        holder[0], _ = step()
+    finally:
+        adamw.apply_updates = real
+    return entries[0]
+
+
+def adamw_compare(quads, before, gnorm, a) -> dict:
+    """``adamw_check``'s comparison: ``quads`` the (p, g, mu, nu) leaves
+    after the kernel's update, ``before`` (p, mu, nu) on the host as they
+    were, ``gnorm`` the kernel's norm, ``a`` ``apply_updates``' arguments."""
+    import torch
+
+    from repro_torch.optim import adamw
+    if a["factored"]:
+        raise AssertionError("the EP training step took the factored update")
+    if gnorm.device.type != "cuda":
+        raise AssertionError(f"the kernel's norm is on {gnorm.device}")
+    gs = [q[1] for q in quads]
+    exact = math.sqrt(sum(float(torch.linalg.vector_norm(
+        g, dtype=torch.float64)) ** 2 for g in gs))
+    norm_err = abs(float(gnorm) - exact) / exact
+    stepf = (a["state"].step + 1).to(torch.float32)
+    hyper = {"lr": a["lr"], "c1": 1.0 - a["b1"] ** stepf,
+             "c2": 1.0 - a["b2"] ** stepf, "b1": a["b1"], "b2": a["b2"],
+             "eps": a["eps"], "weight_decay": a["weight_decay"]}
+    plain_norm = adamw.global_norm(gs)
+    scale = None
+    if a["max_grad_norm"] is not None:
+        scale = torch.clamp(a["max_grad_norm"] / (plain_norm + 1e-9),
+                            max=1.0)
+    abs_err = rel_err = 0.0
+    over = []
+    for i, ((p, g, mu, nu), old) in enumerate(zip(quads, before)):
+        want = [t.to(g.device) for t in old]
+        adamw.adamw_leaf(want[0], g, want[1], want[2], scale, **hyper)
+        for what, x, y in zip(("p", "mu", "nu"), (p, mu, nu), want):
+            if not y.numel():
+                continue
+            top = float(y.abs().max())
+            e = (x - y).abs()
+            abs_err = max(abs_err, float(e.max()))
+            rel_err = max(rel_err, float(e.max()) / max(top, 1e-30))
+            bad = e > ADAMW_RTOL * (y.abs() + top)
+            if bad.any():
+                over.append(f"{what} of leaf {i} {tuple(y.shape)}: "
+                            f"{int(bad.sum())} elements, max |err| "
+                            f"{float(e.max())} against max |plain| {top}")
+        del want
+    if over or not norm_err <= ADAMW_RTOL:
+        raise AssertionError(f"adamw: the kernel's norm {float(gnorm)} "
+                             f"against {exact} (relative {norm_err}); "
+                             f"over rtol {ADAMW_RTOL}: {over}")
+    return {"name": "adamw", "route": "cuda",
+            "source": "src/repro_torch/csrc/adamw.cu", "replaces": None,
+            "leaves": len(gs), "params": sum(g.numel() for g in gs),
+            "clip_scale": None if scale is None else float(scale),
+            "grad_norm": float(gnorm), "norm_rel_err": norm_err,
+            "plain_grad_norm": float(plain_norm), "max_abs_err": abs_err,
+            "max_rel_err": rel_err, "rtol": ADAMW_RTOL,
+            "tolerance": ADAMW_RTOL, "cases": []}
 
 
 def autograd_grads(name: str, args, kwargs) -> tuple:
@@ -4677,7 +4866,7 @@ def main() -> int:
     del scan_rec
     gc.collect()
     torch.cuda.empty_cache()
-    lines, ep_recs, ep_launches, ep_state = train_ep_phase(dev)
+    lines, ep_recs, ep_launches, ep_state, adamw = train_ep_phase(dev)
     for line in lines:
         emit(line)
     gc.collect()
@@ -4700,6 +4889,8 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
     kernels += ep_kernels
+    emit({"phase": "kernel", "path": "qwen2_moe_a2_7b training", **adamw})
+    kernels.append(adamw)
     gc.collect()
     torch.cuda.empty_cache()
     # the state train-qwen2moe-ep ends with, re-meshed from EP 4 to EP 2

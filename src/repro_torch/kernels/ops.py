@@ -29,6 +29,7 @@ from repro_torch.kernels import combine_reduce as _cr
 from repro_torch.kernels import grouped_matmul as _gm
 from repro_torch.kernels import mamba_scan as _ms
 from repro_torch.kernels import norm_attention as _na
+from repro_torch.kernels import optim as _opt
 from repro_torch.kernels import quantize_pack as _qp
 
 # the kernels by name: (CUDA wrapper, plain); the scan's CUDA wrapper is
@@ -71,8 +72,10 @@ TRAIN = {
     "dequantize": (_qp.Dequantize.apply, "dequantize_bwd"),
 }
 # the CUDA wrappers as registered, whose ``.launches`` count their kernels'
-# launches whatever stands in ``KERNELS`` for them
+# launches whatever stands in ``KERNELS`` for them, and the optimizer's
+# (``kernels.optim``: it takes lists of leaves, called by apply_updates)
 _WRAPPERS = {n: cuda for n, (cuda, _) in KERNELS.items()}
+_WRAPPERS["adamw"] = _opt.adamw_cuda
 
 
 def launch_counts() -> dict:

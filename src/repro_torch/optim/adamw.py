@@ -5,7 +5,10 @@ State layouts follow the parameter tree (nested dicts and lists of
 tensors).  The optimizer state stays fp32.  :func:`apply_updates` updates
 the parameters and the moments IN PLACE (under ``torch.no_grad``), where the
 reference returns new arrays: at full width that saves a copy of every
-parameter and moment.  It returns the same containers.
+parameter and moment.  It returns the same containers.  On the card the
+non-factored update is the hand-written kernel ``kernels.optim.adamw_cuda``
+(a pass for the norm, one a leaf for the update); :func:`adamw_leaf` is its
+plain version, the eager chain the CPU runs.
 """
 from __future__ import annotations
 
@@ -79,6 +82,31 @@ def global_norm(tree) -> Tensor:
                           for l in tree_leaves(tree)))
 
 
+def _moments(g: Tensor, mu: Tensor, scale: Optional[Tensor],
+             b1: float) -> Tensor:
+    """The gradient in fp32 times the clip ``scale`` (none where it is
+    None), and the first moment updated with it in place."""
+    g = g.to(torch.float32)
+    if scale is not None:
+        g = g * scale
+    mu.mul_(b1).add_(g, alpha=1 - b1)
+    return g
+
+
+@torch.no_grad()
+def adamw_leaf(p: Tensor, g: Tensor, mu: Tensor, nu: Tensor,
+               scale: Optional[Tensor], *, lr, c1, c2, b1: float, b2: float,
+               eps: float, weight_decay: float) -> None:
+    """The non-factored update of one leaf in place, its gradient first
+    multiplied by the clip ``scale``: the eager chain, and the plain version
+    of ``kernels.optim.adamw_cuda``.  ``c1`` and ``c2`` are the bias
+    corrections ``1 - b ** step``."""
+    g = _moments(g, mu, scale, b1)
+    nu.mul_(b2).addcmul_(g, g, value=1 - b2)
+    u = (mu / c1) / (torch.sqrt(nu / c2) + eps)
+    p.sub_(lr * (u + weight_decay * p))
+
+
 @torch.no_grad()
 def apply_updates(params: dict, grads: dict, state: AdamWState, *,
                   lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
@@ -88,31 +116,37 @@ def apply_updates(params: dict, grads: dict, state: AdamWState, *,
     """One step: global-norm clip, bias-corrected moments (factored second
     moment for leaves of at least 128 x 128 when ``factored``), decoupled
     weight decay.  ``params``, ``state.mu`` and ``state.nu`` change in
-    place; returns ``(params, new state, {"grad_norm"})``."""
+    place; returns ``(params, new state, {"grad_norm"})``.  Non-factored
+    leaves on the card take the kernel, whose ``lr`` is a number or a CPU
+    tensor."""
     step = state.step + 1
+    stepf = step.to(torch.float32)
+    c1 = 1.0 - b1 ** stepf
+    c2 = 1.0 - b2 ** stepf
+    hyper = dict(lr=lr, c1=c1, c2=c2, b1=b1, b2=b2, eps=eps,
+                 weight_decay=weight_decay)
+    leaves = tree_leaves(params)
+    if not factored and leaves and leaves[0].is_cuda:
+        # imported here: the kernels package loads the EP layers, which
+        # import this module's tree helpers
+        from repro_torch.kernels.optim import adamw_cuda
+        quads: list = []
+        tree_map(lambda *t: quads.append(t), params, grads, state.mu,
+                 state.nu)
+        gnorm = adamw_cuda(*map(list, zip(*quads)),
+                           max_grad_norm=max_grad_norm, **hyper)
+        return params, AdamWState(step=step, mu=state.mu, nu=state.nu), \
+            {"grad_norm": gnorm}
     gnorm = global_norm(grads)
     scale = None
     if max_grad_norm is not None:
         scale = torch.clamp(max_grad_norm / (gnorm + 1e-9), max=1.0)
-    stepf = step.to(torch.float32)
-    c1 = 1.0 - b1 ** stepf
-    c2 = 1.0 - b2 ** stepf
-
-    def moments(g, mu):
-        g = g.to(torch.float32)
-        if scale is not None:
-            g = g * scale
-        mu.mul_(b1).add_(g, alpha=1 - b1)
-        return g
 
     def upd_full(p, g, mu, nu):
-        g = moments(g, mu)
-        nu.mul_(b2).addcmul_(g, g, value=1 - b2)
-        u = (mu / c1) / (torch.sqrt(nu / c2) + eps)
-        p.sub_(lr * (u + weight_decay * p))
+        adamw_leaf(p, g, mu, nu, scale, **hyper)
 
     def upd_fact(p, g, mu, nu):
-        g = moments(g, mu)
+        g = _moments(g, mu, scale, b1)
         if "full" in nu:
             nu["full"].mul_(b2).addcmul_(g, g, value=1 - b2)
             v = nu["full"] / c2
