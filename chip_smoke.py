@@ -299,7 +299,25 @@ Phases, each printed as one JSON line:
    line and seconds, the
    kernels each must launch (``EXAMPLE_KERNELS``) counted, and their first
    calls of each kind joining the kernels' entries as cases of the
-   example's path.
+   example's path;
+25. serve-moonlight (after the moonshot phase, before phase 11):
+   Moonlight-16B-A3B (MLA) at its published widths and all 27 layers
+   (``MOONLIGHT_*``; the benchmark's weights, ``epbench/weights_mla.py``)
+   through ``generate`` without an EP world (the MoE layers through the
+   dense oracle): batch 4, 256-token prompts through the batched prefill,
+   32 greedy tokens from the replayed decode step; ``mla_decode``'s
+   launches set to 0 just before and read just after, one a layer for
+   every decode step (the capture's warm-up steps and every replay).
+   Then from one more batched prefill the latent rows it wrote, each
+   layer's, and its last logits against the plain reference
+   (``epbench/reference/mla.py``: fp32, non-absorbed, TF32 off), the
+   layers no routing choice precedes within ``MLA_ROWS_TOL``, and the
+   served tokens' gaps (``epbench/checks.py``); one eager decode step
+   after it records the kernel's inputs on the prefilled rows.  Then
+   kernel (MLA): ``mla_decode`` on those inputs and at the
+   moonlight-decode-ll-fp8 cell's shapes (``MLA_CELL_*``: batch 128, a
+   1024-row cache, positions 0, 511, 1023) against its plain version,
+   timed beside its bound, the plain version and SDPA over the live rows.
 
 The lint phase (right after the build): ``repro_torch.analysis.lint``
 over the port's package, its CUDA sources' occupancy rule included; any
@@ -310,7 +328,7 @@ decode and HT prefill shapes over the EP world of 4, with the router as
 made and skewed so that HT drops, on the card bit for bit the CPU's, every
 field and the world's scalar ``n_dropped``.
 
-Then the kernels line ``{"kernels": [...]}`` (all eighteen kernels, AdamW's last), the
+Then the kernels line ``{"kernels": [...]}`` (all nineteen kernels, AdamW's last), the
 nvidia-smi line, and as the last line ``{"ok": true, "device": {...}}``.
 Any failed check raises and the exit code is not 0.  Without a CUDA
 device, or without the rest of the repository beside it, it exits
@@ -339,7 +357,7 @@ L2_BYTES = 50 * 2 ** 20
 # arguments it draws afresh for each: the cache, the rows, the parts, the
 # pools, q, k and v
 COLD_CACHES = 8
-COLD_ARGS = {"decode_attention": (1, 2), "rmsnorm": (0,),
+COLD_ARGS = {"decode_attention": (1, 2), "mla_decode": (1,), "rmsnorm": (0,),
              "combine_reduce": (0,), "decode_attention_paged": (1, 2),
              "flash_attention": (0, 1, 2)}
 
@@ -382,6 +400,8 @@ KERNEL_INFO = {  # name: (source, the TPU kernel it replaces)
                             "src/repro/kernels/quantize_pack.py:105"),
     "dequantize_bwd": ("src/repro_torch/csrc/wire_bwd.cu",
                        "src/repro/kernels/quantize_pack.py:161"),
+    # the TPU package has no MLA
+    "mla_decode": ("src/repro_torch/csrc/mla_decode.cu", None),
 }
 EP_BWD_KERNELS = ("gather_swiglu_scatter_bwd", "grouped_swiglu_bwd",
                   "gather_quantize_bwd", "dequantize_bwd")
@@ -421,6 +441,8 @@ KERNEL_TOL = {
     # so they agree bit for bit; one rounding of the output may differ)
     "combine_reduce": "ulp",
     "decode_attention_paged": 2e-2,
+    # as decode_attention: P rounds to bf16 on both sides
+    "mla_decode": 2e-2,
     # per gradient: the same bf16 roundings as the plain backward (h, dy,
     # dg, du) after fp32 sums in another order, dx's atomics in any order;
     # against autograd through the plain forward in fp32 (no bf16 rounding
@@ -437,7 +459,7 @@ KERNEL_TOL = {
 # averages the values of every key it sees, so its magnitude falls with
 # its position, and a limit taken from the largest row (row 0 is v[0])
 # would let a late row's error be as large as the row itself
-ROW_KERNELS = NORM_ATTN_KERNELS + ("decode_attention_paged",)
+ROW_KERNELS = NORM_ATTN_KERNELS + ("decode_attention_paged", "mla_decode")
 # exponentials run on the special-function units: 16 per SM per clock,
 # 132 SMs, 1.98 GHz boost (H100 SXM); one accurate expf is at least one
 SFU_OP_PER_S = 16 * 132 * 1.98e9
@@ -493,6 +515,22 @@ MOONSHOT_PLAIN_STEPS = 16
 MOONSHOT_PHYSICAL = 80
 MOONSHOT_KERNELS = ("gather_swiglu_scatter", "grouped_swiglu",
                     "flash_attention", "decode_attention", "rmsnorm")
+# Moonlight-16B-A3B at its published widths and all 27 layers (15.96B
+# parameters, 31.9 GB in bf16), the weights the benchmark draws from this
+# seed, served without an EP world: batch 4, 256-token prompts through the
+# batched prefill, 32 greedy tokens from the replayed decode step
+MOONLIGHT_BATCH, MOONLIGHT_PROMPT, MOONLIGHT_GEN = 4, 256, 32
+MOONLIGHT_SEED = 3_200_000_001
+# the latent rows the prefill wrote against the reference's, relative
+# error (the norm of the difference over the reference's) in the layers no
+# routing choice precedes (the dense first layer's, and the first MoE
+# layer's, which reads its output): bf16 rounding reads 0.3-0.5% there
+# (H100), an fp8 product ~5%; routing flips move the later layers' rows,
+# which are reported
+MLA_ROWS_TOL = 1e-2
+# mla_decode at the moonlight-decode-ll-fp8 cell's shapes: batch 128, a
+# 1024-row cache, these positions (511, the cell's mean, leads)
+MLA_CELL_BATCH, MLA_CELL_SEQ, MLA_CELL_POS = 128, 1024, (0, 511, 1023)
 # expert-parallel training: qwen2-moe at full width (d_model 2048, 60
 # experts padded to 64, top-4, d_expert 1408, shared 5632, vocab 151,936),
 # 4 of its 24 layers (the depth whose fp32 AdamW state fits the card), over
@@ -743,6 +781,8 @@ def bound(name: str, args, kwargs) -> tuple[float, str, dict]:
     import torch
     if name in NORM_ATTN_KERNELS + ("decode_attention_paged",):
         return norm_attn_bound(name, args, kwargs)
+    if name == "mla_decode":
+        return mla_bound(args, kwargs)
     if name in EP_BWD_KERNELS:
         return ep_bwd_bound(name, args, kwargs)
     if name == "grouped_matmul":
@@ -938,6 +978,25 @@ def norm_attn_bound(name: str, args, kwargs) -> tuple[float, str, dict]:
     return t_ops * 1e3, "operations", work
 
 
+def mla_bound(args, kwargs) -> tuple[float, str, dict]:
+    """Least time for one ``mla_decode`` call: the larger of its bytes (the
+    live latent rows, q and the output) over the memory rate and its
+    operations (2 (Dk + v_dim) FLOP a head and live row: the scores over
+    the whole row, the output over its first v_dim) over the bf16 peak."""
+    q, cache, pos = args
+    B, H, Dk = q.shape
+    dv = kwargs["v_dim"]
+    live = min(int(pos) + 1, cache.shape[1])
+    nbytes = (B * live * Dk + q.numel() + B * H * dv) * q.element_size()
+    t_ops = 2.0 * B * H * live * (Dk + dv) / BF16_FLOP_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    work = {"live_rows": B * live, "bytes": nbytes,
+            "bytes_ms": t_bytes * 1e3, "ops_ms": t_ops * 1e3}
+    if t_bytes >= t_ops:
+        return t_bytes * 1e3, "bytes", work
+    return t_ops * 1e3, "operations", work
+
+
 def library_call(name: str, args, kwargs):
     """One PyTorch call computing what kernel ``name`` computes on these
     inputs (the yardstick ``library_ms``; the port never calls it), or
@@ -961,6 +1020,17 @@ def library_call(name: str, args, kwargs):
         k, v = (a[:, :live].transpose(1, 2) for a in args[1:3])
         return lambda: F.scaled_dot_product_attention(q, k, v,
                                                       enable_gqa=True)
+    if name == "mla_decode":
+        # the live rows as every head's key, their first v_dim values as
+        # the value
+        q, cache, pos = args
+        B, H, Dk = q.shape
+        live = min(int(pos) + 1, cache.shape[1])
+        rows = cache[:, None, :live]
+        k = rows.expand(B, H, live, Dk)
+        v = rows[..., :kwargs["v_dim"]].expand(B, H, live, kwargs["v_dim"])
+        return lambda: F.scaled_dot_product_attention(
+            q[:, :, None], k, v, scale=kwargs["scale"])
     if name == "grouped_matmul":      # the whole buffer, counts ignored
         import torch
         x, w = args[:2]
@@ -3367,6 +3437,116 @@ def serve_moonshot(dev) -> None:
                              f"{served_bwd}")
 
 
+def serve_moonlight(dev) -> dict:
+    """Moonlight-16B-A3B served (``MOONLIGHT_*``; phase 25): ``generate``
+    with ``mla_decode`` recorded and counted, one launch a layer for every
+    decode step; the latent rows a batched prefill wrote and its last
+    logits against the plain reference; the served tokens' gaps; then the
+    kernel on the recorded inputs, on one eager step's after the prefill
+    and at the cell's shapes (``MLA_CELL_*``) against its plain version.
+    Returns its kernels-line entry."""
+    import torch
+
+    from epbench import checks, weights_mla
+    from epbench.reference import mla as R
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import WARMUP_STEPS, generate
+    from repro_torch.models import model_zoo as Z
+    from repro_torch.optim.adamw import tree_leaves
+
+    cfg = get_config("moonlight_16b_a3b")
+    B, S, G = MOONLIGHT_BATCH, MOONLIGHT_PROMPT, MOONLIGHT_GEN
+    torch.cuda.reset_peak_memory_stats()
+    params = weights_mla.make_params(cfg, MOONLIGHT_SEED, dev,
+                                     torch.bfloat16)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), device=dev,
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(MOONLIGHT_SEED))
+    generate(cfg, params, prompts[:, :32], 2, batched_prefill=True)
+    torch.cuda.synchronize()
+    res, launches, recs, peak_gb, _ = serve_counted(
+        cfg, params, prompts, G, ("mla_decode",), batched_prefill=True)
+    steps = WARMUP_STEPS + res["graph_replays"]
+    want = cfg.n_layers * steps
+    if (launches["mla_decode"] != want
+            or res["captured_launches"]["mla_decode"] != cfg.n_layers):
+        raise AssertionError(
+            f"mla_decode: {launches['mla_decode']} launches over {steps} "
+            f"decode steps ({res['captured_launches']['mla_decode']} a "
+            f"replay); want {cfg.n_layers} a step")
+    # the latent rows one more batched prefill writes, and its last logits
+    cache = Z.init_cache(cfg, B, S + G, dtype=torch.bfloat16, device=dev)
+    with torch.inference_mode():
+        first, _, _ = Z.prefill(cfg, params, cache, prompts)
+    seqs = torch.cat([prompts, res["tokens"]], 1)          # (B, S + G)
+    sz = R.sizes(dataclasses.asdict(cfg), {"ep_world": 4})
+    with checks.no_tf32(), torch.no_grad():
+        rows_err = [float((c["latent"][:, :S].float() - r).norm() / r.norm())
+                    for c, r in zip(cache, R.cache_rows(
+                        params, prompts, sz, cfg.n_layers, "all"))]
+        ref = R.head(params, R.hidden(params, seqs[:, :S + G - 1], sz,
+                                      "all")[:, S - 1:], sz)   # (B, G, V)
+    V = cfg.vocab_size
+    first_err = float((first[:, :V].float() - ref[:, 0]).norm()
+                      / ref[:, 0].norm())
+    gaps = checks.gaps(ref, seqs[:, S:])
+    del ref, first
+    # one eager decode step on the prefilled rows: the kernel's inputs
+    recs_eager, restore = recording(("mla_decode",), frozenset(
+        t.data_ptr() for t in tree_leaves(params)))
+    try:
+        with torch.inference_mode():
+            Z.decode_step(cfg, params, cache, seqs[:, S:S + 1], S)
+    finally:
+        restore()
+    torch.cuda.synchronize()
+    emit({"phase": "serve-moonlight", "model": cfg.arch_id, "width": "full",
+          "layers": cfg.n_layers, "kv_lora_rank": cfg.kv_lora_rank,
+          "experts": cfg.moe.n_experts, "top_k": cfg.moe.top_k,
+          "scoring": cfg.moe.scoring, "ep_world": None, "batch": B,
+          "prompt": S, "generated": G, "seed": MOONLIGHT_SEED,
+          "ttft_s": res["ttft_s"], "capture_s": res["capture_s"],
+          "decode_tokens_per_s": res["decode_tokens_per_s"],
+          "graph_replays": res["graph_replays"], "decode_steps": steps,
+          "launches": launches, "latent_rows_rel_err": rows_err,
+          "rows_tol": MLA_ROWS_TOL,
+          "prefill_logits_rel_err": first_err,
+          "gaps": checks.gap_stats(gaps),
+          "first_tokens": res["tokens"][0].tolist(), "peak_mem_gb": peak_gb,
+          "card": nvidia_smi()})
+    bad = [i for i in range(cfg.first_k_dense + 1)
+           if not rows_err[i] <= MLA_ROWS_TOL]
+    if bad:
+        raise AssertionError(f"moonlight: the latent rows of layers {bad} "
+                             f"lie {[rows_err[i] for i in bad]} from the "
+                             f"reference's (at most {MLA_ROWS_TOL})")
+    del cache, params, gaps
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the cell's shapes: seeded N(0, 1) q and latent rows
+    g = torch.Generator(device=dev).manual_seed(1)
+    Bc, Sc = MLA_CELL_BATCH, MLA_CELL_SEQ
+    dk = cfg.kv_lora_rank + cfg.qk_rope_head_dim
+    q = torch.randn((Bc, cfg.n_heads, dk), generator=g, device=dev).to(
+        torch.bfloat16)
+    rows = torch.randn((Bc, Sc, dk), generator=g, device=dev).to(
+        torch.bfloat16)
+    kw = {"scale": (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5,
+          "v_dim": cfg.kv_lora_rank}
+    cell = [((q, rows, torch.full((), p, dtype=torch.int32, device=dev)),
+             kw) for p in MLA_CELL_POS]
+    eager = list(recs_eager["mla_decode"].cases.values())
+    recorded = len(recs["mla_decode"].cases)
+    with torch.inference_mode():
+        entry = check_kernel("mla_decode", recs["mla_decode"], launches,
+                             extra=[*eager, *cell],
+                             lead=recorded + len(eager) + 1)
+    emit({"phase": "kernel", "path": f"{cfg.arch_id} ({cfg.n_layers} "
+          f"layers), and the cell's shapes (batch {Bc}, {Sc} rows, "
+          f"pos {list(MLA_CELL_POS)})", **entry})
+    return entry
+
+
 def dense_plain_check(cfg, params, prompts) -> dict:
     """One prefill of ``prompts`` and one decode step of the token the
     kernels' run chose, through the kernels and through their plain
@@ -4831,6 +5011,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     serve_moonshot(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels.append(serve_moonlight(dev))
     gc.collect()
     torch.cuda.empty_cache()
     kernels += serve_qwen3(dev)

@@ -33,6 +33,12 @@ class MoEConfig:
     # dispatch payload wire dtype: "fp32" | "fp8" | "int8" (block-quantized
     # with inline per-128-feature scales; combines stay fp32)
     wire_dtype: str = "fp32"
+    # the port's own (the JAX package has neither): "softmax" over the
+    # logits, or "sigmoid" (DeepSeek-V3: the selection bias added to the
+    # scores, the chosen scores renormalised), whose combine weights are
+    # then multiplied by ``routed_scale``
+    scoring: str = "softmax"
+    routed_scale: float = 1.0
 
     @property
     def enabled(self) -> bool:
@@ -87,6 +93,16 @@ class ModelConfig:
     remat: bool = True                # recompute each layer in the backward
     # sub-quadratic attention available? (pure full-attention archs: False)
     subquadratic: bool = False
+    # the port's own (the JAX package has no MLA): multi-head latent
+    # attention when ``kv_lora_rank`` > 0 (DeepSeek-V2/V3, ``models/mla.py``:
+    # q projected directly, a ``kv_lora_rank``-wide normalised latent and a
+    # ``qk_rope_head_dim``-wide RoPE key shared by the heads), and the
+    # leading layers whose FFN is the dense ``d_ff`` SwiGLU
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    first_k_dense: int = 0
 
     @property
     def head_dim_(self) -> int:
@@ -97,6 +113,10 @@ class ModelConfig:
     @property
     def attention_free(self) -> bool:
         return self.n_heads == 0
+
+    @property
+    def mla(self) -> bool:
+        return self.kv_lora_rank > 0
 
     def padded_vocab(self, multiple: int = 256) -> int:
         return _round_up(self.vocab_size, multiple)
@@ -115,7 +135,7 @@ class ModelConfig:
         return layer_idx % self.attn_every == self.attn_offset
 
     def is_moe_layer(self, layer_idx: int) -> bool:
-        if not self.moe.enabled:
+        if not self.moe.enabled or layer_idx < self.first_k_dense:
             return False
         return layer_idx % self.moe.moe_every == (self.moe.moe_every - 1)
 
@@ -137,7 +157,12 @@ class ModelConfig:
     def _block_params(self, i: int, active_only: bool = False) -> int:
         d = self.d_model
         n = 0
-        if self.is_attn_layer(i):
+        if self.is_attn_layer(i) and self.mla:
+            h, r = self.n_heads, self.qk_rope_head_dim
+            c, nope, v = self.kv_lora_rank, self.qk_nope_head_dim, self.v_head_dim
+            n += d * h * (nope + r) + d * (c + r) + c   # wq, w_dkv, kv_norm
+            n += c * h * (nope + v) + h * v * d          # w_ukv, wo
+        elif self.is_attn_layer(i):
             hd = self.head_dim_
             n += 2 * d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
             if self.qkv_bias:
@@ -184,6 +209,7 @@ SHAPES: dict[str, ShapeCell] = {
     "long_500k": ShapeCell("long_500k", 524_288, 1, "decode"),
 }
 
+# the JAX package's configurations, which the port holds to its own
 ARCH_IDS: Sequence[str] = (
     "moonshot_v1_16b_a3b",
     "qwen2_moe_a2_7b",
@@ -196,13 +222,20 @@ ARCH_IDS: Sequence[str] = (
     "falcon_mamba_7b",
     "jamba_1_5_large_398b",
 )
-_ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
+# the port's own configurations, which the JAX package cannot run (MLA,
+# sigmoid routing); ``get_config`` finds them, ``all_configs`` keeps to
+# ``ARCH_IDS``
+PORT_ARCH_IDS: Sequence[str] = (
+    "moonlight_16b_a3b",
+)
+_ALIASES = {a.replace("_", "-"): a for a in (*ARCH_IDS, *PORT_ARCH_IDS)}
 
 
 def get_config(arch: str) -> ModelConfig:
     arch = _ALIASES.get(arch, arch).replace("-", "_").replace(".", "_")
-    if arch not in ARCH_IDS:
-        raise KeyError(f"unknown arch {arch!r}; known: {list(ARCH_IDS)}")
+    if arch not in ARCH_IDS and arch not in PORT_ARCH_IDS:
+        raise KeyError(f"unknown arch {arch!r}; known: "
+                       f"{[*ARCH_IDS, *PORT_ARCH_IDS]}")
     return importlib.import_module(f"repro_torch.configs.{arch}").CONFIG
 
 
@@ -215,7 +248,9 @@ def reduced_config(cfg: ModelConfig, *, n_layers: int = 2, d_model: int = 64,
     """Tiny same-family config for CPU smoke tests (same rule as the JAX
     package's ``reduced_config``: no heads when attention-free, a hybrid
     interleave period of at most 2 so two layers cover both kinds, a
-    frontend prefix of at most 4)."""
+    frontend prefix of at most 4).  An MLA config keeps its kind at latent
+    32, RoPE 8, nope 16 and value 16 wide, and one leading dense layer
+    before ``n_layers`` MoE layers."""
     heads = 0 if cfg.attention_free else 4
     kv = 0 if cfg.attention_free else (2 if cfg.n_kv_heads < cfg.n_heads else 4)
     moe = cfg.moe
@@ -224,6 +259,12 @@ def reduced_config(cfg: ModelConfig, *, n_layers: int = 2, d_model: int = 64,
             moe, n_experts=n_experts, top_k=min(moe.top_k, 2),
             d_expert=d_model, d_shared=d_model if moe.d_shared else 0)
     attn_every = min(cfg.attn_every, 2) if cfg.attn_every else 0
+    if cfg.mla:
+        dense = min(cfg.first_k_dense, 1)
+        cfg = dataclasses.replace(cfg, kv_lora_rank=32, qk_rope_head_dim=8,
+                                  qk_nope_head_dim=16, v_head_dim=16,
+                                  first_k_dense=dense)
+        n_layers += dense
     return dataclasses.replace(
         cfg, n_layers=n_layers, d_model=d_model, n_heads=heads, n_kv_heads=kv,
         head_dim=d_model // heads if heads else 0,

@@ -4,6 +4,9 @@
 Primary paper-representative config: EP dispatch/combine on every layer.
 The port holds itself to the reference's 48-layer variant, without shared
 experts (the published Moonlight has fewer layers and shared experts).
+The published model is the port's own ``moonlight_16b_a3b``
+(``configs/moonlight_16b_a3b.py``: MLA, a dense first layer, 2 shared
+experts, sigmoid routing).
 """
 from repro_torch.configs.base import ModelConfig, MoEConfig
 

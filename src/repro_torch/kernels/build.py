@@ -58,6 +58,7 @@ SIGNATURES = {
     "decode_attention_paged_launch": [_P] * 9 + [_I] * 9 + [_P],
     "decode_attention_paged_blocks_per_sm": [_I, _I],
     "combine_reduce_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "mla_decode_launch": [_P] * 7 + [_I] * 4 + [_F, _P],
     "adamw_norm_partials_launch": [_P, _L, _P, _I, _P],
     "adamw_norm_finish_launch": [_P, _I, _F, _I, _P, _P],
     "adamw_update_launch": [_P] * 4 + [_L, _P] + [_F] * 9 + [_P],

@@ -28,6 +28,7 @@ import torch
 from repro_torch.kernels import combine_reduce as _cr
 from repro_torch.kernels import grouped_matmul as _gm
 from repro_torch.kernels import mamba_scan as _ms
+from repro_torch.kernels import mla as _mla
 from repro_torch.kernels import norm_attention as _na
 from repro_torch.kernels import optim as _opt
 from repro_torch.kernels import quantize_pack as _qp
@@ -60,6 +61,7 @@ KERNELS = {
     "decode_attention_paged": (_na.decode_attention_paged_cuda,
                                _na.decode_attention_paged_plain),
     "combine_reduce": (_cr.combine_reduce_cuda, _cr.combine_reduce_plain),
+    "mla_decode": (_mla.mla_decode_cuda, _mla.mla_decode_plain),
 }
 # kernels differentiable on the card through an autograd Function over
 # their forward and backward wrappers: (the Function's ``apply``, taking
@@ -195,6 +197,16 @@ def decode_attention_paged(q, k_pool, v_pool, block_tables, pos):
     0..pos[b] with ``pos`` (B,) on the device -> normalised (B, H, D)."""
     return _pick("decode_attention_paged", q, k_pool, v_pool)(
         q, k_pool, v_pool, block_tables, pos)
+
+
+def mla_decode(q, cache, pos, *, scale: float, v_dim: int):
+    """Absorbed MLA decoding: one query a head and a sequence, q (B, H,
+    Dk), over the latent cache (B, S_max, Dk), positions 0..pos live;
+    scores over all Dk columns (times ``scale``), values the first
+    ``v_dim`` -> normalised (B, H, v_dim).  On the card ``pos`` is a 0-d
+    int32 tensor on q's device (a host int raises)."""
+    return _pick("mla_decode", q, cache)(q, cache, pos, scale=scale,
+                                         v_dim=v_dim)
 
 
 def combine_reduce(parts, weights):

@@ -4,7 +4,9 @@ local-cache prefill and decode of ``repro.models.blocks``.
 A layer's parameters are a dict in the JAX layout (``ln1``, ``ln2``,
 ``attn`` or ``mamba``, ``moe`` or ``mlp``).  Its decode cache is a dict
 too: an attention layer's ``{"k", "v"}``, two ``(B, S_max, Hkv, hd)``
-tensors, a Mamba layer's ``{"conv", "ssm"}`` (``mamba_init_cache``);
+tensors, an MLA layer's (``cfg.mla``, the port's own: ``models/mla.py``)
+``{"latent"}``, one ``(B, S_max, kv_lora_rank + rope)`` tensor, a Mamba
+layer's ``{"conv", "ssm"}`` (``mamba_init_cache``);
 prefill and decode update it in place.  (The reference's ``BlockCache``
 carries both kinds in every layer, the unused ones as placeholders.)
 Training (``block_apply``) computes its norms and attention in the
@@ -24,6 +26,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.moe import moe_apply, moe_init
 from repro_torch.distributed.sharding import DistCtx
 from repro_torch.kernels import ops
+from repro_torch.models import mla
 from repro_torch.models.layers import (_qkv, attention, attn_init, decode_qkv,
                                        mlp_init, rmsnorm, rmsnorm_init,
                                        swiglu)
@@ -33,6 +36,10 @@ from repro_torch.models.mamba import (MambaCache, mamba_apply,
 
 Tensor = torch.Tensor
 
+# the cache entries that hold a row a position (the rest, a Mamba layer's
+# conv history and ssm state, a row a sequence)
+PER_TOKEN = ("k", "v", "latent")
+
 
 def block_init(cfg: ModelConfig, layer_idx: int, gen: torch.Generator,
                device, dtype: Optional[torch.dtype] = None) -> dict:
@@ -41,7 +48,8 @@ def block_init(cfg: ModelConfig, layer_idx: int, gen: torch.Generator,
     p: dict = {"ln1": rmsnorm_init(cfg.d_model, device),
                "ln2": rmsnorm_init(cfg.d_model, device)}
     if cfg.is_attn_layer(layer_idx):
-        p["attn"] = attn_init(cfg, gen, device)
+        p["attn"] = (mla.mla_init(cfg, gen, device) if cfg.mla
+                     else attn_init(cfg, gen, device))
     elif cfg.mamba.enabled:
         p["mamba"] = mamba_init(cfg, gen, device)
     if cfg.is_moe_layer(layer_idx):
@@ -55,7 +63,11 @@ def block_init_cache(cfg: ModelConfig, layer_idx: int, batch: int,
                      max_len: int, dtype=torch.bfloat16,
                      device="cuda") -> dict:
     """Layer ``layer_idx``'s decode cache: ``{"k", "v"}`` for an attention
-    layer, ``{"conv", "ssm"}`` for a Mamba layer (no KV cache)."""
+    layer, ``{"latent"}`` for an MLA one, ``{"conv", "ssm"}`` for a Mamba
+    layer (no KV cache)."""
+    if cfg.is_attn_layer(layer_idx) and cfg.mla:
+        return {"latent": torch.zeros((batch, max_len, mla.cache_width(cfg)),
+                                      dtype=dtype, device=device)}
     if cfg.is_attn_layer(layer_idx):
         shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim_)
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -83,7 +95,10 @@ def block_apply(cfg: ModelConfig, dist: Optional[DistCtx], p: dict,
     instance to all its blocks for the persistent-session path
     (registration once per step, DESIGN §16)."""
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-    if "attn" in p:
+    if "attn" in p and cfg.mla:
+        h = mla.mla_attention(cfg, p["attn"], h, positions,
+                              causal_skip=causal_skip)
+    elif "attn" in p:
         h = attention(cfg, p["attn"], h, positions, causal_skip=causal_skip)
     elif "mamba" in p:
         h = mamba_apply(cfg, p["mamba"], h)
@@ -104,12 +119,16 @@ def block_prefill(cfg: ModelConfig, dist: Optional[DistCtx], p: dict,
             "batched prefill needs the post-prompt recurrent state; mamba "
             "layers prefill through the per-token decode loop")
     h = ops.rmsnorm(x, p["ln1"], cfg.norm_eps)
-    q, k_new, v_new = _qkv(cfg, p["attn"], h, positions, norm=ops.rmsnorm)
-    S = x.shape[1]
-    o = ops.flash_attention(q, k_new, v_new, causal=True)
-    cache["k"][:, :S] = k_new.to(cache["k"].dtype)
-    cache["v"][:, :S] = v_new.to(cache["v"].dtype)
-    h = torch.einsum("bshk,hkd->bsd", o, p["attn"]["wo"].to(h.dtype))
+    if cfg.mla:
+        h = mla.mla_attention(cfg, p["attn"], h, positions, norm=ops.rmsnorm,
+                              latent=cache["latent"])
+    else:
+        q, k_new, v_new = _qkv(cfg, p["attn"], h, positions, norm=ops.rmsnorm)
+        S = x.shape[1]
+        o = ops.flash_attention(q, k_new, v_new, causal=True)
+        cache["k"][:, :S] = k_new.to(cache["k"].dtype)
+        cache["v"][:, :S] = v_new.to(cache["v"].dtype)
+        h = torch.einsum("bshk,hkd->bsd", o, p["attn"]["wo"].to(h.dtype))
     x = x + h
     h, aux = _ffn(cfg, dist, p, ops.rmsnorm(x, p["ln2"], cfg.norm_eps),
                   moe_mode, moe_chunks)
@@ -124,7 +143,9 @@ def block_decode(cfg: ModelConfig, dist: Optional[DistCtx], p: dict,
     graph can capture the step and replay it at any position).  A Mamba
     layer reads no position: its state is the step count."""
     h = ops.rmsnorm(x, p["ln1"], cfg.norm_eps)
-    if "attn" in p:
+    if "attn" in p and cfg.mla:
+        h = mla.mla_decode(cfg, p["attn"], h, cache["latent"], pos)
+    elif "attn" in p:
         q, k_new, v_new = decode_qkv(cfg, p["attn"], h, pos,
                                      norm=ops.rmsnorm)
         row = pos.reshape(1).to(torch.int64)

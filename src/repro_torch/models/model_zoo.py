@@ -19,6 +19,7 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import DistCtx, scan_period
 from repro_torch.kernels import ops
@@ -179,9 +180,18 @@ def _chunked_xent(cfg: ModelConfig, x: Tensor, head: Tensor, labels: Tensor,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device="cuda") -> list:
     """Each layer's decode cache (:func:`blocks.block_init_cache`): K/V for
-    an attention layer, the conv history and ssm state for a Mamba one."""
-    return [B.block_init_cache(cfg, i, batch, max_len, dtype, device)
-            for i in range(cfg.n_layers)]
+    an attention layer, the latent rows for an MLA one, the conv history
+    and ssm state for a Mamba one.  Sets the gauge
+    ``serve.cache_bytes_per_token``: the bytes the cache made holds a
+    position of a sequence, over every layer (the entries of
+    ``blocks.PER_TOKEN``)."""
+    cache = [B.block_init_cache(cfg, i, batch, max_len, dtype, device)
+             for i in range(cfg.n_layers)]
+    per_token = sum(t.numel() * t.element_size() for layer in cache
+                    for k, t in layer.items() if k in B.PER_TOKEN)
+    tracing.gauge("serve.cache_bytes_per_token",
+                  per_token // max(1, batch * max_len))
+    return cache
 
 
 def reset_cache(cache: list) -> list:

@@ -2238,3 +2238,63 @@ def test_cuda_tracing_train_step_records_every_phase(cuda_device,
     for p in want:
         b = spans[p]["unprofiled"]
         assert b["count"] == b["device_count"] > 0 and b["device_ms"] > 0, p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,pos", [
+    (128, 1024, 0),        # the cell's first position: one live row
+    (128, 1024, 63),       # one whole tile
+    (128, 1024, 64),       # a tile and one row
+    (128, 1024, 700),      # mid-cycle, a ragged last tile
+    (128, 1024, 1023),     # the cell's last position
+    (4, 288, 0),           # a small batch: the sequence cut into chunks
+    (4, 288, 130),
+    (4, 288, 287),
+    (3, 100, 99),          # S no multiple of a tile
+    (2, 500, 499),
+])
+def test_cuda_mla_decode_matches_plain(cuda_device, B, S, pos):
+    """The absorbed-MLA decode kernel against its plain version at
+    Moonlight's widths (16 heads, rows of 576, values of 512): one block a
+    sequence (B 128) and chunks merged by the last block (small B)."""
+    from repro_torch.kernels import mla
+    rng = np.random.default_rng(B * 7 + S + pos)
+    q = _bf16(rng, (B, 16, 576), cuda_device)
+    cache = _bf16(rng, (B, S, 576), cuda_device)
+    scale = 192 ** -0.5
+    got = mla.mla_decode_cuda(q, cache, _pos(pos, cuda_device), scale=scale,
+                              v_dim=512).float()
+    ref = mla.mla_decode_plain(q, cache, pos, scale=scale, v_dim=512).float()
+    # P rounds to bf16 on both sides before the product; sums in another
+    # order; one bf16 rounding of the output
+    torch.testing.assert_close(got, ref, rtol=2e-2, atol=2e-2)
+    # rows past pos are never read: NaN there changes nothing, and the
+    # arrival counters were set back, so a second launch repeats the first
+    cache[:, pos + 1:] = float("nan")
+    again = mla.mla_decode_cuda(q, cache, _pos(pos, cuda_device),
+                                scale=scale, v_dim=512).float()
+    assert torch.equal(again, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S", [(128, 1024), (4, 288)])
+def test_cuda_mla_decode_replays_at_new_positions(cuda_device, B, S):
+    """One captured launch replayed at other positions gives what an eager
+    launch at each gives: nothing of the launch depends on pos."""
+    from repro_torch.kernels import mla
+    rng = np.random.default_rng(S)
+    q = _bf16(rng, (B, 16, 576), cuda_device)
+    cache = _bf16(rng, (B, S, 576), cuda_device)
+    pos = _pos(0, cuda_device)
+    scale = 192 ** -0.5
+    mla.mla_decode_cuda(q, cache, pos, scale=scale, v_dim=512)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = mla.mla_decode_cuda(q, cache, pos, scale=scale, v_dim=512)
+    for p in (5, S // 2, S - 1):
+        pos.fill_(p)
+        graph.replay()
+        eager = mla.mla_decode_cuda(q, cache, _pos(p, cuda_device),
+                                    scale=scale, v_dim=512)
+        assert torch.equal(out, eager), p

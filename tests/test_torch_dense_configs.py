@@ -41,9 +41,20 @@ TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 SLICE_TOL = {"float32": 2e-4, "bfloat16": 2.0 ** -4}
 
 
+# the port's own fields, which the JAX package lacks (MLA, leading dense
+# layers, the sigmoid router): after the reference's, and at their
+# defaults in every configuration the two share
+PORT_ONLY = {"kv_lora_rank": 0, "qk_nope_head_dim": 0, "qk_rope_head_dim": 0,
+             "v_head_dim": 0, "first_k_dense": 0}
+PORT_ONLY_MOE = {"scoring": "softmax", "routed_scale": 1.0}
+
+
 def _fields(cfg) -> dict:
     d = dataclasses.asdict(cfg)
     d["moe"].pop("ep_backend")      # torch_collectives / jax_collectives
+    if type(cfg).__module__.startswith("repro_torch"):
+        assert {k: d.pop(k) for k in PORT_ONLY} == PORT_ONLY
+        assert {k: d["moe"].pop(k) for k in PORT_ONLY_MOE} == PORT_ONLY_MOE
     return d
 
 
@@ -52,7 +63,10 @@ def test_config_matches_reference(arch):
     """Every field, in the reference's order, and the derived counts."""
     got, ref = configs.get_config(arch), jconfigs.get_config(arch)
     assert ([f.name for f in dataclasses.fields(got)]
-            == [f.name for f in dataclasses.fields(ref)])
+            == [f.name for f in dataclasses.fields(ref)] + list(PORT_ONLY))
+    assert ([f.name for f in dataclasses.fields(got.moe)]
+            == [f.name for f in dataclasses.fields(ref.moe)]
+            + list(PORT_ONLY_MOE))
     assert _fields(got) == _fields(ref)
     assert (got.moe.ep_backend, ref.moe.ep_backend) == ("torch_collectives",
                                                         "jax_collectives")

@@ -161,7 +161,8 @@ def test_ops_dispatch_cpu_takes_plain_version():
                                 "decode_attention_paged", "combine_reduce",
                                 "grouped_swiglu_bwd",
                                 "gather_swiglu_scatter_bwd",
-                                "gather_quantize_bwd", "dequantize_bwd"}
+                                "gather_quantize_bwd", "dequantize_bwd",
+                                "mla_decode"}
 
 
 @pytest.mark.parametrize("name", ["grouped_swiglu", "gather_swiglu_scatter",
@@ -171,7 +172,8 @@ def test_ops_dispatch_cpu_takes_plain_version():
                                   "combine_reduce", "decode_attention_paged",
                                   "grouped_swiglu_bwd",
                                   "gather_swiglu_scatter_bwd",
-                                  "gather_quantize_bwd", "dequantize_bwd"])
+                                  "gather_quantize_bwd", "dequantize_bwd",
+                                  "mla_decode"])
 def test_cuda_wrapper_refuses_cpu_tensors(name):
     """A CUDA wrapper launches its kernel or raises: on CPU tensors it
     raises before touching the kernel library and counts no launch."""
@@ -211,6 +213,10 @@ def test_cuda_wrapper_refuses_cpu_tensors(name):
         "dequantize_bwd": lambda: cuda(torch.zeros((4, 16), dtype=torch.int8),
                                        torch.ones((4, 1)),
                                        torch.zeros((4, 16))),
+        "mla_decode": lambda: cuda(
+            torch.zeros((2, 16, 576), dtype=torch.bfloat16),
+            torch.zeros((2, 8, 576), dtype=torch.bfloat16),
+            torch.zeros((), dtype=torch.int32), scale=0.1, v_dim=512),
     }[name]
     with pytest.raises(ValueError):
         args()

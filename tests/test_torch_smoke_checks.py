@@ -175,6 +175,34 @@ def test_gather_quantize_bound_reads_each_named_row_once(dense):
     assert bound_ms == pytest.approx(nbytes / chip_smoke.HBM_BYTES_PER_S * 1e3)
 
 
+@pytest.mark.parametrize("pos", [0, 511, 1023])
+def test_mla_bound_and_library_call(pos):
+    """mla_decode's bound in chip_smoke is the benchmark's frozen one (the
+    live rows, q and the output over the memory rate, at the cell's batch
+    and rows), and its library call (SDPA over the live rows, each row
+    every head's key, its first 512 values the value) computes what the
+    plain version does."""
+    from epbench import roofline_mla
+    from repro_torch.kernels import mla
+    B, S = 128, 1024
+    q = torch.zeros((B, 16, 576), dtype=torch.bfloat16)
+    cache = torch.zeros((B, S, 576), dtype=torch.bfloat16)
+    kw = {"scale": 192 ** -0.5, "v_dim": 512}
+    bound_ms, bound_by, work = chip_smoke.bound(
+        "mla_decode", (q, cache, torch.tensor(pos, dtype=torch.int32)), kw)
+    assert bound_by == "bytes"
+    assert work["live_rows"] == B * (pos + 1)
+    assert bound_ms == pytest.approx(
+        roofline_mla.mla_kernel_bound(B, 16, pos, 576, 512) * 1e3, rel=1e-12)
+    g = torch.Generator().manual_seed(pos)
+    q = torch.randn((2, 16, 576), generator=g)
+    cache = torch.randn((2, 40, 576), generator=g)
+    p = torch.tensor(min(pos, 39), dtype=torch.int32)
+    got = chip_smoke.library_call("mla_decode", (q, cache, p), kw)()
+    want = mla.mla_decode_plain(q, cache, p, **kw)
+    assert torch.allclose(got[:, :, 0], want, atol=1e-5, rtol=1e-5)
+
+
 def test_profile_gap_splits_the_difference_by_activity():
     """profile_gap: the busy time, each kind and each activity of one
     profile against another of the same step, largest excess first,
