@@ -14,12 +14,15 @@ Phases, each printed as one JSON line:
    batch 4, prompt 256, 16 generated tokens on the fp32 wire, then a
    shorter run (4 tokens) on the fp8 wire.  Batched HT prefill
    (``batched_prefill=True``) and LL decode go through the four EP
-   kernels, and their norms and attention
+   kernels and the LL exchange's two (``LL_KERNELS``), and their norms and
+   attention
    (MHA, 16 heads) through the RMSNorm, flash attention and flash decoding
    kernels; ``generate`` captures the decode step in a CUDA graph and
-   replays it.  The launch counts of all seven are set to 0 just before and
+   replays it.  The launch counts of all nine are set to 0 just before and
    read just after, a captured kernel's counted at capture times the
-   replays, and must be > 0;
+   replays, and must be > 0; ``gather_rows`` (fp32 wire), ``dequantize``
+   (fp8 wire, in the captured step) and ``combine_reduce`` launch once a
+   MoE layer a decode step (``ll_decode_launches``);
 4. profile: the fp32 serve once more (run-to-run spread); then
    serve_eager_vs_graph: the fp32 and fp8 serves through the eager step
    (``cuda_graph=False``; decode tokens/s beside the graph's), and their
@@ -170,7 +173,10 @@ Phases, each printed as one JSON line:
    over steps 2-5; peak device memory; the launch counts of the EP kernels
    and their backward kernels, set to 0 just before and read just after
    (``gather_swiglu_scatter`` and its backward > 0).  Then, on the same
-   state, 2 steps with LL (``grouped_swiglu`` and its backward launch) and
+   state, 2 steps with LL (``grouped_swiglu`` and its backward launch, and
+   the LL exchange's ``gather_rows`` and ``combine_reduce``, and
+   ``combine_reduce_bwd`` (``combine_dot`` and the weighted row gather)
+   once a layer a step; HT launches none of the three) and
    2 HT steps on the fp8 wire (``gather_quantize``, ``dequantize`` and
    both wire backwards launch), each counted the same way.  Every loss and
    grad norm finite, the 5 HT steps' last loss below the first; the
@@ -182,14 +188,15 @@ Phases, each printed as one JSON line:
    train_qwen2moe_ep_profile: one HT step under the profiler, and one AdamW
    update of every parameter timed (the kernel, the plain chain and
    ``torch.optim.AdamW(fused=True)``);
-17. kernel (EP backward): each of the four backward kernels on the inputs
+17. kernel (EP backward): each of the five backward kernels on the inputs
    of its first call of each kind in phase 16, against its plain backward
    (``KERNEL_TOL``) and timed as the kernels of phase 6 (the two SwiGLU
    backwards also by pass, ``pass_device_ms``, as the profiled HT step's
    ``ep_backward_passes``), and against
    ``torch.autograd.grad`` through the plain forward on the same inputs
    in fp32 (``autograd_rel_err``, within the same tolerance); then each
-   of the four EP forwards on the inputs of its first call of each kind in
+   of the four EP forwards and the LL exchange's two on the inputs of its
+   first call of each kind in
    phase 16 (the training shapes), against its plain version within its
    ``KERNEL_TOL`` and timed, the cases joining its entry of phase 6.
 
@@ -317,7 +324,21 @@ Phases, each printed as one JSON line:
    kernel (MLA): ``mla_decode`` on those inputs and at the
    moonlight-decode-ll-fp8 cell's shapes (``MLA_CELL_*``: batch 128, a
    1024-row cache, positions 0, 511, 1023) against its plain version,
-   timed beside its bound, the plain version and SDPA over the live rows.
+   timed beside its bound, the plain version and SDPA over the live rows;
+26. ll-exchange (after phase 25; ``ll_exchange_phase``): the LL exchange at
+   the two decode cells' shapes (``LL_CELLS``: qwen2-moe's (64, 128, 2048)
+   receive buffer at K 4 on the fp32 wire, Moonlight's (64, 192, 2048) at
+   K 6 on the fp8 wire), the cells' weights drawn as epbench draws them:
+   one eager decode step at batch 128 launches the wire's kernels and
+   ``combine_reduce`` once a MoE layer and no other LL kernel, and adds
+   one a layer to the counter ``ep.ll_exchanges`` (``ep.ll_recv_rows`` E P
+   C); on every layer's inputs the expert function's rows and counts are
+   the all-to-all composition's (``all_to_all_ll_exchange``) bit for bit
+   and the
+   output within one bf16 rounding; the kernels of layer 0's exchange
+   against their plain versions bit for bit and timed, joining their
+   entries; and the exchange without experts, through the all-to-all and
+   in the receive layout, on the device in turns.
 
 The lint phase (right after the build): ``repro_torch.analysis.lint``
 over the port's package, its CUDA sources' occupancy rule included; any
@@ -328,7 +349,7 @@ decode and HT prefill shapes over the EP world of 4, with the router as
 made and skewed so that HT drops, on the card bit for bit the CPU's, every
 field and the world's scalar ``n_dropped``.
 
-Then the kernels line ``{"kernels": [...]}`` (all nineteen kernels, AdamW's last), the
+Then the kernels line ``{"kernels": [...]}`` (all twenty-one kernels, AdamW's last), the
 nvidia-smi line, and as the last line ``{"ok": true, "device": {...}}``.
 Any failed check raises and the exit code is not 0.  Without a CUDA
 device, or without the rest of the repository beside it, it exits
@@ -344,6 +365,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -359,7 +381,7 @@ L2_BYTES = 50 * 2 ** 20
 COLD_CACHES = 8
 COLD_ARGS = {"decode_attention": (1, 2), "mla_decode": (1,), "rmsnorm": (0,),
              "combine_reduce": (0,), "decode_attention_paged": (1, 2),
-             "flash_attention": (0, 1, 2)}
+             "flash_attention": (0, 1, 2), "gather_rows": (0,)}
 
 KERNEL_INFO = {  # name: (source, the TPU kernel it replaces)
     "grouped_swiglu": ("src/repro_torch/csrc/grouped_swiglu.cu",
@@ -402,11 +424,22 @@ KERNEL_INFO = {  # name: (source, the TPU kernel it replaces)
                        "src/repro/kernels/quantize_pack.py:161"),
     # the TPU package has no MLA
     "mla_decode": ("src/repro_torch/csrc/mla_decode.cu", None),
+    # the TPU package has no such kernel: its LL dispatch gathers a send
+    # buffer and moves it through an all-to-all (src/repro/core/ep.py)
+    "gather_rows": ("src/repro_torch/csrc/gather_rows.cu", None),
+    # the gradient of combine_reduce (the TPU package differentiates its
+    # oracle): gather_rows's weighted form and combine_dot
+    "combine_reduce_bwd": ("src/repro_torch/csrc/combine_reduce.cu",
+                           "src/repro/kernels/combine_reduce.py:22"),
 }
 EP_BWD_KERNELS = ("gather_swiglu_scatter_bwd", "grouped_swiglu_bwd",
-                  "gather_quantize_bwd", "dequantize_bwd")
+                  "gather_quantize_bwd", "dequantize_bwd",
+                  "combine_reduce_bwd")
 EP_KERNELS = ("grouped_swiglu", "gather_swiglu_scatter", "gather_quantize",
               "dequantize")
+# the LL exchange's own kernels, beside the wire's: the row gather into the
+# receive layout and the combine read where the experts left their rows
+LL_KERNELS = ("gather_rows", "combine_reduce")
 NORM_ATTN_KERNELS = ("rmsnorm", "flash_attention", "decode_attention")
 # max |kernel - plain| allowed, as a fraction of max |plain| (None: bitwise);
 # for ROW_KERNELS, of each output row's own max |plain|
@@ -454,6 +487,14 @@ KERNEL_TOL = {
     # the same values at the same absmax elements; fp32 atomics add a row's
     # slots in any order
     "gather_quantize_bwd": 1e-5,
+    # a copy, past a count zero stores; the weighted form's fp32 product
+    # rounded once on both sides
+    "gather_rows": None,
+    # per gradient: the rows' bit for bit (gather_rows's weighted form), the
+    # weights' fp32 sums over D in another order; against autograd through
+    # the plain forward in fp32, each gradient lies one rounding to its
+    # bf16 dtype (at most 2^-9 of a value) away
+    "combine_reduce_bwd": 2.0 ** -8,
 }
 # kernels held row by row (a normed row; one query's head): a causal row
 # averages the values of every key it sees, so its magnitude falls with
@@ -652,6 +693,19 @@ ENGINE_REQUESTS, ENGINE_B_REQUESTS = 16, 8
 ENGINE_LENGTHS = dict(seed=7, prompt_len=(24, 48), gen_len=(8, 32))
 ENGINE_CPU_STEPS = 2     # run A's first steps repeated with the experts on the CPU
 ENGINE_PATH = "qwen2_moe_a2_7b serving engine"
+# ll-exchange: the LL exchange at the two decode cells' shapes (epbench's
+# cells and their weights, drawn from this seed): an EP world of 4 ranks of
+# 128 tokens, 64 experts; qwen2-moe at K 4 on the fp32 wire (a receive
+# buffer of (64, 128, 2048)), Moonlight at K 6 on the fp8 wire ((64, 192,
+# 2048))
+LL_CELLS = ("qwen2moe-decode-ll", "moonlight-decode-ll-fp8")
+LL_CELL_SEED = 3_700_000_037
+# the kernels an LL exchange may launch, and the wire's own
+LL_EXCHANGE_KERNELS = ("gather_rows", "gather_quantize", "dequantize",
+                       "combine_reduce", "combine_reduce_bwd")
+LL_WIRE_KERNELS = {"fp32": ("gather_rows",),
+                   "fp8": ("gather_quantize", "dequantize"),
+                   "int8": ("gather_quantize", "dequantize")}
 
 
 def emit(obj) -> None:
@@ -681,13 +735,24 @@ class Recorder:
         self.fn, self.cases, self.weights = fn, {}, weights
 
     def __call__(self, *args, **kwargs):
-        key = (tuple(tuple(a.shape) if hasattr(a, "shape") else None
-                     for a in args), tuple(sorted(kwargs.items())))
+        key = (tuple(tuple(a.shape) if hasattr(a, "shape") else
+                     a if _is_dtype(a) else None for a in args),
+               tuple(sorted((k, tuple(v.shape) if hasattr(v, "shape") else v)
+                            for k, v in kwargs.items())))
         if key not in self.cases:
-            self.cases[key] = (tuple(
-                a if not hasattr(a, "clone") or a.data_ptr() in self.weights
-                else a.detach().clone() for a in args), dict(kwargs))
+            self.cases[key] = (tuple(self._keep(a) for a in args),
+                               {k: self._keep(v) for k, v in kwargs.items()})
         return self.fn(*args, **kwargs)
+
+    def _keep(self, a):
+        if not hasattr(a, "clone") or a.data_ptr() in self.weights:
+            return a
+        return a.detach().clone()
+
+
+def _is_dtype(a) -> bool:
+    import torch
+    return isinstance(a, torch.dtype)
 
 
 def ulp(t):
@@ -797,13 +862,38 @@ def bound(name: str, args, kwargs) -> tuple[float, str, dict]:
         nbytes = rows * K * 2 + groups * K * N * 2 + G * M * N * 2 + G * 4
         t_ops = 2.0 * K * N * rows / BF16_FLOP_PER_S
         work = {"occupied_rows": rows, "occupied_groups": groups}
-    elif name == "combine_reduce":
+    elif name == "combine_reduce" and kwargs.get("sel") is None:
         parts, w = args
         T, K, D = parts.shape
         nbytes = (parts.numel() * parts.element_size()
                   + w.numel() * w.element_size() + T * D * parts.element_size())
         t_ops = 2.0 * T * K * D / FP32_FLOP_PER_S
         work = {"tokens": T, "parts": K}
+    elif name == "combine_reduce":
+        # the gathered form: the rows the live slots name, the weights and
+        # the slots read, the output written
+        rows, w = args
+        sel = kwargs["sel"]
+        (T, K), (N, D) = sel.shape, rows.shape
+        out_size = (kwargs.get("out_dtype") or rows.dtype).itemsize
+        kept = int(((sel >= 0) & (sel < N)).sum())
+        nbytes = (kept * D * rows.element_size()
+                  + T * K * (w.element_size() + 4) + T * D * out_size)
+        t_ops = 2.0 * kept * D / FP32_FLOP_PER_S
+        work = {"tokens": T, "parts": K, "kept_rows": kept}
+    elif name == "gather_rows":
+        # the live rows read, every row written, the indices and counts
+        # read (and a live row's weight)
+        table, src, counts = args[:3]
+        w = args[3] if len(args) > 3 else None
+        from repro_torch.kernels.gather_rows import live_rows
+        n, D = src.shape[0], table.shape[1]
+        live = int(live_rows(src, counts, table.shape[0]).sum())
+        nbytes = ((live + n) * D * table.element_size() + n * 4
+                  + (0 if counts is None else counts.numel() * 4)
+                  + (0 if w is None else live * 4))
+        t_ops = (0.0 if w is None else live * D) / FP32_FLOP_PER_S
+        work = {"rows": n, "live_rows": live}
     elif name in ("grouped_swiglu", "grouped_swiglu_db",
                   "gather_swiglu_scatter"):
         if name != "gather_swiglu_scatter":
@@ -840,10 +930,19 @@ def bound(name: str, args, kwargs) -> tuple[float, str, dict]:
         work = {"slots": n, "occupied_slots": rows,
                 "table_rows_read": table_rows}
     else:
-        q, scales = args
-        nbytes = q.numel() * 5 + scales.numel() * 4
-        t_ops = 1.0 * q.numel() / FP32_FLOP_PER_S
-        work = {"elements": q.numel()}
+        # dequantize: the occupied rows' bytes and scales read (every row's
+        # without counts), every row written in the output dtype
+        from repro_torch.kernels.quantize_pack import _occupied_slots
+        q, scales = args[:2]
+        counts = args[2] if len(args) > 2 else None
+        out_size = (args[3] if len(args) > 3 else torch.float32).itemsize
+        N, D = q.shape
+        rows = N if counts is None else int(_occupied_slots(q, counts).sum())
+        nbytes = (rows * (D * q.element_size() + scales.shape[1] * 4)
+                  + N * D * out_size
+                  + (0 if counts is None else counts.numel() * 4))
+        t_ops = 1.0 * rows * D / FP32_FLOP_PER_S
+        work = {"elements": q.numel(), "rows": N, "occupied_rows": rows}
     t_bytes = nbytes / HBM_BYTES_PER_S
     work["bytes"] = nbytes
     if t_bytes >= t_ops:
@@ -908,6 +1007,21 @@ def ep_bwd_bound(name: str, args, kwargs) -> tuple[float, str, dict]:
         nbytes = q.numel() * 5 + scales.numel() * 4
         t_ops = 2.0 * q.numel() / FP32_FLOP_PER_S
         work = {"elements": q.numel()}
+    elif name == "combine_reduce_bwd":
+        # dout read; the rows the live slots name read (their dots), every
+        # row's gradient written; the slots, the weights and their
+        # gradient, and the slots' inverse (a source and a weight a row)
+        parts, w, sel, dout = args
+        rows = parts.reshape(-1, parts.shape[-1]) if sel is None else parts
+        N, D = rows.shape
+        T, K = w.shape
+        kept = (T * K if sel is None
+                else int(((sel >= 0) & (sel < N)).sum()))
+        nbytes = (T * D * dout.element_size()
+                  + (kept + N) * D * rows.element_size()
+                  + T * K * (4 + 2 * w.element_size()) + N * 8)
+        t_ops = 4.0 * kept * D / FP32_FLOP_PER_S
+        work = {"rows": N, "kept_rows": kept}
     else:
         x_ext, src, counts, d_scales = args
         rows, table_rows = named_table_rows(x_ext, src, counts)
@@ -1035,13 +1149,22 @@ def library_call(name: str, args, kwargs):
         import torch
         x, w = args[:2]
         return lambda: torch.bmm(x, w)
-    if name == "combine_reduce":
+    if name == "combine_reduce" and kwargs.get("sel") is None:
         # one batched GEMV; bmm takes one dtype, so the weights are cast to
         # the parts' dtype beforehand (rounded, where they are fp32)
         import torch
         parts, w = args
         wc = w.to(parts.dtype)[:, None, :]
         return lambda: torch.bmm(wc, parts)
+    if name == "gather_rows" and len(args) == 3:
+        # the table with a zero row appended (``core/ep.py::_ext``), then
+        # indexed: where every slot past its count names that row, as the
+        # LL plan's receive-order table does, the same rows
+        import torch
+        table, src, _ = args
+        idx = src.to(torch.int64)
+        zero = table.new_zeros((1, table.shape[1]))
+        return lambda: torch.cat([table, zero])[idx]
     return None
 
 
@@ -1057,6 +1180,9 @@ def check_case(name, args, kwargs) -> dict:
     pairs = list(zip(got, ref)) if isinstance(got, tuple) else [(got, ref)]
     tol = KERNEL_TOL[name]
     err = rel = 0.0
+    bit_equal = all(g.dtype == r.dtype and g.shape == r.shape and torch.equal(
+        g.reshape(-1).view(torch.uint8), r.reshape(-1).view(torch.uint8))
+        for g, r in pairs)
     for g, r in pairs:
         if tol == "ulp":
             over = (g.float() - r.float()).abs() > ulp(r)
@@ -1096,8 +1222,8 @@ def check_case(name, args, kwargs) -> dict:
     dev_ms = device_ms(lambda: cuda(*args, **kwargs),
                        floor_ms=hbm_floor_ms(work["bytes"]))
     case = {"shapes": [list(a.shape) for a in args if hasattr(a, "shape")],
-            "max_abs_err": err, "max_rel_err": rel, "ms": ms,
-            "device_ms": dev_ms, "device_traces": device_ms.last,
+            "max_abs_err": err, "max_rel_err": rel, "bit_equal": bit_equal,
+            "ms": ms, "device_ms": dev_ms, "device_traces": device_ms.last,
             "plain_ms": cuda_ms(lambda: plain(*args, **kwargs)),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "bound_share": bound_ms / ms,
@@ -2270,7 +2396,7 @@ def train_ep_phase(dev) -> tuple[list, dict, dict, "TrainState", dict]:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in tree_leaves(state.params))
-    names = EP_KERNELS + EP_BWD_KERNELS
+    names = EP_KERNELS + LL_KERNELS + EP_BWD_KERNELS
     cudas = {**{n: ops.KERNELS[n][0] for n in names},
              "adamw": fused.adamw_cuda}
     recs, restore = recording(names)
@@ -2309,7 +2435,8 @@ def train_ep_phase(dev) -> tuple[list, dict, dict, "TrainState", dict]:
     losses = [h["loss"] for h in hist]
     gnorms = [h["grad_norm"] for h in hist]
     needed = {"ht": ("gather_swiglu_scatter", "gather_swiglu_scatter_bwd"),
-              "ll": ("grouped_swiglu", "grouped_swiglu_bwd"),
+              "ll": ("grouped_swiglu", "grouped_swiglu_bwd", "gather_rows",
+                     "combine_reduce", "combine_reduce_bwd"),
               "fp8": ("gather_quantize", "dequantize", "gather_quantize_bwd",
                       "dequantize_bwd")}
     for run, ks in needed.items():
@@ -2317,6 +2444,18 @@ def train_ep_phase(dev) -> tuple[list, dict, dict, "TrainState", dict]:
             if runs[run][k] <= 0:
                 raise AssertionError(f"kernel {k} was not launched by the "
                                      f"{run} training steps")
+    # LL's backward: combine_dot once a MoE layer a step (counted by
+    # combine_reduce_bwd), which calls the weighted row gather; each
+    # forward's row gather (the recompute's too) has its combine, and the
+    # weighted gather the combine that is the row gather's backward.  HT
+    # launches none of the three
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+    ll = runs["ll"]
+    if (ll["combine_reduce_bwd"] != n_moe * EP_TRAIN_MORE_STEPS
+            or ll["gather_rows"] != ll["combine_reduce"]
+            or any(runs[r][k] for r in ("ht", "fp8")
+                   for k in LL_KERNELS + ("combine_reduce_bwd",))):
+        raise AssertionError(f"the LL exchange's kernels launched {runs}")
     extra = [d for m in more for d in m["steps_detail"]]
     if not all(map(math.isfinite, losses + gnorms
                    + [d[k] for d in extra for k in ("loss", "grad_norm")])):
@@ -2566,6 +2705,12 @@ def autograd_grads(name: str, args, kwargs) -> tuple:
                     (0, 2, 3, 4, 5), args[7])
     if name == "dequantize_bwd":
         return grad(qp.dequantize_plain, args[:2], (1,), args[2])
+    if name == "combine_reduce_bwd":
+        from repro_torch.kernels import combine_reduce as cr
+        parts, w, sel, dout = args
+        return grad(lambda p, v: cr.combine_reduce_plain(p, v, sel,
+                                                         torch.float32),
+                    (parts, w), (0, 1), dout)
     return grad(lambda x, s, c: qp.gather_quantize_plain(
         x, s, c, **kwargs)[1], args[:3], (0,), args[3])
 
@@ -3545,6 +3690,246 @@ def serve_moonlight(dev) -> dict:
           f"layers), and the cell's shapes (batch {Bc}, {Sc} rows, "
           f"pos {list(MLA_CELL_POS)})", **entry})
     return entry
+
+
+class AllToAllLL(NamedTuple):
+    """What :func:`all_to_all_ll_exchange` returns."""
+
+    out: "torch.Tensor"      # (R, T, D) in x's dtype
+    recv: "torch.Tensor"     # (E, P*C, D): the expert function's input rows
+    counts: "torch.Tensor"   # (E, P): its occupied rows a source rank
+    parts: "torch.Tensor"    # (R*T, K, D): the rows the combine summed, a
+                             # dropped choice's zero
+
+
+def all_to_all_ll_exchange(spec, x, top_idx, top_w,
+                           expert_fn) -> AllToAllLL:
+    """The LL exchange composed from tensor moves instead of written into
+    the receive layout: a send buffer in send order (``_ext(x)[src]``, or on the
+    fp8/int8 wire ``gather_quantize`` of it, all-to-all'd as bytes and
+    scales, dequantized to fp32 and cast), the rank-stacked all-to-all, the
+    expert-major transpose, the experts, back through the transpose and the
+    all-to-all, each kept choice's row gathered and its weight applied in
+    fp32, a sum over K.  The oracle the receive layout is held to: the
+    expert function must see ``recv`` bit for bit."""
+    import torch
+
+    from repro_torch.core import ep
+    from repro_torch.core import plan as planlib
+    from repro_torch.kernels import ops
+    R, T, D = x.shape
+    K = spec.top_k
+    E, P, eps = spec.n_physical, spec.degree, spec.physical_per_shard
+    C = ep._cap(T * K / E, spec.capacity_factor, hard_max=T * K)
+    if spec.placement_obj() is not None:
+        top_idx = planlib.split_to_physical_world(spec.placement_obj(),
+                                                  top_idx)
+    pl = ep._ll_plan(spec, top_idx, C)
+    axis = spec.flat_axis()
+    if spec.wire_dtype == "fp32":
+        send = ep._ext(x, spec.dtype)[pl.src].reshape(R, P, eps * C, D)
+        recv = ep._all_to_all(spec, send, axis)
+    else:
+        q, sc = ops.gather_quantize(ep._ext(x, torch.float32),
+                                    pl.src.reshape(-1), pl.cnt.reshape(-1),
+                                    wire_dtype=spec.wire_dtype)
+        nb = sc.shape[1]
+        qr = ep._all_to_all(spec, q.view(torch.uint8).reshape(
+            R, P, eps * C, D), axis)
+        sr = ep._all_to_all(spec, sc.reshape(R, P, eps * C, nb), axis)
+        recv = ops.dequantize_tokens(qr.reshape(-1, D).view(q.dtype),
+                                     sr.reshape(-1, nb)).to(
+            spec.dtype).reshape(R, P, eps * C, D)
+    recv = recv.reshape(R, P, eps, C, D).transpose(1, 2).reshape(E, P * C, D)
+    counts = ep._all_to_all(spec, pl.cnt.reshape(R, P, eps), axis)
+    counts = counts.transpose(1, 2).reshape(E, P)
+    out_e = expert_fn(recv, counts)
+    back = out_e.reshape(R, eps, P, C, D).transpose(1, 2).reshape(
+        R, P, eps * C, D)
+    back = ep._all_to_all(spec, back, axis).reshape(R, E * C, D)
+    wp = planlib.make_world_plan(top_idx, E, C)
+    keep = wp.keep.reshape(R, T * K)
+    sel = torch.where(keep, top_idx.reshape(R, T * K) * C
+                      + wp.rank.reshape(R, T * K), 0).to(torch.int64)
+    parts = torch.gather(back, 1, sel[..., None].expand(R, T * K, D))
+    parts = torch.where(keep[..., None], parts, parts.new_zeros(()))
+    w_flat = torch.where(keep, top_w.reshape(R, T * K).float(), 0.0)
+    contrib = torch.where(keep[..., None],
+                          parts.float() * w_flat[..., None], 0.0)
+    return AllToAllLL(contrib.reshape(R, T, K, D).sum(2).to(x.dtype), recv,
+                    counts, parts.reshape(R * T, K, D))
+
+
+def ll_identity(tokens, counts):
+    """An expert function that returns its rows: the exchange alone."""
+    return tokens
+
+
+def ll_record(cell: str, dev):
+    """One eager decode step of decode cell ``cell`` (its configuration,
+    traffic and weights as epbench draws them from ``LL_CELL_SEED``) at
+    position 0 over the cell's first prompt tokens, the launches of the
+    kernels of ``LL_EXCHANGE_KERNELS`` and the counter ``ep.ll_exchanges``
+    read just before and just after.
+    Returns (cfg, every MoE layer's ``dispatch_combine_ll`` arguments
+    (spec, x, top_idx, top_w), the launches, the counter's increase, the
+    gauge ``ep.ll_recv_rows``)."""
+    import torch
+
+    from epbench import common, weights, weights_mla
+    from epbench import run as R
+    from epbench.traffic.decode import prompts
+    from repro_torch import tracing
+    from repro_torch.core import ep
+    from repro_torch.distributed.sharding import make_dist_ctx
+    from repro_torch.kernels import ops
+    from repro_torch.models import model_zoo as Z
+    c, conf, traffic, _ = R.prepare(cell, common.benchmark())
+    ctx = R.make_context(c, conf, traffic, dev, LL_CELL_SEED, 1.0, False)
+    cfg, tr = ctx.cfg, ctx.traffic
+    gen = weights_mla if cfg.mla else weights
+    params = gen.make_params(cfg, LL_CELL_SEED, dev, torch.bfloat16)
+    dist = make_dist_ctx(cfg, model=tr["ep_world"])
+    B = tr["batch"]
+    cache = Z.init_cache(cfg, B, tr["prompt_len"] + tr["gen_len"],
+                         dtype=torch.bfloat16, device=dev)
+    tok = prompts(LL_CELL_SEED, 0, B, tr["prompt_len"], cfg.vocab_size,
+                  dev)[:, :1]
+    seen = []
+    real = ep.dispatch_combine_ll
+
+    def rec(spec, x, top_idx, top_w, expert_fn):
+        seen.append((spec, x.clone(), top_idx.clone(), top_w.clone()))
+        return real(spec, x, top_idx, top_w, expert_fn)
+
+    def step():
+        Z.decode_step(cfg, params, cache, tok,
+                      torch.zeros((), dtype=torch.int32, device=dev),
+                      dist=dist, moe_mode="ll")
+    with torch.inference_mode():
+        step()                                  # warm: first launches
+        torch.cuda.synchronize()
+        n0 = tracing.snapshot()["counters"].get("ep.ll_exchanges", 0)
+        before = ops.launch_counts()
+        ep.dispatch_combine_ll = rec
+        try:
+            step()
+        finally:
+            ep.dispatch_combine_ll = real
+        after = ops.launch_counts()
+        torch.cuda.synchronize()
+    launches = {n: after[n] - before[n] for n in LL_EXCHANGE_KERNELS}
+    snap = tracing.snapshot()
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return (cfg, seen, launches,
+            snap["counters"].get("ep.ll_exchanges", 0) - n0,
+            snap["gauges"].get("ep.ll_recv_rows"))
+
+
+def ll_exchange_phase(dev, kernels) -> None:
+    """ll-exchange: the LL exchange at each decode cell's shapes
+    (``LL_CELLS``).  One eager decode step (``ll_record``): one launch a MoE
+    layer of the wire's kernels (``LL_WIRE_KERNELS``) and of
+    ``combine_reduce``, none of the others of ``LL_EXCHANGE_KERNELS``;
+    ``ep.ll_exchanges`` up by one a layer, ``ep.ll_recv_rows`` E P C.  On
+    every layer's recorded inputs ``dispatch_combine_ll`` against the
+    all-to-all composition (``all_to_all_ll_exchange``): the expert
+    function's
+    rows and counts bit for bit, the output within one bf16 rounding.  The
+    kernels' calls in layer 0's exchange against their plain versions bit
+    for bit and timed (``add_cases``: the cell's cases join the kernels'
+    entries), and the exchange without experts (``ll_identity``) both
+    ways, in turns, on the device."""
+    import torch
+
+    from repro_torch.core import ep
+    for cell in LL_CELLS:
+        cfg, layers, launches, exchanges, recv_rows = ll_record(cell, dev)
+        spec = layers[0][0]
+        n_moe = len(layers)
+        R, T, D = layers[0][1].shape
+        C = ep._cap(T * spec.top_k / spec.n_physical, spec.capacity_factor,
+                    hard_max=T * spec.top_k)
+        used = LL_WIRE_KERNELS[spec.wire_dtype] + ("combine_reduce",)
+        want = {n: n_moe if n in used else 0 for n in LL_EXCHANGE_KERNELS}
+        if (launches != want or exchanges != n_moe
+                or recv_rows != spec.n_physical * spec.degree * C):
+            raise AssertionError(
+                f"{cell}: one decode step launched {launches} (want {want}), "
+                f"counted {exchanges} LL exchanges over {n_moe} MoE layers, "
+                f"ep.ll_recv_rows {recv_rows}")
+        rows_equal, worst = True, 0.0
+        with torch.inference_mode():
+            for spec_l, x, top, w in layers:
+                seen = []
+
+                def grab(tokens, counts, seen=seen):
+                    seen.append((tokens.clone(), counts.clone()))
+                    return tokens
+                got = ep.dispatch_combine_ll(spec_l, x, top, w, grab).out
+                ref = all_to_all_ll_exchange(spec_l, x, top, w, ll_identity)
+                rows_equal &= (torch.equal(seen[0][0].view(torch.int16),
+                                           ref.recv.view(torch.int16))
+                               and torch.equal(seen[0][1], ref.counts))
+                g, r = got.float(), ref.out.float()
+                # one bf16 rounding apart, past what fp32 sums taken in
+                # another order leave where they cancel (1e-5 of the largest)
+                worst = max(worst, float(((g - r).abs() / (
+                    r.abs() + 1e-5 * 2.0 ** 7 * r.abs().max())).max()))
+        if not (rows_equal and worst <= 2.0 ** -7):
+            raise AssertionError(f"{cell}: the expert rows equal the "
+                                 f"all-to-all's: {rows_equal}; outputs "
+                                 f"{worst} of a value apart")
+        names = LL_WIRE_KERNELS[spec.wire_dtype][-1:] + ("combine_reduce",)
+        recs, restore = recording(names)
+        try:
+            with torch.inference_mode():
+                ep.dispatch_combine_ll(*layers[0], ll_identity)
+        finally:
+            restore()
+        line = {"phase": "ll-exchange", "cell": cell, "model": cfg.arch_id,
+                "moe_layers": n_moe, "ep_world": spec.degree,
+                "tokens_a_rank": T, "top_k": spec.top_k,
+                "experts": spec.n_physical, "capacity": C,
+                "wire": spec.wire_dtype, "seed": LL_CELL_SEED,
+                "launches_a_step": launches, "ll_exchanges": exchanges,
+                "ll_recv_rows": recv_rows, "expert_rows_bit_equal": True,
+                "out_max_rel_diff": worst}
+        for n in names:
+            entry = next(k for k in kernels if k["name"] == n)
+            more = add_cases(entry, recs[n].cases.values(),
+                             path=f"{cell} (layer 0)", launches=n_moe)
+            if not all(c["bit_equal"] for c in more):
+                raise AssertionError(f"{cell}: {n} is not its plain "
+                                     "version bit for bit")
+            line[n] = [{k: c.get(k) for k in (
+                "shapes", "ms", "device_ms", "cold_device_ms", "bound_ms",
+                "bound_by", "plain_ms", "library_ms", "library_device_ms",
+                "library_cold_device_ms", "work")} for c in more]
+        x0 = layers[0]
+        ways = {"all_to_all": lambda: all_to_all_ll_exchange(*x0,
+                                                              ll_identity),
+                "receive_layout": lambda: ep.dispatch_combine_ll(
+                    *x0, ll_identity)}
+        turns = []
+        with torch.inference_mode():
+            for way in ("all_to_all", "receive_layout", "receive_layout",
+                        "all_to_all"):
+                prof = profile_step(f"{cell} layer 0's exchange ({way})",
+                                    ways[way])
+                turns.append({"way": way, "device_ms": device_ms(ways[way]),
+                              "ms": cuda_ms(ways[way]),
+                              "device_busy_ms": prof["device_busy_ms"],
+                              "device_activities": prof["device_activities"],
+                              "top_device": prof["top_device"]})
+        line["exchange_without_experts"] = turns
+        line["card"] = nvidia_smi()
+        emit(line)
+        del layers, recs
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def dense_plain_check(cfg, params, prompts) -> dict:
@@ -5016,6 +5401,9 @@ def main() -> int:
     kernels.append(serve_moonlight(dev))
     gc.collect()
     torch.cuda.empty_cache()
+    ll_exchange_phase(dev, kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
     kernels += serve_qwen3(dev)
     # rmsnorm's entry holds falcon-mamba's D 4096 decode rows too
     rms = next(k for k in kernels if k["name"] == "rmsnorm")
@@ -5058,7 +5446,7 @@ def main() -> int:
     for k in ep_kernels:
         emit({"phase": "kernel", "path": "qwen2_moe_a2_7b training", **k})
     # the forwards at the training shapes, held in their serving entries
-    for n in EP_KERNELS:
+    for n in EP_KERNELS + LL_KERNELS:
         cases = list(ep_recs.pop(n).cases.values())
         if not cases:
             raise RuntimeError(f"{n}: the training path never called it")
@@ -5103,6 +5491,36 @@ def main() -> int:
     return 0
 
 
+def ll_decode_launches(cfg, res, res8, after_fp32, launches) -> None:
+    """The served decode's LL exchange: one launch a MoE layer a decode
+    step (the capture's warm-up steps and every replay) of ``gather_rows``
+    on the fp32 wire (``res``) and of ``combine_reduce`` on both wires, none
+    of ``gather_rows`` on the fp8 wire (``res8``: its captured step launches
+    ``dequantize`` once a layer instead); ``after_fp32`` and ``launches``:
+    the counts after the fp32 run and after both."""
+    from repro_torch.launch.serve import WARMUP_STEPS
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+    fp8 = {n: launches[n] - after_fp32[n] for n in launches}
+    got = {"fp32": {n: after_fp32[n] for n in LL_KERNELS},
+           "fp8": {n: fp8[n] for n in LL_KERNELS},
+           "fp32_captured": {n: res["captured_launches"].get(n, 0)
+                             for n in LL_KERNELS + ("dequantize",)},
+           "fp8_captured": {n: res8["captured_launches"].get(n, 0)
+                            for n in LL_KERNELS + ("dequantize",)}}
+    steps = {w: WARMUP_STEPS + r["graph_replays"]
+             for w, r in (("fp32", res), ("fp8", res8))}
+    want = {"fp32": {"gather_rows": n_moe * steps["fp32"],
+                     "combine_reduce": n_moe * steps["fp32"]},
+            "fp8": {"gather_rows": 0, "combine_reduce": n_moe * steps["fp8"]},
+            "fp32_captured": {"gather_rows": n_moe, "combine_reduce": n_moe,
+                              "dequantize": 0},
+            "fp8_captured": {"gather_rows": 0, "combine_reduce": n_moe,
+                             "dequantize": n_moe}}
+    if got != want:
+        raise AssertionError(f"the served LL decode launched {got}, not one "
+                             f"a MoE layer a step: {want}")
+
+
 def serve_phases(dev) -> list:
     """The serving path and its checks (phases 3-7); returns the EP
     kernels' entries of the kernels line."""
@@ -5133,9 +5551,11 @@ def serve_phases(dev) -> list:
              batched_prefill=True)
     torch.cuda.synchronize()
 
-    # the EP kernels, and the norm and attention kernels the serving blocks
-    # share with qwen3 (here MHA: 16 heads, 16 kv heads)
-    originals = {n: ops.KERNELS[n] for n in EP_KERNELS + NORM_ATTN_KERNELS}
+    # the EP kernels (the LL exchange's too), and the norm and attention
+    # kernels the serving blocks share with qwen3 (here MHA: 16 heads, 16 kv
+    # heads)
+    originals = {n: ops.KERNELS[n]
+                 for n in EP_KERNELS + LL_KERNELS + NORM_ATTN_KERNELS}
     recorders = {n: Recorder(c) for n, (c, _) in originals.items()}
     for n, (c, p) in originals.items():
         ops.KERNELS[n] = (recorders[n], p)
@@ -5160,6 +5580,7 @@ def serve_phases(dev) -> list:
     for n, k in launches.items():
         if k <= 0:
             raise AssertionError(f"kernel {n} was not launched on the main path")
+    ll_decode_launches(cfg, res, res8, after_fp32, launches)
     for r, n_gen in ((res, N_GEN), (res8, N_GEN_FP8)):
         if r["tokens"].shape != (B, n_gen) or not torch.isfinite(
                 r["logits"]).all():
@@ -5219,10 +5640,28 @@ def serve_phases(dev) -> list:
     # the prefill's HT call leads where the path makes one (the largest
     # first argument); the capture's LL calls came first
     kernels = [check_kernel(n, recorders[n], launches,
-                            lead=lambda a: a[0].numel()) for n in EP_KERNELS]
+                            lead=lambda a: a[0].numel())
+               for n in EP_KERNELS + ("gather_rows",)]
     kernels += new_kernels
     for k in kernels:
         emit({"phase": "kernel", **k})
+    # the LL decode's gathered combine joins the (T, K, D) form's entry; the
+    # LL exchange's calls (and the counted dequantize's) bit for bit
+    ll_path = "qwen2_moe_a2_7b LL decode (batch 4)"
+    more = add_cases(cr_kernel, recorders["combine_reduce"].cases.values(),
+                     path=ll_path, launches=launches["combine_reduce"])
+    emit({"phase": "kernel", "path": ll_path,
+          **{k: v for k, v in cr_kernel.items() if k != "cases"},
+          "cases": more})
+    ll_cases = [*more, *next(k for k in kernels
+                             if k["name"] == "gather_rows")["cases"],
+                *(c for c in next(k for k in kernels
+                                  if k["name"] == "dequantize")["cases"]
+                  if "occupied_rows" in c["work"]
+                  and c["work"]["occupied_rows"] < c["work"]["rows"])]
+    if not all(c["bit_equal"] for c in ll_cases):
+        raise AssertionError("an LL exchange kernel is not its plain version "
+                             "bit for bit")
     # the norm and attention kernels at this path's shapes; the kernels
     # line carries their entries from the qwen3 path
     with torch.inference_mode():

@@ -3,7 +3,7 @@ port of ``repro.core.ep``.
 
 Two modes, mirroring the paper (§3.3) and the JAX package:
 
-- **LL (low latency)**: one-shot capacity-bucketed all-to-all per choice
+- **LL (low latency)**: one-shot capacity-bucketed dispatch per choice
   (token, expert); used for decode.
 - **HT (high throughput)**: chunked dispatch with token deduplication and
   hierarchical reduce: a token routed to several experts of one
@@ -15,7 +15,15 @@ The rank-stacked world.  The JAX package runs these functions inside
 sit on a leading tensor axis of one device: every per-rank tensor is
 ``(R, ...)``.  A tiled ``all_to_all(split 0, concat 0)`` over an EP axis is
 a transpose of the (source, destination) block axes (:func:`_all_to_all`),
-and ``psum`` over the EP axes is a sum over the rank axis.  Ranks of a
+and ``psum`` over the EP axes is a sum over the rank axis.  HT moves its
+payloads through that transpose.  LL writes into the receive layout
+instead: its plan applies the all-to-all's permutation to the slots'
+indices, each kept (token, choice) row is written once into its expert's
+receive rows (``ops.gather_rows``, or on the fp8/int8 wire
+``gather_quantize`` then ``dequantize`` in place), and the combine reads
+each expert output where the expert function left it
+(``ops.combine_reduce``'s gathered form), as DeepEP's and UCCL-EP's LL
+kernels write straight into the receiver's per-expert buffer.  Ranks of a
 two-level ``("pod", "model")`` world lay out row-major as ``(po, pi)``.
 Rank r owns experts ``[r*eps, (r+1)*eps)``; the weights are one tensor and
 are never copied per rank.  Plans run for all ranks in one pass (group ids
@@ -36,10 +44,13 @@ tensors; ``load_phys`` (the psum'd load of each physical slot) is one
 pad of a routing table, as a jnp constant) is the literal -1 here.
 
 Spans (``repro_torch.tracing``) cut both modes into ``ep.plan`` (the world
-plan, slots and counts; HT's dedup'd group plans), ``ep.dispatch`` (the
-payload gather, the wire's quantize and dequantize, the all-to-alls of
-tokens, ids, weights and counts), ``ep.experts`` and ``ep.combine`` (the
-return all-to-all and the weighted combine), never one inside another.
+plan, slots and counts, LL's receive-order tables; HT's dedup'd group
+plans), ``ep.dispatch`` (the payload gather, the wire's quantize and
+dequantize, HT's all-to-alls of tokens, ids and weights), ``ep.experts``
+and ``ep.combine`` (HT's return all-to-all and the weighted combine),
+never one inside another.  Each LL exchange adds one to the counter
+``ep.ll_exchanges`` (once per layer at a graph's capture) and sets the
+gauge ``ep.ll_recv_rows`` to its receive rows, E * P * C.
 """
 from __future__ import annotations
 
@@ -165,18 +176,18 @@ def _ext(x: Tensor, dtype) -> Tensor:
 
 # ================================================= wire-dtype dispatch ====
 def _quantized_a2a(spec: EPSpec, x_ext_f32: Tensor, src_of_slot: Tensor,
-                   counts: Optional[Tensor], axis, G: int) -> Tensor:
-    """Dispatch payloads cross the wire block-quantized.
+                   axis, G: int) -> Tensor:
+    """HT's dispatch payloads cross the wire block-quantized.
 
     One fused gather -> quantize launch for all ranks' slots
-    (``src_of_slot`` (R*n,) rows of the shared table; ``counts`` (R*E,)
-    occupied prefixes or None), the all-to-all of the quantized bytes and
-    the fp32 scales, then one dequantize launch.  fp8 crosses as a ``uint8``
-    view: the wire carries raw bytes.  Returns (R, n, D) fp32.
+    (``src_of_slot`` (R*n,) rows of the shared table), the all-to-all of
+    the quantized bytes and the fp32 scales, then one dequantize launch.
+    fp8 crosses as a ``uint8`` view: the wire carries raw bytes.  Returns
+    (R, n, D) fp32.
     """
     R = spec.degree
     D = x_ext_f32.shape[1]
-    q, sc = kops.gather_quantize(x_ext_f32, src_of_slot, counts,
+    q, sc = kops.gather_quantize(x_ext_f32, src_of_slot,
                                  wire_dtype=spec.wire_dtype)
     n = src_of_slot.shape[0] // R
     nb = sc.shape[1]
@@ -188,6 +199,59 @@ def _quantized_a2a(spec: EPSpec, x_ext_f32: Tensor, src_of_slot: Tensor,
 
 
 # =========================================================== LL mode ======
+class _LLPlan(NamedTuple):
+    """Index tables of one LL exchange (all ranks), E = physical slots."""
+
+    src: Tensor       # (R, E*C) send order: each slot's row of the shared
+                      # (R*T + 1)-row table (R*T: empty)
+    cnt: Tensor       # (R, E) occupied slots a (source rank, expert)
+    src_recv: Tensor  # (E*P*C,) int32, receive order: row e*P*C + r*C + c
+                      # is slot c of source rank r's bucket for expert e
+    cnt_recv: Tensor  # (E, P) int32 occupied rows a (expert, source rank)
+    sel_recv: Tensor  # (R*T, K) int32: each kept choice's receive row, -1
+                      # for a dropped or invalid choice
+    keep: Tensor      # (R, T*K)
+    valid: Tensor     # (R, T*K)
+    counts: Tensor    # (R, E) all valid choices (the plan's counts)
+
+
+def _ll_plan(spec: EPSpec, top_idx: Tensor, C: int) -> _LLPlan:
+    """Plan an LL exchange over physical slots ``top_idx`` (R, T, K).
+
+    The receive-order tables are the permutation the all-to-all and the
+    expert-major layout apply to the payload, applied to the indices (E*P*C
+    of them) instead: the receiver's buffer is then written once, row by
+    row, at its final place."""
+    R, T, K = top_idx.shape
+    E, P, eps = spec.n_physical, spec.degree, spec.physical_per_shard
+    dev = top_idx.device
+    pl = planlib.make_world_plan(top_idx, E, C)
+    flat_e = top_idx.reshape(R, T * K)
+    rank, keep = pl.rank.reshape(R, T * K), pl.keep.reshape(R, T * K)
+    slot = planlib.flat_slots(flat_e, rank, keep, C, E).to(torch.int64)
+    # index-indirection packing: scatter row ids, gather payloads once
+    rows = (torch.arange(T * K, device=dev) // K).expand(R, T * K)
+    src_of_slot = torch.full((R, E * C + 1), T, dtype=torch.int64,
+                             device=dev).scatter_(1, slot, rows)[:, :-1]
+    src = _shared_scratch_rows(src_of_slot, T)                  # (R, E*C)
+    cnt = torch.clamp(pl.counts, max=C)                         # (R, E)
+    # (dest, src, eps, C) -> (dest, eps, src, C) = (E, P*C): the layout the
+    # expert function reads
+    axis = spec.flat_axis()
+    src_recv = _all_to_all(spec, src.to(torch.int32).reshape(R, P, eps * C),
+                           axis).reshape(R, P, eps, C).transpose(
+        1, 2).reshape(E * P * C)
+    # occupancy exchange: per-(dest expert) occupied counts ride along so
+    # the expert kernel skips the capacity padding; layout (E, P sources)
+    cnt_recv = _all_to_all(spec, cnt.reshape(R, P, eps), axis).transpose(
+        1, 2).reshape(E, P)
+    r_of = torch.arange(R, device=dev)[:, None]
+    sel_recv = torch.where(keep, flat_e * (P * C) + r_of * C + rank, -1)
+    return _LLPlan(src, cnt, src_recv, cnt_recv,
+                   sel_recv.to(torch.int32).reshape(R * T, K), keep,
+                   pl.valid.reshape(R, T * K), pl.counts)
+
+
 def dispatch_combine_ll(spec: EPSpec, x: Tensor, top_idx: Tensor,
                         top_w: Tensor, expert_fn: Callable) -> DispatchResult:
     """One-shot per-choice dispatch -> grouped expert FFN -> combine.
@@ -197,78 +261,59 @@ def dispatch_combine_ll(spec: EPSpec, x: Tensor, top_idx: Tensor,
     e // eps, and their (E, P) per-source occupied counts to outputs of the
     same shape — one call (one kernel launch) for the whole world.  Under a
     replicated ``spec.placement`` E counts physical slots.
+
+    The exchange is laid out in the receive layout: each kept (token,
+    choice) row is written once into its expert's receive rows (rows past
+    a count are zero), on the fp8/int8 wire quantized there and
+    dequantized in place, and the combine reads each expert output row
+    where the expert function left it.
     """
     R, T, D = x.shape
     K = spec.top_k
-    E, P, eps = spec.n_physical, spec.degree, spec.physical_per_shard
+    E, P = spec.n_physical, spec.degree
     if R != P:
         raise ValueError(f"{R} ranks stacked for an EP world of {P}")
-    dev = x.device
     # hard_max is T*K, not T: a table may send a token to one expert twice
     C = _cap(T * K / E, spec.capacity_factor, hard_max=T * K)
+    tracing.count("ep.ll_exchanges")
+    tracing.gauge("ep.ll_recv_rows", E * P * C)
 
     with tracing.span("ep.plan"):
         pl_obj = spec.placement_obj()
         if pl_obj is not None:
             top_idx = planlib.split_to_physical_world(pl_obj, top_idx)
-        pl = planlib.make_world_plan(top_idx, E, C)
-        flat_e = top_idx.reshape(R, T * K)
-        rank, keep = pl.rank.reshape(R, T * K), pl.keep.reshape(R, T * K)
-        valid = pl.valid.reshape(R, T * K)
-        slot = planlib.flat_slots(flat_e, rank, keep, C, E).to(torch.int64)
-
-        # index-indirection packing: scatter row ids, gather payloads once
-        rows = (torch.arange(T * K, device=dev) // K).expand(R, T * K)
-        src_of_slot = torch.full((R, E * C + 1), T, dtype=torch.int64,
-                                 device=dev).scatter_(1, slot, rows)[:, :-1]
-        src = _shared_scratch_rows(src_of_slot, T)              # (R, E*C)
-        cnt = torch.clamp(pl.counts, max=C)                     # (R, E)
+        pl = _ll_plan(spec, top_idx, C)
+        counts = pl.cnt_recv.reshape(-1)
     with tracing.span("ep.dispatch"):
         if spec.wire_dtype == "fp32":
-            send = _ext(x, spec.dtype)[src].reshape(R, P, eps * C, D)
-            recv = _all_to_all(spec, send, spec.flat_axis())
+            table = x.reshape(R * T, D).to(spec.dtype).contiguous()
+            recv = kops.gather_rows(table, pl.src_recv, counts,
+                                    sel=pl.sel_recv)
         else:
-            # quantize from the full-precision source, dequantize to fp32
-            deq = _quantized_a2a(spec, _ext(x, torch.float32),
-                                 src.reshape(-1), cnt.reshape(-1),
-                                 spec.flat_axis(), P)
-            recv = deq.to(spec.dtype).reshape(R, P, eps * C, D)
-        # (dest, src, eps, C, D) -> (dest, eps, src, C, D) = (E, P*C, D)
-        recv = recv.reshape(R, P, eps, C, D).transpose(1, 2).reshape(
-            E, P * C, D)
-
-        # occupancy exchange: per-(dest expert) occupied counts ride along
-        # so the expert kernel skips the capacity padding; layout (E, P
-        # sources)
-        cnt_recv = _all_to_all(spec, cnt.reshape(R, P, eps),
-                               spec.flat_axis())
+            # quantize from the full-precision source into the receive
+            # layout: that buffer is the wire, whose bytes carry no
+            # gradient (only the scales do); dequantize to spec.dtype
+            q, sc = kops.gather_quantize(_ext(x, torch.float32), pl.src_recv,
+                                         counts, wire_dtype=spec.wire_dtype)
+            recv = kops.dequantize_tokens(q.detach(), sc, counts, spec.dtype)
+        recv = recv.reshape(E, P * C, D)
     with tracing.span("ep.experts"):
-        out_e = planlib.call_expert_fn(
-            expert_fn, recv, cnt_recv.transpose(1, 2).reshape(E, P))
+        out_e = planlib.call_expert_fn(expert_fn, recv, pl.cnt_recv)
 
     with tracing.span("ep.combine"):
-        back = out_e.reshape(R, eps, P, C, D).transpose(1, 2).reshape(
-            R, P, eps * C, D)
-        back = _all_to_all(spec, back, spec.flat_axis()).reshape(
-            R, E * C, D)
+        # each kept choice's row read where the expert left it, weighted in
+        # fp32, and a token sums its K choices in k order (dropped choices
+        # add 0).  No atomics: eager steps and a captured step's replays
+        # give the same bits
+        out = kops.combine_reduce(out_e.reshape(E * P * C, D),
+                                  top_w.reshape(R * T, K), sel=pl.sel_recv,
+                                  out_dtype=x.dtype)
 
-        # combine: each kept choice gathers its slot's row, weighted in
-        # fp32, and a token sums its K choices in one fixed order (dropped
-        # choices add 0).  No atomics: eager steps and a captured step's
-        # replays give the same bits, where index_add_ on the card adds in
-        # any order
-        w_flat = torch.where(keep, top_w.reshape(R, T * K).to(torch.float32),
-                             0.0)
-        sel = torch.where(keep, flat_e * C + rank, 0).to(torch.int64)
-        contrib = torch.gather(back, 1, sel[..., None].expand(R, T * K, D))
-        contrib = torch.where(keep[..., None], contrib.to(torch.float32)
-                              * w_flat[..., None], 0.0)
-        out = contrib.reshape(R, T, K, D).sum(2)
-
-    dropped = (valid & ~keep).sum(1) / torch.clamp(valid.sum(1), min=1)
-    occupancy = cnt.sum(1) / (E * C)
+    dropped = (pl.valid & ~pl.keep).sum(1) / torch.clamp(pl.valid.sum(1),
+                                                         min=1)
+    occupancy = pl.cnt.sum(1) / (E * C)
     load_phys = pl.counts.sum(0)                                 # psum
-    return DispatchResult(out.to(x.dtype),
+    return DispatchResult(out.reshape(R, T, D),
                           {"dropped": dropped, "occupancy": occupancy,
                            "load_phys": load_phys,
                            "imbalance": planlib.load_imbalance(load_phys)})
@@ -333,7 +378,7 @@ def _wire_dispatch_a2a(spec: EPSpec, x: Tensor, plan: _GroupPlan, axis,
         send = _ext(x, spec.dtype)[plan.src_of_slot].reshape(R, G, C, D)
         return _all_to_all(spec, send, axis)
     rows = _quantized_a2a(spec, _ext(x, torch.float32),
-                          plan.src_of_slot.reshape(-1), None, axis, G)
+                          plan.src_of_slot.reshape(-1), axis, G)
     return rows.to(spec.dtype).reshape(R, G, C, D)
 
 

@@ -1,4 +1,10 @@
 // dequantize: out[r, d] = float(q[r, d]) * scales[r, d / 128], fp32 out.
+// With counts (the LL receive buffer, rows in buckets of C, bucket b's
+// rows at or past cnt[b] empty), an empty row reads nothing and is
+// written as zeros; the output may be bf16, the fp32 product rounded once
+// (__float2bfloat16_rn, as torch casts the fp32 output to bf16 on the
+// card), so the LL decode's expert rows come straight out of
+// the wire in the layout the expert kernel reads (core/ep.py).
 //
 // Replaces the TPU kernel repro/kernels/quantize_pack.py:161
 // dequantize_pallas (body _dq_kernel :153), the receive half of the fp8 /
@@ -11,10 +17,13 @@
 // on the card returns its canonical NaN on both sides).
 //
 // Bound on an H100: bytes (1 byte read and 4 written per element, plus the
-// scales).  Design: the unit of work is kV wire bytes of one row (kV = 4
-// where D % 4 == 0, else 1, so that no unit straddles a row; 4 divides the
-// 128-feature scale block, so a unit takes one scale), read in one load
-// and written as one float4 (one float where kV is 1).  Neighbouring lanes
+// scales; with counts, 1 read and 2 or 4 written per element of an
+// occupied row, 2 or 4 written per element of an empty one).  Design: the
+// unit of work is kV wire bytes of one row (kV = 4 where D % 4 == 0, else
+// 1, so that no unit straddles a row; 4 divides the 128-feature scale
+// block, so a unit takes one scale), read in one load and written as one
+// float4, or 4 bf16 in one 8-byte store (one value where kV is 1); an
+// empty row's unit takes its zeros without a load.  Neighbouring lanes
 // take neighbouring units, so a warp's load reads 128 contiguous bytes and
 // its store writes 512: every sector it touches it fills.  (A thread of
 // 16 wire bytes writes its 64 output bytes as four stores at a 64-byte
@@ -22,6 +31,7 @@
 // on an H100, PERF.md.)  A thread takes kUnits units a block-width apart
 // and issues all their loads before their stores.  A unit's row and column
 // come from one 32-bit division.
+#include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
@@ -61,10 +71,28 @@ __device__ __forceinline__ float4 decode4(unsigned w, float s, bool f8) {
                      __fmul_rn(v[3], s));
 }
 
-template <int kV>
+// 4 values of one unit stored at out + 4 i
+__device__ __forceinline__ void store4(float* out, unsigned i, float4 v) {
+  reinterpret_cast<float4*>(out)[i] = v;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* out, unsigned i, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
+  reinterpret_cast<uint2*>(out)[i] = make_uint2(*reinterpret_cast<const unsigned*>(&lo),
+                                                *reinterpret_cast<const unsigned*>(&hi));
+}
+__device__ __forceinline__ void store1(float* out, unsigned i, float v) { out[i] = v; }
+__device__ __forceinline__ void store1(__nv_bfloat16* out, unsigned i, float v) {
+  out[i] = __float2bfloat16_rn(v);
+}
+
+// cnt null: every row occupied; else row r lies in bucket r / C, occupied
+// below cnt[r / C], and an empty row's unit decodes zero bytes at scale 0
+// (+0) without a load
+template <int kV, typename TO>
 __global__ void __launch_bounds__(kThreads)
 dequantize_kernel(const uint8_t* __restrict__ q, const float* __restrict__ scales,
-                  float* __restrict__ out, unsigned per_row, unsigned total, int nb, int f8) {
+                  const int* __restrict__ cnt, TO* __restrict__ out, unsigned per_row,
+                  unsigned total, int nb, int C, int f8) {
   using T = typename Wire<kV>::T;
   const unsigned first = blockIdx.x * (kThreads * kUnits) + threadIdx.x;
   T w[kUnits] = {};
@@ -74,6 +102,7 @@ dequantize_kernel(const uint8_t* __restrict__ q, const float* __restrict__ scale
     const unsigned i = first + u * kThreads;
     if (i < total) {
       const unsigned r = i / per_row, c = (i - r * per_row) * kV;
+      if (cnt != nullptr && (int)(r % C) >= min(max(cnt[r / C], 0), C)) continue;
       s[u] = scales[(size_t)r * nb + c / kBlock];
       w[u] = reinterpret_cast<const T*>(q)[i];       // bytes r * D + c ...
     }
@@ -83,24 +112,33 @@ dequantize_kernel(const uint8_t* __restrict__ q, const float* __restrict__ scale
     const unsigned i = first + u * kThreads;
     if (i < total) {
       if constexpr (kV == 4)
-        reinterpret_cast<float4*>(out)[i] = decode4(w[u], s[u], f8 != 0);
+        store4(out, i, decode4(w[u], s[u], f8 != 0));
       else
-        out[i] = __fmul_rn(decode1(w[u], f8 != 0), s[u]);
+        store1(out, i, __fmul_rn(decode1(w[u], f8 != 0), s[u]));
     }
   }
 }
 
-template <int kV>
-int launch(const void* q, const void* scales, void* out, int N, int D, int nb, int f8,
-           cudaStream_t stream) {
+template <int kV, typename TO>
+int launch(const void* q, const void* scales, const void* cnt, void* out, int N, int D, int nb,
+           int C, int f8, cudaStream_t stream) {
   constexpr unsigned kPerBlock = kThreads * kUnits;
   const unsigned long long total = (unsigned long long)N * (D / kV);
   if (total > (1ull << 32) - kPerBlock) return static_cast<int>(cudaErrorInvalidValue);
+  if (total == 0) return static_cast<int>(cudaSuccess);
   const unsigned blocks = (unsigned)((total + kPerBlock - 1) / kPerBlock);
-  dequantize_kernel<kV><<<blocks, kThreads, 0, stream>>>(
+  dequantize_kernel<kV, TO><<<blocks, kThreads, 0, stream>>>(
       static_cast<const uint8_t*>(q), static_cast<const float*>(scales),
-      static_cast<float*>(out), (unsigned)(D / kV), (unsigned)total, nb, f8);
+      static_cast<const int*>(cnt), static_cast<TO*>(out), (unsigned)(D / kV), (unsigned)total,
+      nb, C, f8);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename TO>
+int launch_rows(const void* q, const void* scales, const void* cnt, void* out, int N, int D,
+                int nb, int C, int f8, cudaStream_t s) {
+  if (D % 4 == 0) return launch<4, TO>(q, scales, cnt, out, N, D, nb, C, f8, s);
+  return launch<1, TO>(q, scales, cnt, out, N, D, nb, C, f8, s);
 }
 
 }  // namespace
@@ -110,6 +148,16 @@ int launch(const void* q, const void* scales, void* out, int N, int D, int nb, i
 extern "C" int dequantize_launch(const void* q, const void* scales, void* out, int N, int D,
                                  int nb, int f8, void* stream) {
   const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (D % 4 == 0) return launch<4>(q, scales, out, N, D, nb, f8, s);
-  return launch<1>(q, scales, out, N, D, nb, f8, s);
+  return launch_rows<float>(q, scales, nullptr, out, N, D, nb, N, f8, s);
+}
+
+// as dequantize_launch, with the occupied counts cnt (N / C,) int32 (null:
+// every row) and out in bf16 (out_bf16 1) or fp32 (0)
+extern "C" int dequantize_rows_launch(const void* q, const void* scales, const void* cnt,
+                                      void* out, int N, int D, int nb, int C, int f8,
+                                      int out_bf16, void* stream) {
+  const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (out_bf16)
+    return launch_rows<__nv_bfloat16>(q, scales, cnt, out, N, D, nb, C, f8, s);
+  return launch_rows<float>(q, scales, cnt, out, N, D, nb, C, f8, s);
 }

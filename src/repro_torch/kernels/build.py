@@ -44,6 +44,8 @@ SIGNATURES = {
     "gather_quantize_launch": [_P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _F, _F, _I, _P],
     "dequantize_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "dequantize_rows_launch": [_P] * 4 + [_I] * 6 + [_P],
+    "gather_rows_launch": [_P] * 5 + [_I] * 6 + [_P],
     "grouped_swiglu_bwd_launch": [_P] * 18 + [_I] * 5 + [_P],
     "gather_swiglu_scatter_bwd_launch": [_P] * 20 + [_I] * 5 + [_P],
     "dequantize_bwd_launch": [_P] * 3 + [_I] * 4 + [_P],
@@ -58,6 +60,8 @@ SIGNATURES = {
     "decode_attention_paged_launch": [_P] * 9 + [_I] * 9 + [_P],
     "decode_attention_paged_blocks_per_sm": [_I, _I],
     "combine_reduce_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "combine_reduce_gathered_launch": [_P] * 4 + [_I] * 7 + [_P],
+    "combine_dot_launch": [_P] * 4 + [_I] * 6 + [_P],
     "mla_decode_launch": [_P] * 7 + [_I] * 4 + [_F, _P],
     "adamw_norm_partials_launch": [_P, _L, _P, _I, _P],
     "adamw_norm_finish_launch": [_P, _I, _F, _I, _P, _P],

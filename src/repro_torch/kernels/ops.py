@@ -26,6 +26,7 @@ import os
 import torch
 
 from repro_torch.kernels import combine_reduce as _cr
+from repro_torch.kernels import gather_rows as _gr
 from repro_torch.kernels import grouped_matmul as _gm
 from repro_torch.kernels import mamba_scan as _ms
 from repro_torch.kernels import mla as _mla
@@ -61,6 +62,9 @@ KERNELS = {
     "decode_attention_paged": (_na.decode_attention_paged_cuda,
                                _na.decode_attention_paged_plain),
     "combine_reduce": (_cr.combine_reduce_cuda, _cr.combine_reduce_plain),
+    "combine_reduce_bwd": (_cr.combine_reduce_bwd_cuda,
+                           _cr.combine_reduce_bwd_plain),
+    "gather_rows": (_gr.gather_rows_cuda, _gr.gather_rows_plain),
     "mla_decode": (_mla.mla_decode_cuda, _mla.mla_decode_plain),
 }
 # kernels differentiable on the card through an autograd Function over
@@ -71,7 +75,11 @@ TRAIN = {
     "gather_swiglu_scatter": (_gm.GatherSwiGLUScatter.apply,
                               "gather_swiglu_scatter_bwd"),
     "gather_quantize": (_qp.gather_quantize_train, "gather_quantize_bwd"),
-    "dequantize": (_qp.Dequantize.apply, "dequantize_bwd"),
+    "dequantize": (_qp.dequantize_train, "dequantize_bwd"),
+    # the LL exchange's row gather and gathered combine: each one's
+    # backward is the other's kernel (and combine_dot)
+    "gather_rows": (_gr.gather_rows_train, "combine_reduce"),
+    "combine_reduce": (_cr.combine_reduce_train, "combine_reduce_bwd"),
 }
 # the CUDA wrappers as registered, whose ``.launches`` count their kernels'
 # launches whatever stands in ``KERNELS`` for them, and the optimizer's
@@ -153,9 +161,19 @@ def gather_quantize(x_ext, src_of_slot, counts=None, *, wire_dtype: str):
                                            wire_dtype=wire_dtype)
 
 
-def dequantize_tokens(q, scales):
-    """Inverse of :func:`gather_quantize` per row; fp32 out."""
-    return _pick("dequantize", q, scales)(q, scales)
+def dequantize_tokens(q, scales, counts=None, out_dtype=torch.float32):
+    """Inverse of :func:`gather_quantize` per row, in ``out_dtype`` (fp32
+    or bf16); with (B,) ``counts``, the rows at or past their bucket's
+    count are zero and read nowhere."""
+    return _pick("dequantize", q, scales)(q, scales, counts, out_dtype)
+
+
+def gather_rows(table, src, counts=None, *, sel=None):
+    """``out[i] = table[src[i]]`` for the rows below their bucket's count
+    whose ``src`` names a table row; zero elsewhere.  Under autograd on the
+    card ``sel`` (table rows, K), each table row's slots, gives the
+    backward."""
+    return _pick("gather_rows", table)(table, src, counts, sel=sel)
 
 
 def mamba_scan(x, dt, A, B, C, D):
@@ -209,7 +227,10 @@ def mla_decode(q, cache, pos, *, scale: float, v_dim: int):
                                          v_dim=v_dim)
 
 
-def combine_reduce(parts, weights):
+def combine_reduce(parts, weights, sel=None, out_dtype=None):
     """``out[t] = sum_k weights[t, k] * parts[t, k, :]``: parts (T, K, D),
-    weights (T, K) -> (T, D) in parts.dtype, fp32 sums."""
-    return _pick("combine_reduce", parts, weights)(parts, weights)
+    weights (T, K) -> (T, D) in parts.dtype, fp32 sums in k order.  With
+    ``sel`` (T, K), parts are rows (N, D) read at ``sel`` (-1 adds 0), and
+    the output is in ``out_dtype`` (default the rows')."""
+    return _pick("combine_reduce", parts, weights)(parts, weights, sel=sel,
+                                                   out_dtype=out_dtype)

@@ -110,31 +110,53 @@ def gather_quantize_cuda(x_ext: Tensor, src_of_slot: Tensor,
 gather_quantize_cuda.launches = 0
 
 
-def dequantize_plain(q: Tensor, scales: Tensor) -> Tensor:
-    """(N, D) wire dtype + (N, nb) fp32 scales -> (N, D) fp32."""
-    return dequantize_blocked(q, scales)
+def dequantize_plain(q: Tensor, scales: Tensor, counts: Tensor | None = None,
+                     out_dtype: torch.dtype = torch.float32) -> Tensor:
+    """(N, D) wire dtype + (N, nb) fp32 scales -> (N, D) in ``out_dtype``
+    (the fp32 product rounded once).  With ``counts`` (B,), rows in
+    buckets of N / B, a row at or past its bucket's count is zero."""
+    out = dequantize_blocked(q, scales)
+    if counts is not None:
+        out = torch.where(_occupied_slots(q, counts)[:, None], out, 0.0)
+    return out.to(out_dtype)
 
 
-def dequantize_cuda(q: Tensor, scales: Tensor) -> Tensor:
-    """CUDA kernel for :func:`dequantize_plain` (bit-identical)."""
+def dequantize_cuda(q: Tensor, scales: Tensor, counts: Tensor | None = None,
+                    out_dtype: torch.dtype = torch.float32) -> Tensor:
+    """CUDA kernel for :func:`dequantize_plain` (bit-identical): fp32 or
+    bf16 out; with counts, the empty rows are read nowhere."""
     name = "dequantize"
     if q.dtype not in (torch.float8_e4m3fn, torch.int8) or q.dim() != 2:
         raise ValueError(f"{name}: q must be (N, D) float8_e4m3fn or int8")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: out_dtype must be float32 or bfloat16")
     N, D = q.shape
     nb = -(-D // 128)
     if scales.shape != (N, nb) or scales.dtype != torch.float32:
         raise ValueError(f"{name}: scales must be ({N}, {nb}) float32")
-    _check_cuda(name, q=q, scales=scales)
-    out = torch.empty((N, D), dtype=torch.float32, device=q.device)
+    cnt = None
+    if counts is not None:
+        cnt = counts.to(torch.int32).reshape(-1).contiguous()
+        if cnt.numel() == 0 or N % cnt.numel():
+            raise ValueError(f"{name}: {N} rows for {cnt.numel()} buckets")
+    _check_cuda(name, q=q, scales=scales,
+                **({} if cnt is None else {"counts": cnt}))
+    out = torch.empty((N, D), dtype=out_dtype, device=q.device)
     if q.numel() == 0:
         return out
+    f8 = int(q.dtype == torch.float8_e4m3fn)
     lib = build.library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.dequantize_launch(q.data_ptr(), scales.data_ptr(),
-                                    out.data_ptr(), N, D, nb,
-                                    int(q.dtype == torch.float8_e4m3fn),
-                                    stream)
+        if cnt is None and out_dtype == torch.float32:
+            err = lib.dequantize_launch(q.data_ptr(), scales.data_ptr(),
+                                        out.data_ptr(), N, D, nb, f8, stream)
+        else:
+            err = lib.dequantize_rows_launch(
+                q.data_ptr(), scales.data_ptr(),
+                None if cnt is None else cnt.data_ptr(), out.data_ptr(), N,
+                D, nb, N // cnt.numel() if cnt is not None else N, f8,
+                int(out_dtype == torch.bfloat16), stream)
     build.check(err, name)
     dequantize_cuda.launches += 1
     return out
@@ -268,18 +290,30 @@ class GatherQuantize(torch.autograd.Function):
 
 
 class Dequantize(torch.autograd.Function):
-    """``dequantize`` on the card, differentiable in its scales only."""
+    """``dequantize`` on the card, differentiable in its scales only; a
+    bf16 output's upstream is taken in fp32, and the rows past their
+    counts (written as zeros) pass none back."""
 
     @staticmethod
-    def forward(ctx, fwd, bwd, q, scales):
+    def forward(ctx, fwd, bwd, q, scales, counts, out_dtype):
         ctx.bwd = bwd
-        ctx.save_for_backward(q, scales)
-        return fwd(q, scales)
+        ctx.save_for_backward(q, scales, counts)
+        return fwd(q, scales, counts, out_dtype)
 
     @staticmethod
     def backward(ctx, dy):
-        q, scales = ctx.saved_tensors
-        return None, None, None, ctx.bwd(q, scales, dy)
+        q, scales, counts = ctx.saved_tensors
+        dy = dy.to(torch.float32)
+        if counts is not None:
+            dy = torch.where(_occupied_slots(q, counts)[:, None], dy, 0.0)
+        return None, None, None, ctx.bwd(q, scales, dy), None, None
+
+
+def dequantize_train(fwd, bwd, q, scales, counts=None,
+                     out_dtype=torch.float32):
+    """:class:`Dequantize` over the forward wrapper ``fwd`` and the
+    backward wrapper ``bwd``."""
+    return Dequantize.apply(fwd, bwd, q, scales, counts, out_dtype)
 
 
 def gather_quantize_train(fwd, bwd, x_ext, src_of_slot, counts=None, *,

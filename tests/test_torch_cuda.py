@@ -6,12 +6,17 @@ so that it runs where only the port is installed:
 """
 import dataclasses
 import importlib
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+from chip_smoke import all_to_all_ll_exchange  # noqa: E402
 from repro_torch.kernels import combine_reduce as cr  # noqa: E402
 from repro_torch.kernels import grouped_matmul as gm  # noqa: E402
 from repro_torch.kernels import mamba_scan as ms  # noqa: E402
@@ -2298,3 +2303,264 @@ def test_cuda_mla_decode_replays_at_new_positions(cuda_device, B, S):
         eager = mla.mla_decode_cuda(q, cache, _pos(p, cuda_device),
                                     scale=scale, v_dim=512)
         assert torch.equal(out, eager), p
+
+
+# --------------------------------- the LL exchange in the receive layout --
+# the decode cells' exchanges: qwen2-moe (K 4, receive buffer (64, 128,
+# 2048), fp32 wire) and Moonlight (K 6, (64, 192, 2048), fp8 wire); an EP
+# world of 4 ranks of 128 tokens, 64 experts
+LL_CELLS = {"qwen2moe": (4, 2.0, "fp32"), "moonlight": (6, 4.0, "fp8")}
+
+
+def _ll_case(rng, cell, device, skew=0.0):
+    """(spec, x (4, 128, 2048) bf16, top (4, 128, K), w (4, 128, K) fp32,
+    C, the LL plan) from a seeded routing (Gumbel top-K over 64 experts,
+    ``skew`` added to expert 0's logit so that it drops)."""
+    from repro_torch.core import ep
+    K, cf, wire = LL_CELLS[cell]
+    E, R, T, D = 64, 4, 128, 2048
+    spec = ep.EPSpec(axes=("model",), sizes=(R,), n_experts=E, top_k=K,
+                     capacity_factor=cf, dtype=torch.bfloat16, mode="ll",
+                     wire_dtype=wire)
+    g = rng.gumbel(size=(R * T, E))
+    g[:, 0] += skew
+    ti = np.argsort(-g, axis=1)[:, :K].astype(np.int32)
+    tw = rng.random((R * T, K)).astype(np.float32)
+    tw /= tw.sum(-1, keepdims=True)
+    x = _bf16(rng, (R, T, D), device)
+    top = torch.from_numpy(ti).to(device).reshape(R, T, K)
+    w = torch.from_numpy(tw).to(device).reshape(R, T, K)
+    C = ep._cap(T * K / E, cf, hard_max=T * K)
+    return spec, x, top, w, C, ep._ll_plan(spec, top, C)
+
+
+def _bf16_ulp_close(got, want):
+    """Within one bf16 rounding of each other: the same fp32 products,
+    summed over K in k order here and in the reduction's own order there
+    (a few fp32 ulps of the terms apart, which a sum that cancels to near
+    zero magnifies: the 1e-5 of the largest), rounded once to bf16."""
+    g, r = got.float(), want.float()
+    assert torch.isfinite(g).all()
+    bad = (g - r).abs() > 2.0 ** -7 * r.abs() + 1e-5 * r.abs().max()
+    assert not bad.any(), (int(bad.sum()), float((g - r).abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", list(LL_CELLS))
+def test_cuda_gather_rows_matches_plain(cuda_device, cell):
+    """The row gather into the receive layout at the cells' shapes,
+    bit for bit its plain version, into an output that starts as NaN:
+    zeros at and past every count; its weighted form too; one launch a
+    call."""
+    from repro_torch.kernels import gather_rows as gr
+    rng = np.random.default_rng(370)
+    _, x, _, _, C, pl = _ll_case(rng, cell, cuda_device, skew=3.0)
+    table = x.reshape(-1, x.shape[-1])
+    counts = pl.cnt_recv.reshape(-1)
+    n = pl.src_recv.shape[0]
+    before = gr.gather_rows_cuda.launches
+    _poisoned_allocation((n, table.shape[1]), torch.bfloat16, cuda_device)
+    got = gr.gather_rows_cuda(table, pl.src_recv, counts)
+    assert gr.gather_rows_cuda.launches == before + 1
+    assert torch.equal(got.view(torch.int16),
+                       gr.gather_rows_plain(table, pl.src_recv,
+                                            counts).view(torch.int16))
+    live = gr.live_rows(pl.src_recv, counts, table.shape[0])
+    assert (got[~live] == 0).all() and (~live).any() and live.any()
+    w = torch.rand(n, device=cuda_device) * 3 - 1
+    _poisoned_allocation((n, table.shape[1]), torch.bfloat16, cuda_device)
+    got = gr.gather_rows_cuda(table, pl.src_recv, counts, w)
+    assert torch.equal(got.view(torch.int16),
+                       gr.gather_rows_plain(table, pl.src_recv, counts,
+                                            w).view(torch.int16))
+    assert (got[~live] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 131),
+                                     (torch.float32, 37),
+                                     (torch.float32, 200),
+                                     (torch.bfloat16, 8)])
+def test_cuda_gather_rows_narrow_rows(cuda_device, dtype, D):
+    """Rows whose bytes take 2-, 4- and 16-byte vectors, a table base off
+    16 bytes, sources outside the table and no counts: zeros there."""
+    from repro_torch.kernels import gather_rows as gr
+    rng = np.random.default_rng(D)
+    base = torch.from_numpy(rng.standard_normal((41 * D + 1,)).astype(
+        np.float32)).to(cuda_device, dtype)
+    table = base[1:].reshape(41, D)                  # a base 2 or 4 off
+    src = torch.from_numpy(rng.integers(-3, 45, 96).astype(np.int32)).to(
+        cuda_device)
+    for counts in (None, torch.tensor([0, 5, 24, 30], dtype=torch.int32,
+                                      device=cuda_device)):
+        got = gr.gather_rows_cuda(table, src, counts)
+        ref = gr.gather_rows_plain(table, src, counts)
+        assert torch.equal(got, ref)
+        assert (got[~gr.live_rows(src, counts, 41)] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["fp8", "int8"])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_cuda_dequantize_rows_matches_plain(cuda_device, wire, out_dtype):
+    """``dequantize`` with counts over Moonlight's receive buffer (64, 192,
+    2048) as ``gather_quantize`` writes it from the receive-order tables:
+    bit for bit the plain version (the fp32 product rounded once to bf16),
+    into an output that starts as NaN, zeros past every count; and the
+    same rows as the fp32 dequantize followed by a cast."""
+    from repro_torch.core import ep
+    rng = np.random.default_rng(371)
+    _, x, _, _, C, pl = _ll_case(rng, "moonlight", cuda_device, skew=2.0)
+    counts = pl.cnt_recv.reshape(-1)
+    q, s = qp.gather_quantize_cuda(ep._ext(x, torch.float32), pl.src_recv,
+                                   counts, wire_dtype=wire)
+    before = qp.dequantize_cuda.launches
+    _poisoned_allocation(tuple(q.shape), out_dtype, cuda_device)
+    got = qp.dequantize_cuda(q, s, counts, out_dtype)
+    assert qp.dequantize_cuda.launches == before + 1
+    bits = torch.int16 if out_dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(got.view(bits), qp.dequantize_plain(
+        q, s, counts, out_dtype).view(bits))
+    assert torch.equal(got.view(bits), qp.dequantize_cuda(q, s).to(
+        out_dtype).view(bits))
+    occ = qp._occupied_slots(q, counts)
+    assert (got[~occ] == 0).all() and (~occ).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", list(LL_CELLS))
+@pytest.mark.parametrize("w_dtype,out_dtype", [
+    (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)])
+def test_cuda_combine_gathered_matches_plain(cuda_device, cell, w_dtype,
+                                             out_dtype):
+    """The gathered combine over the expert rows where they lie, at the
+    cells' shapes with drops (-1 slots): bit for bit its plain version,
+    and the (T, K, D) kernel on the gathered rows (a dropped choice's row
+    zero); one launch a call."""
+    rng = np.random.default_rng(372)
+    _, x, _, w, C, pl = _ll_case(rng, cell, cuda_device, skew=3.0)
+    sel = pl.sel_recv
+    assert (sel < 0).any()
+    rows = _bf16(rng, (pl.src_recv.shape[0], x.shape[-1]), cuda_device)
+    wt = w.reshape(sel.shape).to(w_dtype)
+    before = cr.combine_reduce_cuda.launches
+    got = cr.combine_reduce_cuda(rows, wt, sel=sel, out_dtype=out_dtype)
+    assert cr.combine_reduce_cuda.launches == before + 1
+    bits = torch.int16 if out_dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(got.view(bits), cr.combine_reduce_plain(
+        rows, wt, sel, out_dtype).view(bits))
+    parts = torch.where((sel >= 0)[..., None], rows[sel.long().clamp(min=0)],
+                        0.0).to(torch.bfloat16)
+    tkd = cr.combine_reduce_cuda(parts, wt).to(out_dtype)
+    if out_dtype == torch.bfloat16:
+        assert torch.equal(got.view(bits), tkd.view(bits))
+
+
+@pytest.mark.cuda
+def test_cuda_ll_functions_give_the_plain_gradients(cuda_device):
+    """Under grad, ``ops`` takes the row gather's, the gathered combine's
+    and the counted dequantize's autograd Functions: their backwards
+    (the combine with unit weights; the weighted row gather and
+    ``combine_dot``; ``dequantize_bwd`` on the rows below their counts)
+    against autograd through the plain versions in fp32; each backward
+    kernel launched."""
+    from repro_torch.core import ep
+    from repro_torch.kernels import gather_rows as gr
+    rng = np.random.default_rng(373)
+    _, x, _, w, C, pl = _ll_case(rng, "moonlight", cuda_device, skew=3.0)
+    table = x.reshape(-1, x.shape[-1]).clone().requires_grad_(True)
+    counts, sel = pl.cnt_recv.reshape(-1), pl.sel_recv
+    g0, c0, b0 = (gr.gather_rows_cuda.launches,
+                  cr.combine_reduce_cuda.launches,
+                  cr.combine_reduce_bwd_cuda.launches)
+    recv = ops.gather_rows(table, pl.src_recv, counts, sel=sel)
+    dy = _bf16(rng, tuple(recv.shape), cuda_device)
+    got = torch.autograd.grad(recv, table, dy)
+    assert cr.combine_reduce_cuda.launches == c0 + 1
+    ref = _autograd_plain(lambda t: gr.gather_rows_plain(
+        t, pl.src_recv, counts), [table], (0,), dy)
+    _bwd_close(got, ref)
+    rows = _bf16(rng, tuple(recv.shape), cuda_device).requires_grad_(True)
+    wt = w.reshape(sel.shape).clone().requires_grad_(True)
+    out = ops.combine_reduce(rows, wt, sel=sel, out_dtype=torch.bfloat16)
+    dout = _bf16(rng, tuple(out.shape), cuda_device)
+    got = torch.autograd.grad(out, [rows, wt], dout)
+    assert cr.combine_reduce_bwd_cuda.launches == b0 + 1
+    assert gr.gather_rows_cuda.launches == g0 + 2
+    ref = _autograd_plain(lambda r, v: cr.combine_reduce_plain(
+        r, v, sel, torch.float32), [rows, wt], (0, 1), dout)
+    _bwd_close(got, ref)
+    assert (got[0][gr.live_rows(pl.src_recv, counts, table.shape[0])
+                   .logical_not()] == 0).all()
+    q, s = qp.gather_quantize_cuda(ep._ext(x, torch.float32), pl.src_recv,
+                                   counts, wire_dtype="fp8")
+    s = s.requires_grad_(True)
+    d0 = qp.dequantize_bwd_cuda.launches
+    deq = ops.dequantize_tokens(q, s, counts, torch.bfloat16)
+    dy = _bf16(rng, tuple(deq.shape), cuda_device)
+    got = torch.autograd.grad(deq, s, dy)
+    assert qp.dequantize_bwd_cuda.launches == d0 + 1
+    ref = _autograd_plain(lambda qq, v: qp.dequantize_plain(
+        qq, v, counts, torch.float32), [q, s], (1,), dy)
+    _bwd_close(got, ref, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", list(LL_CELLS))
+def test_cuda_ll_exchange_matches_the_all_to_all(cuda_device, cell):
+    """``dispatch_combine_ll`` on the card, eager and replayed from a
+    captured graph, against the composition through the all-to-all
+    (``chip_smoke.all_to_all_ll_exchange``) at
+    the cells' shapes with drops: the expert kernel's input rows and
+    counts bit for bit, the output within one bf16 rounding, the same
+    statistics; a replay at new inputs equals an eager call on them bit
+    for bit; the counter ``ep.ll_exchanges`` counts the eager calls and
+    the capture, not the replays, and ``ep.ll_recv_rows`` reads E P C."""
+    from repro_torch import tracing
+    from repro_torch.core import ep
+    from repro_torch.core.moe import expert_fn
+    rng = np.random.default_rng(374)
+    spec, x, top, w, C, pl = _ll_case(rng, cell, cuda_device, skew=3.0)
+    assert (pl.valid & ~pl.keep).any()
+    fn = expert_fn(*_bf16_weights(rng, 64, x.shape[-1], 256, cuda_device))
+    seen = []
+
+    def recording(tokens, counts):
+        seen.append((tokens.clone(), counts.clone()))
+        return fn(tokens, counts)
+    tracing.reset()
+    with torch.inference_mode():
+        got = ep.dispatch_combine_ll(spec, x, top, w, recording)
+        want, recv, cnt, _ = all_to_all_ll_exchange(spec, x, top, w,
+                                                    recording)
+    assert torch.equal(seen[0][0].view(torch.int16), recv.view(torch.int16))
+    assert torch.equal(seen[0][1], cnt)
+    _bf16_ulp_close(got.out, want)
+    wp = ep.planlib.make_world_plan(top, spec.n_physical, C)
+    assert torch.equal(got.aux["load_phys"], wp.counts.sum(0))
+    snap = tracing.snapshot()
+    assert snap["counters"]["ep.ll_exchanges"] == 1
+    assert snap["gauges"]["ep.ll_recv_rows"] == 64 * 4 * C
+    # captured once, replayed at other inputs
+    sx, st, sw = x.clone(), top.clone(), w.clone()
+    with torch.inference_mode():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            ep.dispatch_combine_ll(spec, sx, st, sw, fn)
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            res = ep.dispatch_combine_ll(spec, sx, st, sw, fn)
+        for seed in (375, 376):
+            _, x2, t2, w2, _, _ = _ll_case(np.random.default_rng(seed), cell,
+                                           cuda_device, skew=3.0)
+            sx.copy_(x2), st.copy_(t2), sw.copy_(w2)
+            graph.replay()
+            eager = ep.dispatch_combine_ll(spec, x2, t2, w2, fn)
+            torch.cuda.synchronize()
+            assert torch.equal(res.out.view(torch.int16),
+                               eager.out.view(torch.int16)), seed
+            assert torch.equal(res.aux["dropped"], eager.aux["dropped"])
+    assert tracing.snapshot()["counters"]["ep.ll_exchanges"] == 1 + 2 + 2

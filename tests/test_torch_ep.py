@@ -12,12 +12,16 @@ gathers an expert buffer and scatters the outputs itself, and the
 ``-onearg`` and ``-scale`` cases hand both sides an expert_fn of an older
 form, ``fn(tokens)`` or ``fn(tokens, scale=1.0)`` (``FORMS``)."""
 import dataclasses
+import sys
 import textwrap
+from pathlib import Path
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -37,6 +41,8 @@ from repro_torch.core.backend import (available_backends,  # noqa: E402
 from repro_torch.core.ep import EPSpec, moe_ref  # noqa: E402
 from repro_torch.distributed.sharding import make_dist_ctx  # noqa: E402
 from repro_torch.models import model_zoo as Z  # noqa: E402
+
+from chip_smoke import all_to_all_ll_exchange  # noqa: E402
 
 E, D, F = 8, 160, 24          # D = 160: two wire blocks, the second ragged
 RTOL, ATOL = 3e-4, 3e-5       # tests/test_backends.py:80
@@ -407,3 +413,100 @@ def test_forward_dropped_reads_as_the_reference(dist_runner):
                            dist=make_dist_ctx(cfg, model=2))
     assert ref > 0
     np.testing.assert_allclose(float(aux["dropped"]), ref, rtol=1e-6)
+
+
+# ------------------------------------- the LL exchange's receive layout ---
+# name -> (sizes, axes, wire, capacity_factor, T/rank, K, skew, placement
+# factor, dtype): one and two levels, the three wires, drops, replicated
+# placement (E physical slots = factor x logical)
+LAYOUT_CASES = {
+    "2-fp32": ((2,), ("model",), "fp32", 2.0, 8, 2, False, 1, "bf16"),
+    "4-fp32-f32": ((4,), ("model",), "fp32", 2.0, 8, 2, False, 1, "f32"),
+    "4-fp8": ((4,), ("model",), "fp8", 2.0, 8, 2, False, 1, "bf16"),
+    "4-int8": ((4,), ("model",), "int8", 2.0, 8, 2, False, 1, "f32"),
+    "2x2-fp32": ((2, 2), ("pod", "model"), "fp32", 2.0, 8, 2, False, 1,
+                 "bf16"),
+    "2x2-fp8": ((2, 2), ("pod", "model"), "fp8", 2.0, 8, 2, False, 1,
+                "bf16"),
+    "4-skew-drops-fp32": ((4,), ("model",), "fp32", 1.0, 32, 3, True, 1,
+                          "bf16"),
+    "4-skew-drops-int8": ((4,), ("model",), "int8", 1.0, 32, 3, True, 1,
+                          "bf16"),
+    "4-placement-fp32": ((4,), ("model",), "fp32", 2.0, 16, 3, True, 2,
+                         "bf16"),
+    "2x2-placement-fp8": ((2, 2), ("pod", "model"), "fp8", 1.0, 16, 3, True,
+                          2, "bf16"),
+}
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+@pytest.mark.parametrize("name", list(LAYOUT_CASES))
+def test_ll_receive_layout_rebuilds_the_all_to_all(name):
+    """The LL plan's receive-order tables with the plain row gather (or
+    ``gather_quantize`` and ``dequantize`` with counts) rebuild the
+    receive buffer of the composition through the all-to-all (send
+    gather, all-to-all, layout transpose:
+    ``chip_smoke.all_to_all_ll_exchange``, the oracle the card is held to
+    too) bit for bit, zeros at and past every count; the gathered
+    ``combine_reduce_plain`` over the expert rows where they lie equals the
+    (T, K, D) form on the rows that composition gathered, bit for bit; and
+    the drops are the plan's."""
+    from repro_torch.core import ep
+    from repro_torch.core import plan as planlib
+    from repro_torch.kernels import combine_reduce as cr
+    from repro_torch.kernels import gather_rows as gr
+    from repro_torch.kernels import quantize_pack as qp
+    sizes, axes, wire, cf, T, K, skew, factor, dt = LAYOUT_CASES[name]
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dt]
+    R = int(np.prod(sizes))
+    x, ti, tw = _inputs(400 + list(LAYOUT_CASES).index(name), R, T, K, skew)
+    placement = (planlib.replicate_uniform(E, factor).key() if factor > 1
+                 else None)
+    spec = EPSpec(axes=axes, sizes=sizes, n_experts=E, top_k=K,
+                  capacity_factor=cf, dtype=dtype, mode="ll",
+                  wire_dtype=wire, placement=placement)
+    xt = torch.from_numpy(x).reshape(R, T, D).to(dtype)
+    logical = torch.from_numpy(ti).reshape(R, T, K)
+    top = logical
+    if spec.placement_obj() is not None:
+        top = planlib.split_to_physical_world(spec.placement_obj(), top)
+    En, P = spec.n_physical, spec.degree
+    C = ep._cap(T * K / En, cf, hard_max=T * K)
+    pl = ep._ll_plan(spec, top, C)
+    noise = torch.randn((En, P * C, D), generator=torch.Generator()
+                        .manual_seed(7))
+
+    def experts(rows, counts):
+        return (rows.float() * 1.5 + noise).to(dtype)
+    w = torch.from_numpy(tw).reshape(R * T, K)
+    want, want_cnt, parts = all_to_all_ll_exchange(spec, xt, logical,
+                                                   w.reshape(R, T, K),
+                                                   experts)[1:]
+    assert torch.equal(pl.cnt_recv, want_cnt)
+    counts = pl.cnt_recv.reshape(-1)
+    if wire == "fp32":
+        got = gr.gather_rows_plain(xt.reshape(R * T, D).to(dtype),
+                                   pl.src_recv, counts)
+    else:
+        q, sc = qp.gather_quantize_plain(ep._ext(xt, torch.float32),
+                                         pl.src_recv, counts, wire_dtype=wire)
+        got = qp.dequantize_plain(q, sc, counts, dtype)
+    got = got.reshape(En, P * C, D)
+    assert got.dtype == want.dtype == dtype
+    assert torch.equal(_bits(got), _bits(want))
+    occ = planlib.occupancy_mask(pl.cnt_recv, En, P * C)
+    assert (got[~occ] == 0).all() and (~occ).any()
+    assert int(occ.sum()) == int(pl.keep.sum())
+    # the combine: the expert rows where they lie against the all-to-all's
+    # gathered (T, K, D) parts
+    out_e = experts(got, pl.cnt_recv)
+    fused = cr.combine_reduce_plain(out_e.reshape(-1, D), w, pl.sel_recv,
+                                    out_dtype=dtype)
+    assert torch.equal(_bits(fused), _bits(cr.combine_reduce_plain(parts, w)))
+    # the skewed tables drop; replicas of the hot expert take its load
+    dropped = (pl.valid & ~pl.keep).any()
+    assert bool(dropped) == (skew and factor == 1)
+    assert bool(((pl.sel_recv < 0).reshape(R, T * K) == ~pl.keep).all())

@@ -9,7 +9,8 @@ The four EP kernels' plain backward functions (``grouped_swiglu``,
 bytes bitcast to ``uint8`` and back, ``dequantize_ref``), whose gradient
 flows through the fp32 block scales alone.  Then ``loss_fn``'s loss and
 every gradient of a reduced qwen2-moe whose router sends every token to
-expert 0 (so HT and LL drop) for LL, and HT on the fp8 and int8 wires,
+expert 0 (so HT and LL drop) for LL on the fp32 and fp8 wires, and HT on
+the fp8 and int8 wires,
 over EP worlds model = 2 and (pod 2, model 2), and three ``train_loop``
 steps over model = 2, against the reference in ONE subprocess with 4 fake
 CPU devices.  Everything in fp32."""
@@ -296,9 +297,10 @@ S = 64
 WORLDS = [("model2", (1, 2), ("data", "model"), dict(model=2)),
           ("pod2x2", (2, 1, 2), ("pod", "data", "model"),
            dict(model=2, pod=2))]
-# (mode, wire): LL on the fp32 wire (its dispatch rows through the grouped
-# SwiGLU), HT on the two quantized wires (the fused kernel, the wire)
-MODES = [("ll", "fp32"), ("ht", "fp8"), ("ht", "int8")]
+# (mode, wire): LL on the fp32 and fp8 wires (its dispatch rows through
+# the grouped SwiGLU, written into the receive layout), HT on the two
+# quantized wires (the fused kernel, the wire)
+MODES = [("ll", "fp32"), ("ht", "fp8"), ("ht", "int8"), ("ll", "fp8")]
 # batch 2 over model = 2 (64 tokens a rank), 4 over (pod 2, model 2) (2
 # sequences a pod, 64 tokens a rank): past LL's capacity floor of 32 at
 # the skewed expert, so LL drops too

@@ -162,7 +162,8 @@ def test_ops_dispatch_cpu_takes_plain_version():
                                 "grouped_swiglu_bwd",
                                 "gather_swiglu_scatter_bwd",
                                 "gather_quantize_bwd", "dequantize_bwd",
-                                "mla_decode"}
+                                "mla_decode", "gather_rows",
+                                "combine_reduce_bwd"}
 
 
 @pytest.mark.parametrize("name", ["grouped_swiglu", "gather_swiglu_scatter",
@@ -173,12 +174,16 @@ def test_ops_dispatch_cpu_takes_plain_version():
                                   "grouped_swiglu_bwd",
                                   "gather_swiglu_scatter_bwd",
                                   "gather_quantize_bwd", "dequantize_bwd",
-                                  "mla_decode"])
+                                  "mla_decode", "gather_rows",
+                                  "combine_reduce_bwd", "combine_gathered",
+                                  "dequantize_rows"])
 def test_cuda_wrapper_refuses_cpu_tensors(name):
     """A CUDA wrapper launches its kernel or raises: on CPU tensors it
     raises before touching the kernel library and counts no launch."""
     x, wg, wu, wd = _small_case(torch.bfloat16)
-    cuda = ops.KERNELS[name][0]
+    form = {"combine_gathered": "combine_reduce",
+            "dequantize_rows": "dequantize"}
+    cuda = ops.KERNELS[form.get(name, name)][0]
     before = cuda.launches
     args = {
         "grouped_swiglu": lambda: cuda(x, wg, wu, wd, None),
@@ -217,6 +222,18 @@ def test_cuda_wrapper_refuses_cpu_tensors(name):
             torch.zeros((2, 16, 576), dtype=torch.bfloat16),
             torch.zeros((2, 8, 576), dtype=torch.bfloat16),
             torch.zeros((), dtype=torch.int32), scale=0.1, v_dim=512),
+        "gather_rows": lambda: cuda(x[0], torch.arange(8),
+                                    torch.tensor([3, 4])),
+        "combine_reduce_bwd": lambda: cuda(
+            x[0], torch.ones((2, 3)), torch.zeros((2, 3), dtype=torch.int32),
+            torch.zeros((2, 16), dtype=torch.bfloat16)),
+        "combine_gathered": lambda: cuda(
+            x[0], torch.ones((2, 3)), sel=torch.zeros((2, 3),
+                                                      dtype=torch.int32),
+            out_dtype=torch.float32),
+        "dequantize_rows": lambda: cuda(
+            torch.zeros((4, 16), dtype=torch.int8), torch.ones((4, 1)),
+            torch.tensor([1, 2]), torch.bfloat16),
     }[name]
     with pytest.raises(ValueError):
         args()

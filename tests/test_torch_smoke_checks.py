@@ -868,3 +868,172 @@ def test_surface_phase_on_the_cpu():
     assert wp["ht_skewed"]["kept"] + wp["ht_skewed"]["n_dropped"] == (
         wp["ht_skewed"]["valid"])
     assert S * B // P * 4 <= wp["ht"]["valid"]
+
+
+# ------------------------------------------- the LL exchange's checks ---
+def _ll_plan_case(wire="fp32", skew=True, factor=1, seed=0):
+    """(spec, x (4, 64, 256) bf16, logical top (4, 64, 2), weights, C, the
+    LL plan over physical slots) over 8 experts, an EP world of 4 at
+    capacity factor 1 (``skew``: expert 0 hot, so that choices drop)."""
+    from repro_torch.core import ep
+    from repro_torch.core import plan as planlib
+    R, T, K, E, D = 4, 64, 2, 8, 256
+    g = torch.Generator().manual_seed(seed)
+    logits = torch.randn((R, T, E), generator=g)
+    if skew:
+        logits[..., 0] += 4.0
+    w, top = torch.softmax(logits, -1).topk(K, dim=-1)
+    placement = (planlib.replicate_uniform(E, factor).key() if factor > 1
+                 else None)
+    spec = ep.EPSpec(axes=("model",), sizes=(R,), n_experts=E, top_k=K,
+                     capacity_factor=1.0, dtype=torch.bfloat16, mode="ll",
+                     wire_dtype=wire, placement=placement)
+    x = torch.randn((R, T, D), generator=g).to(torch.bfloat16)
+    phys = top.to(torch.int32)
+    if placement is not None:
+        phys = planlib.split_to_physical_world(spec.placement_obj(), phys)
+    C = ep._cap(T * K / spec.n_physical, 1.0, hard_max=T * K)
+    return spec, x, top.to(torch.int32), w, C, ep._ll_plan(spec, phys, C)
+
+
+@pytest.mark.parametrize("wire,factor", [("fp32", 1), ("fp8", 1),
+                                         ("int8", 1), ("fp32", 2)])
+def test_all_to_all_ll_exchange_meets_dispatch_combine_ll(wire, factor):
+    """The oracle chip_smoke's ll-exchange phase holds the card to, on the
+    CPU: the receive layout gives the expert function the rows and counts
+    of the all-to-all composition bit for bit, and the output within one
+    bf16 rounding (the phase's own limit), with choices dropped."""
+    from repro_torch.core import ep
+    spec, x, top, w, C, pl = _ll_plan_case(wire, factor=factor)
+    if factor == 1:
+        assert (pl.valid & ~pl.keep).any()
+    seen = []
+
+    def grab(rows, counts):
+        seen.append((rows.clone(), counts.clone()))
+        return rows
+    got = ep.dispatch_combine_ll(spec, x, top, w, grab).out
+    ref = chip_smoke.all_to_all_ll_exchange(spec, x, top, w,
+                                        chip_smoke.ll_identity)
+    assert torch.equal(seen[0][0].view(torch.int16),
+                       ref.recv.view(torch.int16))
+    assert torch.equal(seen[0][1], ref.counts)
+    g, r = got.float(), ref.out.float()
+    assert float(((g - r).abs() / (r.abs() + 1e-5 * 2.0 ** 7
+                                   * r.abs().max())).max()) <= 2.0 ** -7
+
+
+@pytest.mark.parametrize("factor", [1, 2])
+def test_gather_rows_library_call_is_the_same_function(factor):
+    """The yardstick beside the row gather, the table with a zero row
+    appended and indexed by the receive-order table, gives the plain
+    version's rows bit for bit: every slot past its count names the zero
+    row."""
+    from repro_torch.kernels import gather_rows as gr
+    spec, x, _, _, C, pl = _ll_plan_case(factor=factor)
+    table = x.reshape(-1, x.shape[-1])
+    counts = pl.cnt_recv.reshape(-1)
+    lib = chip_smoke.library_call("gather_rows", (table, pl.src_recv, counts),
+                                  {})
+    want = gr.gather_rows_plain(table, pl.src_recv, counts)
+    assert torch.equal(lib().view(torch.int16), want.view(torch.int16))
+    assert chip_smoke.library_call(
+        "gather_rows", (table, pl.src_recv, counts, counts), {}) is None
+
+
+@pytest.mark.parametrize("name", ["gather_rows", "dequantize",
+                                  "combine_reduce", "combine_reduce_bwd"])
+def test_ll_bounds_count_the_rows_each_form_moves(name):
+    """chip_smoke's bound for the LL exchange's calls: the occupied (or
+    live) rows read, every row written in its dtype, and the tables."""
+    from repro_torch.kernels import quantize_pack as qp
+    from repro_torch.core import ep
+    spec, x, _, w, C, pl = _ll_plan_case("fp8")
+    R, T, D = x.shape
+    K = spec.top_k
+    counts = pl.cnt_recv.reshape(-1)
+    n = pl.src_recv.shape[0]
+    occ = int(counts.clamp(max=n // counts.numel()).sum())
+    kept = int((pl.sel_recv >= 0).sum())
+    rows = torch.randn((n, D)).to(torch.bfloat16)
+    wt = w.reshape(R * T, K).float()
+    if name == "gather_rows":
+        args, kw = (x.reshape(-1, D), pl.src_recv, counts), {}
+        want = (occ + n) * D * 2 + n * 4 + counts.numel() * 4
+    elif name == "dequantize":
+        q, s = qp.gather_quantize_plain(ep._ext(x, torch.float32),
+                                        pl.src_recv, counts, wire_dtype="fp8")
+        args, kw = (q, s, counts, torch.bfloat16), {}
+        want = occ * (D + s.shape[1] * 4) + n * D * 2 + counts.numel() * 4
+        # without counts, as before: a byte read and fp32 written a value
+        assert chip_smoke.bound(name, (q, s, None, torch.float32), {})[2][
+            "bytes"] == q.numel() * 5 + s.numel() * 4
+    elif name == "combine_reduce":
+        args, kw = (rows, wt), {"sel": pl.sel_recv, "out_dtype": x.dtype}
+        want = kept * D * 2 + R * T * K * 8 + R * T * D * 2
+    else:
+        dout = torch.randn((R * T, D)).to(torch.bfloat16)
+        args, kw = (rows, wt, pl.sel_recv, dout), {}
+        want = (R * T * D * 2 + (kept + n) * D * 2 + R * T * K * 12 + n * 8)
+    ms, by, work = chip_smoke.bound(name, args, kw)
+    assert work["bytes"] == want and by == "bytes"
+    assert ms == pytest.approx(want / chip_smoke.HBM_BYTES_PER_S * 1e3)
+
+
+def test_recorder_keeps_one_case_a_shape_of_tensor_keywords():
+    """A keyword tensor (the combine's ``sel``) keys a case by its shape,
+    not by the object, and a dtype argument keys it too; each case keeps
+    copies of its tensors."""
+    rec = chip_smoke.Recorder(lambda *a, **k: None)
+    a = torch.zeros(4, 2)
+    for _ in range(3):
+        rec(a, torch.float32, sel=torch.zeros(4, 2, dtype=torch.int32))
+    rec(a, torch.bfloat16, sel=torch.zeros(4, 2, dtype=torch.int32))
+    rec(a, torch.float32, sel=torch.zeros(5, 2, dtype=torch.int32))
+    assert len(rec.cases) == 3
+    (args, kw), = [c for k, c in rec.cases.items() if k[1][0][1] == (5, 2)]
+    assert args[0] is not a and kw["sel"].shape == (5, 2)
+
+
+def test_autograd_grads_combine_reduce_bwd_meets_the_plain_backward():
+    """The gathered combine's backward by autograd through the plain
+    forward in fp32 against ``combine_reduce_bwd_plain``: the rows'
+    gradient one bf16 rounding apart, the weights' to fp32 sums; both
+    within the kernel's limit, and a -1 slot's weight gradient zero."""
+    from repro_torch.kernels import combine_reduce as cr
+    spec, x, _, w, C, pl = _ll_plan_case()
+    R, T, D = x.shape
+    n = pl.src_recv.shape[0]
+    g = torch.Generator().manual_seed(3)
+    rows = torch.randn((n, D), generator=g).to(torch.bfloat16)
+    dout = torch.randn((R * T, D), generator=g).to(torch.bfloat16)
+    args = (rows, w.reshape(R * T, -1).float(), pl.sel_recv, dout)
+    ref = chip_smoke.autograd_grads("combine_reduce_bwd", args, {})
+    got = cr.combine_reduce_bwd_plain(*args)
+    tol = chip_smoke.KERNEL_TOL["combine_reduce_bwd"]
+    for a, b in zip(got, ref):
+        assert float((a.float() - b).abs().max()) <= tol * float(
+            b.abs().max())
+    assert (ref[1][pl.sel_recv < 0] == 0).all() and (pl.sel_recv < 0).any()
+
+
+def test_ll_decode_launches_wants_one_a_layer_a_step():
+    """The served decode's LL launches: one a MoE layer a step of the
+    wire's kernel and of the combine; an extra launch fails."""
+    from repro_torch.launch.serve import WARMUP_STEPS
+    cfg = reduced_config(get_config("qwen2_moe_a2_7b"), n_layers=3)
+    L = 3
+    res = {"graph_replays": 5, "captured_launches": {
+        "gather_rows": L, "combine_reduce": L, "dequantize": 0}}
+    res8 = {"graph_replays": 2, "captured_launches": {
+        "gather_rows": 0, "combine_reduce": L, "dequantize": L}}
+    after = {"gather_rows": L * (WARMUP_STEPS + 5),
+             "combine_reduce": L * (WARMUP_STEPS + 5), "dequantize": 7}
+    both = {"gather_rows": after["gather_rows"],
+            "combine_reduce": after["combine_reduce"]
+            + L * (WARMUP_STEPS + 2), "dequantize": 20}
+    chip_smoke.ll_decode_launches(cfg, res, res8, after, both)
+    with pytest.raises(AssertionError, match="one a MoE layer"):
+        chip_smoke.ll_decode_launches(cfg, res, res8, after,
+                                      {**both, "gather_rows": both[
+                                          "gather_rows"] + 1})
